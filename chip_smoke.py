@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch + CUDA port (``sd_animation_optical_flow_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; nothing falls back to the CPU):
+ 1. print the card (name, power limit) and the f32 matmul/conv precision;
+ 2. build the CUDA kernels from ``sd_animation_optical_flow_tpu_torch/csrc``;
+ 3. hold each kernel against its plain PyTorch version at the SD-1.5
+    512x768 main path's shapes in bf16, and time kernel, plain version
+    and one PyTorch library call for the same function;
+ 4. one UNet evaluation at full SD-1.5 width on the card (bf16, kernels)
+    against the same weights and inputs on the CPU in f32 (plain
+    versions);
+ 5. drive the main path — ``create_model("sd15")`` with random weights,
+    ``img2img`` on one 512x768 image at strength 0.4, 50 steps, CFG 7 —
+    with ``sampler="ddim"`` and ``"dpmpp:10"``, check the output and that
+    every kernel's launch count went up, time each frame, and profile
+    one frame of each (device busy time, top kernels);
+ 6. print the kernel table as one JSON line, the card line, and the
+    result line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is
+# the larger of bytes / memory rate and operations / bf16 tensor-core rate
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+H, W = 512, 768                 # image size of the main path
+STRENGTH, STEPS, CFG = 0.4, 50, 7.0
+SEED = 1234
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per call over ``iters`` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _attn_case(gen, b, nq, nk, h, d, self_attn):
+    """q/k/v laid out as the UNet makes them: self-attention slices q, k
+    and v out of one fused [B, N, 3*H*D] projection, cross-attention
+    takes a contiguous q and slices k, v out of one [B, Nk, 2*H*D]."""
+    mk = lambda n, parts: torch.randn(
+        (b, n, parts * h * d), generator=gen, device="cuda",
+        dtype=torch.float32).to(torch.bfloat16)
+    heads = lambda t: t.reshape(b, t.shape[1], h, d)
+    if self_attn:
+        q, k, v = (heads(t) for t in mk(nq, 3).chunk(3, dim=-1))
+    else:
+        q = heads(mk(nq, 1))
+        k, v = (heads(t) for t in mk(nk, 2).chunk(2, dim=-1))
+    flops = 4.0 * b * h * nq * nk * d
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
+    return (q, k, v), flops, nbytes
+
+
+def _sdpa(q, k, v):
+    # library yardstick on its own [B, H, N, D] layout
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def check_kernels():
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    from sd_animation_optical_flow_tpu_torch.ops import ffn as FF
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rows = []
+
+    def record(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
+               tol, source, replaces, iters):
+        out = kernel_fn()
+        torch.cuda.synchronize()
+        ref = plain_fn()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rms = ref.float().pow(2).mean().sqrt().item()
+        finite = bool(torch.isfinite(out).all())
+        ok = finite and err <= tol * scale
+        ms = cuda_ms(kernel_fn, iters)
+        plain_ms = cuda_ms(plain_fn, max(2, iters // 4))
+        lib_ms = cuda_ms(library_fn, iters) if library_fn else None
+        bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                             flops / PEAK_BF16_FLOPS)
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "max_abs_err": err,
+               "tol": tol * scale, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S
+               > flops / PEAK_BF16_FLOPS else "operations",
+               "library_ms": lib_ms, "ok": ok}
+        log(f"[kernel] {name}: max|err| {err:.3e} (tol {tol * scale:.3e} ="
+            f" {tol:g} * max|plain| {scale:.3e}; rms(plain) {rms:.3e}) "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain "
+            f"{plain_ms:.3f} ms  library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}  bound "
+            f"{bound_ms:.4f} ms ({row['bound_by']})")
+        rows.append(row)
+
+    tpv_src = "sd_animation_optical_flow_tpu_torch/csrc/attention.cu"
+    tpv_rep = "sd_animation_optical_flow_tpu/ops/attention.py:135"
+    # every tolerance is relative to the largest output of the plain
+    # version, with no floor: 2e-2 of it is ~2.5 bf16 ulps there (both
+    # sides round to bf16 at the end; the kernel rounds unnormalised
+    # probabilities, the plain version normalised ones)
+    attn_tol = 2e-2
+    for label, (b, nq, nk, h, d) in {
+            "self L0": (2, 6144, 6144, 8, 40),
+            "self L1": (2, 1536, 1536, 8, 80),
+            "cross L0": (2, 6144, 231, 8, 40),
+            "cross L1": (2, 1536, 231, 8, 80)}.items():
+        (q, k, v), flops, nbytes = _attn_case(gen, b, nq, nk, h, d,
+                                              label.startswith("self"))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        record(f"flash_attention_tpv [{label}]",
+               lambda: A.flash_attention_tpv(q, k, v),
+               lambda: A.xla_attention(q, k, v),
+               lambda: _sdpa(qt, kt, vt), flops, nbytes, attn_tol,
+               tpv_src, tpv_rep, iters=10)
+
+    (q, k, v), flops, nbytes = _attn_case(gen, 1, 6144, 6144, 1, 512,
+                                          True)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    record("flash_attention [VAE mid]", lambda: A.flash_attention(q, k, v),
+           lambda: A.xla_attention(q, k, v), lambda: _sdpa(qt, kt, vt),
+           flops, nbytes, attn_tol, tpv_src,
+           "sd_animation_optical_flow_tpu/ops/attention.py:62", iters=5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    m, din = 12288, 320
+    x = randn(m, din)
+    lns = 1.0 + 0.1 * torch.randn(din, generator=gen, device="cuda")
+    lnb = 0.1 * torch.randn(din, generator=gen, device="cuda")
+    ffn_src = "sd_animation_optical_flow_tpu_torch/csrc/ffn.cu"
+    # outputs are sums of din bf16 products rounded to bf16: 2e-2 of the
+    # plain version's largest output, as for attention
+    ffn_tol = 2e-2
+    for label, dout in (("QKV", 3 * din), ("Q", din)):
+        w = randn(dout, din, scale=1.0 / math.sqrt(din))
+        record(f"linear_ln_fused [{label}]",
+               lambda: FF.linear_ln_fused(x, w, lns, lnb),
+               lambda: FF.linear_ln_plain(x, w, lns, lnb, 1e-5),
+               lambda: torch.nn.functional.layer_norm(
+                   x, (din,), lns.to(x.dtype), lnb.to(x.dtype)) @ w.t(),
+               2.0 * m * din * dout,
+               2.0 * (x.numel() + w.numel() + m * dout) + 8.0 * din,
+               ffn_tol, ffn_src,
+               "sd_animation_optical_flow_tpu/ops/ffn.py:192", iters=20)
+
+    dff = 4 * din
+    w1 = randn(2 * dff, din, scale=1.0 / math.sqrt(din))
+    b1 = randn(2 * dff, scale=1.0 / math.sqrt(din))
+    w2 = randn(din, dff, scale=1.0 / math.sqrt(dff))
+    b2 = randn(din, scale=1.0 / math.sqrt(dff))
+
+    def geglu_library():
+        F = torch.nn.functional
+        hh, g = F.linear(F.layer_norm(x, (din,), lns.to(x.dtype),
+                                      lnb.to(x.dtype)), w1, b1).chunk(2, -1)
+        return x + F.linear(hh * F.gelu(g), w2, b2)
+
+    record("geglu_ff_fused [L0 tail]",
+           lambda: FF.geglu_ff_fused(x, w1, b1, w2, b2, lns, lnb,
+                                     residual=True),
+           lambda: FF.geglu_ff_plain(x, w1, b1, w2, b2, lns, lnb, 1e-5,
+                                      True),
+           geglu_library, 2.0 * m * din * 2 * dff + 2.0 * m * dff * din,
+           2.0 * (2 * x.numel() + w1.numel() + b1.numel() + w2.numel()
+                  + b2.numel()) + 8.0 * din,
+           ffn_tol, ffn_src, "sd_animation_optical_flow_tpu/ops/ffn.py:54",
+           iters=20)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the model
+# ---------------------------------------------------------------------------
+
+def perturb_zero_convs(params, gen):
+    """Give the zero-initialised output convs (resblock out_conv,
+    transformer proj_out, the final conv) small random weights, so every
+    attention reaches the output."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                if key in ("out_conv", "proj_out", "conv") \
+                        and isinstance(sub, dict) and "w" in sub \
+                        and not sub["w"].any():
+                    w = sub["w"]
+                    bound = 0.1 / math.sqrt(w[0].numel())
+                    sub["w"] = ((torch.rand(w.shape, generator=gen,
+                                            device=w.device) * 2 - 1)
+                                * bound).to(w.dtype).contiguous(
+                        memory_format=torch.channels_last)
+                else:
+                    walk(sub)
+        elif isinstance(tree, list):
+            for sub in tree:
+                walk(sub)
+    walk(params)
+
+
+def to_cpu_f32(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu_f32(v) for v in tree]
+    return tree.float().cpu().contiguous()
+
+
+def check_unet_against_cpu(sd, gen):
+    """One CFG UNet evaluation (stem dedup) on the card in bf16 against
+    the same weights and inputs on the CPU in f32 (plain versions)."""
+    from sd_animation_optical_flow_tpu_torch.models import unet as U
+    x = torch.randn((1, H // 8, W // 8, 4), generator=gen, device="cuda")
+    t = torch.full((1,), 401, dtype=torch.int32, device="cuda")
+    ctx_c = sd.get_learned_conditioning("a watercolor fox in the snow")
+    ctx_u = sd.get_learned_conditioning("")
+    out_gpu, _ = U.unet_apply(sd.unet_params, sd.unet_cfg,
+                              x.to(torch.bfloat16), t, None,
+                              context_pair=(ctx_u, ctx_c))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_cpu, _ = U.unet_apply(to_cpu_f32(sd.unet_params), sd.unet_cfg,
+                              x.cpu(), t.cpu(), None,
+                              context_pair=(ctx_u.float().cpu(),
+                                            ctx_c.float().cpu()))
+    diff = out_gpu.float().cpu() - out_cpu
+    rel = (diff.norm() / out_cpu.norm()).item()
+    log(f"[unet] card bf16 vs CPU f32, one CFG eval at 64x96 latent: "
+        f"rel L2 err {rel:.4e}, |out| rms {out_cpu.pow(2).mean().sqrt():.4f}"
+        f" (CPU {time.time() - t0:.1f} s)")
+    return rel
+
+
+def run_main_path(sd, kernels, gen, repeats: int = 2):
+    """img2img per sampler: one run with the launch counters reset just
+    before it and read just after, then ``repeats`` timed runs (the
+    frame time is their minimum; host clock, synchronized)."""
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    img = torch.rand((1, H, W, 3), generator=gen, device="cuda") * 2 - 1
+
+    def frame(sampler):
+        out, _ = F.img2img(sd, img, "a watercolor fox in the snow",
+                           "lowres, blurry", STRENGTH, ddim_steps=STEPS,
+                           cfg_scale=CFG, seed=SEED, sampler=sampler)
+        torch.cuda.synchronize()
+        return out
+
+    results = {}
+    for sampler in ("ddim", "dpmpp:10"):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        out = frame(sampler)
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        times = []
+        for _ in range(repeats):
+            t0 = time.time()
+            frame(sampler)
+            times.append(time.time() - t0)
+        ok_shape = tuple(out.shape) == (1, H, W, 3)
+        ok_range = bool(torch.isfinite(out).all()) \
+            and out.abs().max().item() <= 1.0
+        log(f"[main] img2img sampler={sampler}: {min(times):.3f} s/frame "
+            f"(runs {', '.join(f'{t:.3f}' for t in times)}), shape "
+            f"{tuple(out.shape)} finite-in-range {ok_range}, std "
+            f"{out.float().std().item():.4f}, launches {counts}")
+        results[sampler] = (min(times), counts, ok_shape and ok_range)
+        profile_frame(lambda: frame(sampler), sampler)
+    return results
+
+
+def profile_frame(run, label, top: int = 8):
+    """One frame under torch.profiler: device busy time (sum of kernel
+    times on the one stream) against the profiled frame's wall time, and
+    the kernels that take the most device time. Profiling adds host
+    overhead, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        wall_ms = 1e3 * (time.time() - t0)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy_ms == 0:
+        log(f"[profile] {label}: no device time recorded (not measured)")
+        return
+    log(f"[profile] {label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms"
+        f" profiled wall (idle share {1 - busy_ms / wall_ms:.3f}); "
+        f"{sum(e.count for e in kern)} kernel launches")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[profile] {label}:   {e.self_device_time_total / 1e3:8.2f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from sd_animation_optical_flow_tpu_torch import config as C
+        from sd_animation_optical_flow_tpu_torch.ops import _cuda
+        from sd_animation_optical_flow_tpu_torch.ops import attention as A
+        from sd_animation_optical_flow_tpu_torch.ops import ffn as FF
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})",
+              file=sys.stderr)
+        return 2
+    failures = []
+    card = card_line()
+    log(f"[card] {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[precision] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+        f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.time()
+    so = _cuda.build()
+    _cuda.library()
+    log(f"[build] {so.name} in {time.time() - t0:.1f} s: attn_mma_kernel, "
+        "attn_mma_wide_kernel (csrc/attention.cu); linear_ln_kernel, "
+        "geglu_kernel (csrc/ffn.cu)")
+    ptxas = so.with_suffix(".log").read_text()
+    for line in ptxas.splitlines():
+        if "spill" in line and " 0 bytes spill stores" not in line:
+            log(f"[ptxas] {line.strip()}")
+
+    rows = check_kernels()
+    failures += [r["name"] for r in rows if not r["ok"]]
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    t0 = time.time()
+    sd = C.create_model("sd15", dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    perturb_zero_convs(sd.unet_params, gen)
+    log(f"[model] sd15 random init on the card in {time.time() - t0:.1f} s")
+
+    kernels = {"flash_attention_tpv": A.flash_attention_tpv,
+               "flash_attention": A.flash_attention,
+               "linear_ln_fused": FF.linear_ln_fused,
+               "geglu_ff_fused": FF.geglu_ff_fused}
+    unet_rel = check_unet_against_cpu(sd, gen)
+    # bf16 through 16 transformer blocks and 25 resblocks of random
+    # weights against f32: a few percent of the output's norm
+    if not math.isfinite(unet_rel) or unet_rel > 0.1:
+        failures.append(f"unet card-vs-cpu rel err {unet_rel:.3e} > 0.1")
+
+    main = run_main_path(sd, kernels, gen)
+    for sampler, (secs, counts, ok) in main.items():
+        if not ok:
+            failures.append(f"img2img {sampler}: bad output")
+        for name, n in counts.items():
+            if n == 0:
+                failures.append(f"img2img {sampler}: {name} never launched")
+    log(f"[main] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    table = []
+    for name, fn in kernels.items():
+        mine = [r for r in rows if r["name"].startswith(name + " ")]
+        launches = sum(c[name] for _, c, _ in main.values())
+        for r in mine:
+            table.append({k: r[k] for k in (
+                "name", "route", "source", "replaces")}
+                | {"launches": launches}
+                | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")})
+    log(json.dumps({"kernels": table}))
+    log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
+                    "unet_rel_err": unet_rel, "card": card}))
+    if failures:
+        for f in failures:
+            print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+        return 1
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

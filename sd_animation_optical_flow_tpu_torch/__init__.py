@@ -1,0 +1,36 @@
+"""sd_animation_optical_flow_tpu_torch — the PyTorch + CUDA port of
+``sd_animation_optical_flow_tpu`` for one NVIDIA H100.
+
+The JAX package stays the reference; this package mirrors its module
+tree and public names and imports neither JAX nor the JAX package. The
+TPU's Pallas kernels become hand-written CUDA kernels for Hopper
+(``csrc/``, built at first use; see ``ops/_cuda.py``). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Ported so far: the SD-1.5 img2img main path —
+
+    from sd_animation_optical_flow_tpu_torch import create_model, img2img
+    sd = create_model("sd15", dtype=torch.bfloat16)       # random weights
+    img, _ = img2img(sd, image, prompt, negative, 0.4, sampler="dpmpp:10")
+"""
+
+_LAZY = {
+    "create_model": ("sd_animation_optical_flow_tpu_torch.config",
+                     "create_model"),
+    "load_spec": ("sd_animation_optical_flow_tpu_torch.config", "load_spec"),
+    "BundleSpec": ("sd_animation_optical_flow_tpu_torch.config",
+                   "BundleSpec"),
+    "StableDiffusionBundle": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.facades",
+        "StableDiffusionBundle"),
+    "img2img": ("sd_animation_optical_flow_tpu_torch.pipelines.facades",
+                "img2img"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(name)

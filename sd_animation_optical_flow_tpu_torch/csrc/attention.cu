@@ -1,0 +1,443 @@
+// Flash-attention forward kernels for Hopper (sm_90a), plain C interface
+// for ctypes (ops/_cuda.py builds and loads this file).
+//
+// Computes out = softmax(q k^T / sqrt(d)) v for bf16 q [B, Nq, H, D] and
+// k/v [B, Nk, H, D] (D a multiple of 8, up to 512; any strides along B,
+// N, H that are multiples of 8; unit stride along D; 16-byte tile loads),
+// writing a contiguous [B, Nq, H, D] output. Softmax in f32 with a
+// TRACKED running max (online softmax), so the result does not rely on
+// bounded logits. One block per (b*h, query tile), a loop over key tiles
+// inside the block in place of the TPU's sequential grid axis; the ragged
+// last key tile (Nk = 231 for the 3x77 prompt) is masked to -inf.
+//
+// Replaces two Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
+// attention.py (the Python wrappers keep their names and counters):
+//
+//   _flash_kernel_tpv (flash_attention_tpv: UNet self-attention at >= 1536
+//     tokens, d = 40 / 80, and the short-K cross-attention)
+//     -> attn_mma_kernel: a warp per 16 query rows; q k^T and p v both on
+//     the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d
+//     zero-padded to a multiple of 16 in shared memory. The score tile's
+//     accumulator fragments are, rounded to bf16, the A fragments of the
+//     p v product, so p never leaves registers. The TPU kernel's
+//     transposed PV only filled the 128-lane MXU at d = 40; not needed here.
+//   _flash_kernel (flash_attention: the VAE mid-block attention, one
+//     head, d = 512)
+//     -> attn_mma_wide_kernel: an output row of 512 f32 does not fit a
+//     warp's registers next to its scores, so 8 warps share 32 query rows:
+//     each computes the scores of 8 keys of the tile, the softmax
+//     statistics go through shared memory, and each warp owns 64 output
+//     columns of the p v product. Tiles take ~180 KB of dynamic shared
+//     memory (opted in above 48 KB).
+//
+// What bounds them on this card: at SD shapes attention is compute-bound
+// (4*N^2*D operations on ~4*N*D*2 bytes). These kernels use mma.sync
+// without pipelining the tile loads (no cp.async / TMA, no wgmma), so
+// they sit several times above the tensor-core bound; wgmma + TMA tiling
+// is the next step.
+
+#include <math.h>
+
+#include "mma.cuh"
+
+namespace {
+
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, H, Nq, Nk;
+  long long qsb, qsn, qsh;
+  long long ksb, ksn, ksh;
+  long long vsb, vsn, vsh;
+  float scale_log2;  // softmax scale * log2(e): scores live in the log2 domain
+};
+
+// ---------------------------------------------------------------------------
+// attn_mma_kernel: bf16, D up to 128 (the tpv route)
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows per block
+constexpr int MMA_BK = 64;              // keys per shared-memory tile
+
+template <int DP>  // head dim padded to a multiple of 16
+__global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, int D) {
+  constexpr int LD = DP + 8;       // tile row stride: conflict-free ldmatrix
+  constexpr int KS = DP / 16;      // k-steps of q k^T
+  constexpr int NT = MMA_BK / 8;   // 8-key column tiles of a score tile
+  constexpr int DN = DP / 8;       // 8-wide column tiles of the output
+  static_assert(MMA_BQ == MMA_BK, "q is staged in the k tile");
+  __shared__ __align__(16) bf16 ks[MMA_BK * LD];  // also stages q
+  __shared__ __align__(16) bf16 vs[MMA_BK * LD];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int q0 = blockIdx.x * MMA_BQ, r0 = warp * 16;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
+
+  load_rows(ks, LD, q + q0 * a.qsn, a.qsn, MMA_BQ, a.Nq - q0, D, DP);
+  __syncthreads();
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) ldsm_a(qa[s], ks, LD, r0, s * 16, lane);
+
+  float o[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+
+  for (int k0 = 0; k0 < a.Nk; k0 += MMA_BK) {
+    const int nvalid = min(MMA_BK, a.Nk - k0);
+    __syncthreads();  // q fragments taken / previous tile consumed
+    load_rows(ks, LD, k + k0 * a.ksn, a.ksn, MMA_BK, nvalid, D, DP);
+    load_rows(vs, LD, v + k0 * a.vsn, a.vsn, MMA_BK, nvalid, D, DP);
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kb[2];
+        ldsm_b(kb, ks, LD, n * 8, kk * 16, lane);
+        mma_bf16(s[n], qa[kk], kb[0], kb[1]);
+      }
+    }
+    // scale into the log2 domain, mask the ragged tile, running max;
+    // nvalid >= 1, so the max is finite after the first tile
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = n * 8 + 2 * t + (i & 1);
+        s[n][i] = key < nvalid ? s[n][i] * a.scale_log2 : -INFINITY;
+        if (i < 2)
+          mx0 = fmaxf(mx0, s[n][i]);
+        else
+          mx1 = fmaxf(mx1, s[n][i]);
+      }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = exp2f(s[n][0] - mn0);
+      s[n][1] = exp2f(s[n][1] - mn0);
+      s[n][2] = exp2f(s[n][2] - mn1);
+      s[n][3] = exp2f(s[n][3] - mn1);
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
+    }
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        uint32_t vb[2];
+        ldsm_bt(vb, vs, LD, j * 16, n * 8, lane);
+        mma_bf16(o[n], pa, vb[0], vb[1]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  bf16* out = static_cast<bf16*>(a.o);
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int d = n * 8 + 2 * t + c;
+      if (d >= D) continue;
+      if (row0 < a.Nq)
+        out[((static_cast<long long>(b) * a.Nq + row0) * a.H + h) * D + d] =
+            __float2bfloat16(o[n][c] * inv0);
+      if (row1 < a.Nq)
+        out[((static_cast<long long>(b) * a.Nq + row1) * a.H + h) * D + d] =
+            __float2bfloat16(o[n][2 + c] * inv1);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// attn_mma_wide_kernel: bf16, D up to 512 (the VAE mid-block route)
+// ---------------------------------------------------------------------------
+
+constexpr int WM_WARPS = 8;
+constexpr int WM_BQ = 32;  // two 16-row m-tiles
+constexpr int WM_BK = 8 * WM_WARPS;  // one 8-key score tile per warp
+constexpr int WM_LDP = WM_BK + 8;  // probability tile row stride
+constexpr int WM_LDS = WM_BK + 4;  // score tile row stride
+
+size_t wide_mma_smem(int DP) {
+  const size_t ld = DP + 8;
+  return sizeof(bf16) * (WM_BQ * ld + 2 * WM_BK * ld + WM_BQ * WM_LDP) +
+         sizeof(float) * (WM_BQ * WM_LDS + 3 * WM_BQ);
+}
+
+template <int NDT>  // 8-wide output column tiles per warp; DP = 64 * NDT
+__global__ void __launch_bounds__(32 * WM_WARPS) attn_mma_wide_kernel(AttnArgs a, int D) {
+  constexpr int DP = 8 * WM_WARPS * NDT;
+  constexpr int LD = DP + 8;
+  constexpr int KS = DP / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
+  bf16* ks = qs + WM_BQ * LD;                 // [BK][LD]
+  bf16* vs = ks + WM_BK * LD;                 // [BK][LD]
+  bf16* ps = vs + WM_BK * LD;                 // [BQ][LDP] probabilities
+  float* ss = reinterpret_cast<float*>(ps + WM_BQ * WM_LDP);  // [BQ][LDS] scores
+  float* row_m = ss + WM_BQ * WM_LDS;
+  float* row_l = row_m + WM_BQ;
+  float* row_a = row_l + WM_BQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int q0 = blockIdx.x * WM_BQ;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
+
+  load_rows(qs, LD, q + q0 * a.qsn, a.qsn, WM_BQ, a.Nq - q0, D, DP);
+  if (threadIdx.x < WM_BQ) {
+    row_m[threadIdx.x] = -INFINITY;
+    row_l[threadIdx.x] = 0.f;
+  }
+  float o[2][NDT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) o[m][n][0] = o[m][n][1] = o[m][n][2] = o[m][n][3] = 0.f;
+
+  for (int k0 = 0; k0 < a.Nk; k0 += WM_BK) {
+    const int nvalid = min(WM_BK, a.Nk - k0);
+    __syncthreads();  // previous tile's p v done
+    load_rows(ks, LD, k + k0 * a.ksn, a.ksn, WM_BK, nvalid, D, DP);
+    load_rows(vs, LD, v + k0 * a.vsn, a.vsn, WM_BK, nvalid, D, DP);
+    __syncthreads();
+
+    // scores of keys [8 * warp, 8 * warp + 8) for both m-tiles
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kb[2];
+      ldsm_b(kb, ks, LD, warp * 8, kk * 16, lane);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        uint32_t qa[4];
+        ldsm_a(qa, qs, LD, 16 * m, kk * 16, lane);
+        mma_bf16(s[m], qa, kb[0], kb[1]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 16 * m + g + (i >= 2 ? 8 : 0);
+        const int col = warp * 8 + 2 * t + (i & 1);
+        ss[row * WM_LDS + col] = col < nvalid ? s[m][i] * a.scale_log2 : -INFINITY;
+      }
+    __syncthreads();
+
+    // softmax statistics: a warp per 4 rows, a lane per 2 keys (key 0 of
+    // the tile is always real, so the max is finite)
+    for (int r = warp * (WM_BQ / WM_WARPS); r < (warp + 1) * (WM_BQ / WM_WARPS); ++r) {
+      const float v0 = ss[r * WM_LDS + lane], v1 = ss[r * WM_LDS + lane + 32];
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(v0, v1)));
+      const float p0 = exp2f(v0 - m_new), p1 = exp2f(v1 - m_new);
+      const float sum = warp_sum(p0 + p1);
+      ps[r * WM_LDP + lane] = __float2bfloat16(p0);
+      ps[r * WM_LDP + lane + 32] = __float2bfloat16(p1);
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - m_new);
+        row_a[r] = alpha;
+        row_l[r] = row_l[r] * alpha + sum;
+        row_m[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // p v for this warp's output columns
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float al0 = row_a[16 * m + g], al1 = row_a[16 * m + g + 8];
+#pragma unroll
+      for (int n = 0; n < NDT; ++n) {
+        o[m][n][0] *= al0;
+        o[m][n][1] *= al0;
+        o[m][n][2] *= al1;
+        o[m][n][3] *= al1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WM_BK / 16; ++j) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) ldsm_a(pa[m], ps, WM_LDP, 16 * m, 16 * j, lane);
+#pragma unroll
+      for (int n = 0; n < NDT; ++n) {
+        uint32_t vb[2];
+        ldsm_bt(vb, vs, LD, 16 * j, (warp * NDT + n) * 8, lane);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_bf16(o[m][n], pa[m], vb[0], vb[1]);
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(a.o);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int r0 = 16 * m + g, r1 = r0 + 8;
+    const float inv0 = 1.f / row_l[r0], inv1 = 1.f / row_l[r1];
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = (warp * NDT + n) * 8 + 2 * t + c;
+        if (d >= D) continue;
+        if (q0 + r0 < a.Nq)
+          out[((static_cast<long long>(b) * a.Nq + q0 + r0) * a.H + h) * D + d] =
+              __float2bfloat16(o[m][n][c] * inv0);
+        if (q0 + r1 < a.Nq)
+          out[((static_cast<long long>(b) * a.Nq + q0 + r1) * a.H + h) * D + d] =
+              __float2bfloat16(o[m][n][2 + c] * inv1);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+cudaError_t opt_in_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
+  const dim3 grid((a.Nq + MMA_BQ - 1) / MMA_BQ, a.B * a.H);
+  const int threads = 32 * MMA_WARPS;
+  switch ((D + 15) / 16) {
+#define SDAOF_MMA_CASE(NK)                                            \
+  case NK:                                                            \
+    attn_mma_kernel<16 * NK><<<grid, threads, 0, st>>>(a, D);         \
+    return cudaGetLastError();
+    SDAOF_MMA_CASE(1)
+    SDAOF_MMA_CASE(2)
+    SDAOF_MMA_CASE(3)
+    SDAOF_MMA_CASE(4)
+    SDAOF_MMA_CASE(5)
+    SDAOF_MMA_CASE(6)
+    SDAOF_MMA_CASE(7)
+    SDAOF_MMA_CASE(8)
+#undef SDAOF_MMA_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int NDT>
+cudaError_t launch_mma_wide_n(const AttnArgs& a, int D, cudaStream_t st) {
+  const size_t smem = wide_mma_smem(8 * WM_WARPS * NDT);
+  const cudaError_t err =
+      opt_in_smem(reinterpret_cast<const void*>(attn_mma_wide_kernel<NDT>), smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Nq + WM_BQ - 1) / WM_BQ, a.B * a.H);
+  attn_mma_wide_kernel<NDT><<<grid, 32 * WM_WARPS, smem, st>>>(a, D);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma_wide(const AttnArgs& a, int D, cudaStream_t st) {
+  switch ((D + 63) / 64) {
+    case 1: return launch_mma_wide_n<1>(a, D, st);
+    case 2: return launch_mma_wide_n<2>(a, D, st);
+    case 3: return launch_mma_wide_n<3>(a, D, st);
+    case 4: return launch_mma_wide_n<4>(a, D, st);
+    case 5: return launch_mma_wide_n<5>(a, D, st);
+    case 6: return launch_mma_wide_n<6>(a, D, st);
+    case 7: return launch_mma_wide_n<7>(a, D, st);
+    case 8: return launch_mma_wide_n<8>(a, D, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the 16-byte tile loads need D % 8 == 0, 16-byte aligned bases and
+// strides that are multiples of 8 elements
+bool aligned(const AttnArgs& a, int D) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v);
+  const long long strides = a.qsb | a.qsn | a.qsh | a.ksb | a.ksn | a.ksh | a.vsb | a.vsn | a.vsh;
+  return D % 8 == 0 && (ptrs & 15) == 0 && (strides & 7) == 0;
+}
+
+}  // namespace
+
+// bf16 only. wide = 0: d <= 128 takes the attn_mma_kernel, wide = 1 (or
+// d > 128): the attn_mma_wide_kernel. Refuses unaligned inputs (see
+// aligned()). Returns a cudaError_t code (0 = ok).
+extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void* o, int B,
+                               int H, int Nq, int Nk, int D, long long qsb, long long qsn,
+                               long long qsh, long long ksb, long long ksn, long long ksh,
+                               long long vsb, long long vsn, long long vsh, float scale_log2,
+                               int wide, int device, void* stream) {
+  if (D < 1 || D > 512 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  AttnArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.B = B;
+  a.H = H;
+  a.Nq = Nq;
+  a.Nk = Nk;
+  a.qsb = qsb;
+  a.qsn = qsn;
+  a.qsh = qsh;
+  a.ksb = ksb;
+  a.ksn = ksn;
+  a.ksh = ksh;
+  a.vsb = vsb;
+  a.vsn = vsn;
+  a.vsh = vsh;
+  a.scale_log2 = scale_log2;
+  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!wide && D <= 128) return launch_mma(a, D, st);
+  return launch_mma_wide(a, D, st);
+}
+
+extern "C" const char* sdaof_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

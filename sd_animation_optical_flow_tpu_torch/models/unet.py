@@ -1,0 +1,352 @@
+"""SD-1.5 UNet on torch tensors — the main route.
+
+Counterpart of ``sd_animation_optical_flow_tpu/models/unet.py``: 320 base
+channels, mult (1,2,4,4), 2 res blocks per level, spatial transformers
+at downsample factors 1/2/4, 8 heads, context dim 768, and the CFG stem
+dedup (``context_pair``). NHWC activations at the public functions;
+attention in the [B, N, H, D] layout of ``ops/attention.py``.
+
+Ported: ``unet_init``, ``unet_apply`` with and without ``context_pair``.
+Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): K/V injection (``ref_kv``), ControlNet residuals (``control``),
+attention biases and MFR strips, sequence parallelism (``sp``),
+class conditioning (``y`` / ``num_classes``) and DeepCache.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..ops.attention import attention
+from ..ops.ffn import (geglu_ff_fused, geglu_ff_plain, linear_ln_fused,
+                      linear_ln_plain)
+from .layers import (Init, conv2d, conv2d_init, group_norm, linear,
+                     linear_init, norm_init, swish, timestep_embedding,
+                     upsample2x_conv)
+
+# SD-1.5 has 16 spatial transformers: 6 encoder, 1 middle, 9 decoder.
+NUM_KV_LAYERS = 16
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    attention_resolutions: Sequence[int] = (4, 2, 1)
+    channel_mult: Sequence[int] = (1, 2, 4, 4)
+    num_heads: int = 8
+    transformer_depth: int = 1
+    context_dim: int = 768
+    num_classes: Optional[int] = None
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.model_channels * 4
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported to the torch package "
+                              f"yet (ROADMAP §1 item {item})")
+
+
+# ---------------------------------------------------------------------------
+# sub-block init
+# ---------------------------------------------------------------------------
+
+def _resblock_init(init: Init, in_ch, out_ch, emb_dim):
+    p = {
+        "in_norm": norm_init(init, in_ch),
+        "in_conv": conv2d_init(init, in_ch, out_ch, 3),
+        "emb_lin": linear_init(init, emb_dim, out_ch),
+        "out_norm": norm_init(init, out_ch),
+        "out_conv": conv2d_init(init, out_ch, out_ch, 3, zero=True),
+    }
+    if in_ch != out_ch:
+        p["skip"] = conv2d_init(init, in_ch, out_ch, 1)
+    return p
+
+
+def _resblock(p, x, emb):
+    h = swish(group_norm(p["in_norm"], x))
+    h = conv2d(p["in_conv"], h)
+    h = h + linear(p["emb_lin"], swish(emb))[:, None, None, :]
+    h = swish(group_norm(p["out_norm"], h))
+    h = conv2d(p["out_conv"], h)
+    if "skip" in p:
+        x = conv2d(p["skip"], x)
+    return x + h
+
+
+def _attn_proj_init(init: Init, dim, context_dim, inner):
+    return {
+        "to_q": linear_init(init, dim, inner, bias=False),
+        "to_k": linear_init(init, context_dim, inner, bias=False),
+        "to_v": linear_init(init, context_dim, inner, bias=False),
+        "to_out": linear_init(init, inner, dim),
+    }
+
+
+def _transformer_block_init(init: Init, dim, context_dim):
+    return {
+        "norm1": norm_init(init, dim),
+        "attn1": _attn_proj_init(init, dim, dim, dim),
+        "norm2": norm_init(init, dim),
+        "attn2": _attn_proj_init(init, dim, context_dim, dim),
+        "norm3": norm_init(init, dim),
+        "ff_proj": linear_init(init, dim, dim * 8),   # GEGLU
+        "ff_out": linear_init(init, dim * 4, dim),
+    }
+
+
+def _spatial_transformer_init(init: Init, ch, context_dim, depth):
+    return {
+        "norm": norm_init(init, ch),
+        "proj_in": conv2d_init(init, ch, ch, 1),
+        "blocks": [_transformer_block_init(init, ch, context_dim)
+                   for _ in range(depth)],
+        "proj_out": conv2d_init(init, ch, ch, 1, zero=True),
+    }
+
+
+# ---------------------------------------------------------------------------
+# attention forward
+# ---------------------------------------------------------------------------
+
+def _heads(x, n_heads):
+    b, n, c = x.shape
+    return x.reshape(b, n, n_heads, c // n_heads)
+
+
+def _merge_heads(x):
+    b, n, h, d = x.shape
+    return x.reshape(b, n, h * d)
+
+
+def _fused_route(x) -> bool:
+    """Gate for the LN-prologue projection and GEGLU kernels (the JAX
+    gates minus their TPU test): bf16, feature dim <= 640, at least 4096
+    rows. Other shapes take the plain chain, as JAX leaves them to XLA;
+    on the CPU the routed call computes its plain version too."""
+    n_rows = x.shape[0] * x.shape[1] if x.ndim == 3 else x.shape[0]
+    return (x.shape[-1] <= 640 and n_rows >= 4096
+            and x.dtype == torch.bfloat16)
+
+
+def _self_attention(p, x, n_heads, pre_ln):
+    """Self-attention with the block's norm1 folded into one fused
+    [C, 3C] QKV projection; returns (out, (k, v)) with k/v [B, N, C]."""
+    wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]],
+                     dim=0).to(x.dtype)
+    proj = linear_ln_fused if _fused_route(x) else linear_ln_plain
+    q, k, v = proj(x, wqkv, pre_ln["scale"], pre_ln["bias"]).chunk(3, dim=-1)
+    out = attention(_heads(q, n_heads), _heads(k, n_heads),
+                    _heads(v, n_heads))
+    return linear(p["to_out"], _merge_heads(out)), (k, v)
+
+
+def _cross_attention(p, x, context, n_heads, pre_ln):
+    # LN2 feeds only the Q projection (K/V come from the context)
+    proj = linear_ln_fused if _fused_route(x) else linear_ln_plain
+    q = proj(x, p["to_q"]["w"], pre_ln["scale"], pre_ln["bias"])
+    wkv = torch.cat([p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
+    k, v = (context.to(x.dtype) @ wkv.t()).chunk(2, dim=-1)
+    out = attention(_heads(q, n_heads), _heads(k, n_heads),
+                    _heads(v, n_heads))
+    return linear(p["to_out"], _merge_heads(out))
+
+
+def _ff_tail(p, x):
+    """The transformer-block tail ``x + FF(LN3(x))``: the fused GEGLU
+    kernel (LN prologue, residual epilogue) on the JAX package's gate,
+    else the plain composition."""
+    ff = geglu_ff_fused if _fused_route(x) else geglu_ff_plain
+    return ff(x, p["ff_proj"]["w"], p["ff_proj"]["b"], p["ff_out"]["w"],
+              p["ff_out"]["b"], p["norm3"]["scale"], p["norm3"]["bias"],
+              residual=True)
+
+
+def _spatial_transformer(p, x, context, n_heads, cfg_pair=None):
+    """Returns (out, kv_list) — one (k, v) per depth block.
+
+    ``cfg_pair=(ctx_u, ctx_c)``: CFG stem dedup — ``x`` arrives at HALF
+    the CFG batch, the self-attention runs once on it, and the batch
+    doubles at the cross-attention where the two contexts first differ.
+    Returns a full-batch output."""
+    b, h, w, c = x.shape
+    res = x
+    x = group_norm(p["norm"], x, eps=1e-6)
+    x = conv2d(p["proj_in"], x)
+    x = x.reshape(b, h * w, c)
+    kvs = []
+    expand = cfg_pair is not None
+    for blk in p["blocks"]:
+        a1, kv = _self_attention(blk["attn1"], x, n_heads, blk["norm1"])
+        x = x + a1
+        kvs.append(kv)
+        if expand:
+            x = torch.cat([x, x], dim=0)
+            context = torch.cat([cfg_pair[0], cfg_pair[1]],
+                                dim=0).to(x.dtype)
+            res = torch.cat([res, res], dim=0)
+            b = x.shape[0]
+            expand = False
+        x = x + _cross_attention(blk["attn2"], x, context, n_heads,
+                                 blk["norm2"])
+        x = _ff_tail(blk, x)
+    x = x.reshape(b, h, w, c)
+    x = conv2d(p["proj_out"], x)
+    return x + res, kvs
+
+
+# ---------------------------------------------------------------------------
+# UNet init / apply
+# ---------------------------------------------------------------------------
+
+def unet_init(init: Init, cfg: UNetConfig = UNetConfig()):
+    if cfg.num_classes is not None:
+        _not_ported("class conditioning (num_classes)", "10")
+    mc = cfg.model_channels
+    ted = cfg.time_embed_dim
+    p: dict = {"time_embed": [linear_init(init, mc, ted),
+                              linear_init(init, ted, ted)]}
+    input_blocks: list = [{"conv": conv2d_init(init, cfg.in_channels, mc, 3)}]
+    ch = mc
+    input_chans = [mc]
+    ds = 1
+    for lvl, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            blk = {"res": _resblock_init(init, ch, mult * mc, ted)}
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                blk["transformer"] = _spatial_transformer_init(
+                    init, ch, cfg.context_dim, cfg.transformer_depth)
+            input_blocks.append(blk)
+            input_chans.append(ch)
+        if lvl != len(cfg.channel_mult) - 1:
+            input_blocks.append({"down": conv2d_init(init, ch, ch, 3)})
+            input_chans.append(ch)
+            ds *= 2
+    p["input_blocks"] = input_blocks
+    p["middle"] = {
+        "res1": _resblock_init(init, ch, ch, ted),
+        "transformer": _spatial_transformer_init(
+            init, ch, cfg.context_dim, cfg.transformer_depth),
+        "res2": _resblock_init(init, ch, ch, ted),
+    }
+    output_blocks = []
+    for lvl, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            skip_ch = input_chans.pop()
+            blk = {"res": _resblock_init(init, ch + skip_ch, mult * mc, ted)}
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                blk["transformer"] = _spatial_transformer_init(
+                    init, ch, cfg.context_dim, cfg.transformer_depth)
+            if lvl != 0 and i == cfg.num_res_blocks:
+                blk["up"] = conv2d_init(init, ch, ch, 3)
+                ds //= 2
+            output_blocks.append(blk)
+    p["output_blocks"] = output_blocks
+    p["out"] = {"norm": norm_init(init, ch),
+                "conv": conv2d_init(init, ch, cfg.out_channels, 3,
+                                    zero=True)}
+    return p
+
+
+def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
+               ref_kv: Optional[Tuple] = None,
+               control: Optional[Tuple] = None,
+               attn_biases: Optional[dict] = None,
+               y: Optional[torch.Tensor] = None,
+               strip=None, sp=None,
+               context_pair: Optional[Tuple] = None):
+    """Forward pass.
+
+    Args:
+      x: [B, H, W, in_channels] latents.
+      timesteps: [B] diffusion timesteps.
+      context: [B, L, context_dim] text conditioning.
+      context_pair: optional (ctx_u, ctx_c) — CFG stem dedup. ``x`` and
+        ``timesteps`` arrive at HALF the CFG batch; the stem (input conv,
+        first resblock, first self-attention) runs once and the batch
+        doubles at the first cross-attention. Output batch is 2B
+        ([uncond|cond]); ``context`` is ignored.
+      ref_kv, control, attn_biases, y, strip, sp: not ported yet; passing
+        any of them raises NotImplementedError.
+
+    Returns:
+      (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
+    """
+    if ref_kv is not None:
+        _not_ported("K/V injection (ref_kv)", "8")
+    if control is not None:
+        _not_ported("ControlNet residuals (control)", "9")
+    if attn_biases is not None or strip is not None:
+        _not_ported("attention biases and MFR strips", "9")
+    if sp is not None:
+        _not_ported("sequence parallelism (sp)", "11")
+    if y is not None or cfg.num_classes is not None:
+        _not_ported("class conditioning (y / num_classes)", "10")
+    nh = cfg.num_heads
+    t_emb = timestep_embedding(timesteps, cfg.model_channels, dtype=x.dtype)
+    emb = linear(params["time_embed"][1],
+                 swish(linear(params["time_embed"][0], t_emb)))
+
+    half = context_pair is not None
+    ctx = None if half else context
+    kv_hist: list = []
+    hs = []
+
+    def tfm(p, h):
+        nonlocal half, emb, ctx, hs
+        if not half:
+            h, kvs = _spatial_transformer(p, h, ctx, nh)
+            kv_hist.extend(kvs)
+            return h
+        h, kvs = _spatial_transformer(p, h, None, nh, cfg_pair=context_pair)
+        kv_hist.extend(kvs)
+        half = False
+        emb = torch.cat([emb, emb], dim=0)
+        ctx = torch.cat([context_pair[0], context_pair[1]],
+                        dim=0).to(h.dtype)
+        # skips recorded before the expansion double here
+        hs = [torch.cat([s, s], dim=0) for s in hs]
+        return h
+
+    h = x
+    for blk in params["input_blocks"]:
+        if "conv" in blk:
+            h = conv2d(blk["conv"], h)
+        elif "down" in blk:
+            h = conv2d(blk["down"], h, stride=2, padding=1)
+        else:
+            h = _resblock(blk["res"], h, emb)
+            if "transformer" in blk:
+                h = tfm(blk["transformer"], h)
+        hs.append(h)
+
+    h = _resblock(params["middle"]["res1"], h, emb)
+    h = tfm(params["middle"]["transformer"], h)
+    h = _resblock(params["middle"]["res2"], h, emb)
+
+    for blk in params["output_blocks"]:
+        h = torch.cat([h, hs.pop()], dim=-1)
+        h = _resblock(blk["res"], h, emb)
+        if "transformer" in blk:
+            h = tfm(blk["transformer"], h)
+        if "up" in blk:
+            h = upsample2x_conv(blk["up"], h)
+
+    h = swish(group_norm(params["out"]["norm"], h))
+    out = conv2d(params["out"]["conv"], h)
+    return out, tuple(kv_hist)
+
+
+def unet_apply_deepcache(*args, **kwargs):
+    """DeepCache partial forward — not ported yet."""
+    _not_ported("DeepCache (unet_apply_deepcache)", "9")

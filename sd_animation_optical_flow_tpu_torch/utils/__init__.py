@@ -1,0 +1,1 @@
+"""Port of sd_animation_optical_flow_tpu/utils."""

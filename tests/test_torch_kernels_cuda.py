@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: these skip where there is no NVIDIA card (a CUDA kernel
+has no CPU or interpret mode; the CPU tests hold the plain versions to
+the JAX package instead). On a machine with a card, and without JAX:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
+
+Shapes are small but cover the kernels' edges: ragged query and key
+tiles, head dims that are not a multiple of 16 (zero-padded tiles) or
+above 128 (the wide kernel), strided and misaligned q/k/v views, rows
+past a 32-row tile. Tolerance: max |kernel - plain| <= 2e-2 * max |plain|,
+with no floor (a few bf16 ulps of the largest output; both sides round
+bf16 products accumulated in f32)."""
+
+import pytest
+import torch
+
+from sd_animation_optical_flow_tpu_torch.ops import attention as TA
+from sd_animation_optical_flow_tpu_torch.ops import ffn as TF
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-2
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.Generator("cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda")
+            * scale).to(dtype)
+
+
+def _check(out, ref):
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max().item()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL * scale
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [
+    (2, 300, 231, 3, 40), (1, 130, 257, 2, 80), (1, 77, 64, 2, 128),
+    (1, 50, 90, 2, 24), (1, 33, 40, 1, 512)])
+def test_flash_attention_tpv_kernel(gen, b, nq, nk, h, d):
+    q = _randn(gen, b, nq, h, d)
+    k = _randn(gen, b, nk, h, d)
+    v = _randn(gen, b, nk, h, d)
+    n0 = TA.flash_attention_tpv.launches
+    _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(q, k, v))
+    assert TA.flash_attention_tpv.launches == n0 + 1
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_attention_tpv_strided_qkv(gen, offset):
+    """q/k/v as column slices of one fused projection: offset 0 keeps
+    16-byte rows and goes in without a copy, offset 1 breaks them and
+    takes the wrapper's contiguous copy."""
+    qkv = _randn(gen, 2, 200, offset + 3 * 320)[..., offset:]
+    q, k, v = (t.reshape(2, 200, 8, 40) for t in qkv.chunk(3, dim=-1))
+    _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(q, k, v))
+
+
+@pytest.mark.parametrize("d", [512, 160])
+def test_flash_attention_wide_kernel(gen, d):
+    q, k, v = (_randn(gen, 1, n, 1, d) for n in (70, 100, 100))
+    n0 = TA.flash_attention.launches
+    _check(TA.flash_attention(q, k, v), TA.xla_attention(q, k, v))
+    assert TA.flash_attention.launches == n0 + 1
+
+
+@pytest.mark.parametrize("m,din,dout", [(100, 320, 960), (64, 640, 640),
+                                        (37, 64, 48)])
+def test_linear_ln_kernel(gen, m, din, dout):
+    x = _randn(gen, m, din)
+    w = _randn(gen, dout, din, scale=din ** -0.5)
+    g = 1 + 0.1 * torch.randn(din, generator=gen, device="cuda")
+    bta = 0.1 * torch.randn(din, generator=gen, device="cuda")
+    _check(TF.linear_ln_fused(x, w, g, bta),
+           TF.linear_ln_plain(x, w, g, bta, 1e-5))
+
+
+@pytest.mark.parametrize("m,din,ln,residual", [(100, 320, True, True),
+                                               (45, 640, True, True),
+                                               (64, 64, False, False)])
+def test_geglu_kernel(gen, m, din, ln, residual):
+    dff = 4 * din
+    x = _randn(gen, m, din)
+    w1 = _randn(gen, 2 * dff, din, scale=din ** -0.5)
+    b1 = _randn(gen, 2 * dff, scale=0.1)
+    w2 = _randn(gen, din, dff, scale=dff ** -0.5)
+    b2 = _randn(gen, din, scale=0.1)
+    g = 1 + 0.1 * torch.randn(din, generator=gen, device="cuda") \
+        if ln else None
+    bta = 0.1 * torch.randn(din, generator=gen, device="cuda") \
+        if ln else None
+    _check(TF.geglu_ff_fused(x, w1, b1, w2, b2, g, bta, residual=residual),
+           TF.geglu_ff_plain(x, w1, b1, w2, b2, g, bta, 1e-5, residual))
+
+
+def test_kernels_refuse_what_they_do_not_take(gen):
+    x = _randn(gen, 64, 40)                 # din not a multiple of 16
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        TF.linear_ln_fused(x, _randn(gen, 48, 40), torch.ones(40, device="cuda"),
+                           torch.zeros(40, device="cuda"))
+    xf = x.float()
+    with pytest.raises(TypeError):
+        TF.geglu_ff_fused(xf, xf.new_zeros(2 * 64, 40), xf.new_zeros(128),
+                          xf.new_zeros(40, 64), xf.new_zeros(40))
+    q = _randn(gen, 1, 64, 2, 40)
+    with pytest.raises(TypeError):
+        TA.flash_attention_tpv(q.float(), q.float(), q.float())
+    q = _randn(gen, 1, 64, 2, 20)            # d not a multiple of 8
+    with pytest.raises(ValueError):
+        TA.flash_attention_tpv(q, q, q)

@@ -1,0 +1,81 @@
+"""Shared set-up for the port's parity tests (tests/test_torch_*.py): the
+small configs, JAX-side random weights with the zero-initialised output
+convs perturbed, and their conversion to the port through the weights
+bridge. Inputs and noise are numpy arrays made from a seed; both
+frameworks get the same ones."""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from sd_animation_optical_flow_tpu.models import clip as JCL
+from sd_animation_optical_flow_tpu.models import unet as JU
+from sd_animation_optical_flow_tpu.models import vae as JV
+from sd_animation_optical_flow_tpu.models.layers import numpy_init
+from sd_animation_optical_flow_tpu_torch.models import clip as TCL
+from sd_animation_optical_flow_tpu_torch.models import unet as TU
+from sd_animation_optical_flow_tpu_torch.models import vae as TV
+from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
+    params_from_jax
+
+# tier-1 runs several test files side by side: keep torch to few threads
+torch.set_num_threads(2)
+
+UNET_KW = dict(model_channels=32, channel_mult=(1, 2, 4),
+               attention_resolutions=(1, 2), num_heads=4, context_dim=64)
+VAE_KW = dict(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1)
+CLIP_KW = dict(vocab_size=1000, width=64, layers=2, heads=4)
+
+
+def perturb_zero_convs(tree, rng):
+    """Give the zero-initialised output convs small random weights, so
+    every attention reaches the output (in place, numpy leaves)."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            if key in ("out_conv", "proj_out", "conv") and \
+                    isinstance(sub, dict) and "w" in sub and \
+                    not np.asarray(sub["w"]).any():
+                sub["w"] = (rng.standard_normal(np.shape(sub["w"]))
+                            * 0.05).astype(np.float32)
+            else:
+                perturb_zero_convs(sub, rng)
+    elif isinstance(tree, list):
+        for sub in tree:
+            perturb_zero_convs(sub, rng)
+    return tree
+
+
+def jax_models(seed=0):
+    """(configs, JAX param trees) of the small UNet / VAE / CLIP."""
+    cfgs = (JU.UNetConfig(**UNET_KW), JV.VAEConfig(**VAE_KW),
+            JCL.CLIPTextConfig(**CLIP_KW))
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    with numpy_init():
+        unet_p = JU.unet_init(k1, cfgs[0])
+        vae_p = JV.vae_init(k2, cfgs[1])
+        clip_p = JCL.clip_text_init(k3, cfgs[2])
+    perturb_zero_convs(unet_p, np.random.default_rng(seed + 1))
+    return cfgs, (unet_p, vae_p, clip_p)
+
+
+def torch_configs():
+    return (TU.UNetConfig(**UNET_KW), TV.VAEConfig(**VAE_KW),
+            TCL.CLIPTextConfig(**CLIP_KW))
+
+
+def to_port(tree):
+    return params_from_jax(tree, dtype=torch.float32, device="cpu")
+
+
+def np_t(a):
+    """numpy/JAX array -> f32 CPU tensor."""
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def rel_err(a, b):
+    """max |a - b| relative to max |b| (the output's scale)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
