@@ -18,7 +18,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     ``img2img`` on one 512x768 image at strength 0.4, 50 steps, CFG 7 —
     with ``sampler="ddim"`` and ``"dpmpp:10"``, check the output and that
     every kernel's launch count went up, time each frame, and profile
-    one frame of each (device busy time, top kernels);
+    one frame of each (device busy time, top kernels); then the keyframe
+    pipeline's generation step with ``create_model("sd15-inpaint9")``
+    beside it: K/V capture on two keyframes, an inpaint injecting both
+    (kernel #6), the same batched with per-frame K/V, a 2-frame seed
+    strip and a [target | reference] strip inpaint (kernel #10), each
+    checked (output, 16-pair K/V stores, its kernel launched), timed and
+    profiled;
  6. print the kernel table as one JSON line, the card line, and the
     result line.
 """
@@ -96,6 +102,14 @@ def _sdpa(q, k, v):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v)
 
 
+def _by_head(plain, q, k, v, **kw):
+    """A plain version run one head at a time: at 12288 strip tokens its
+    f32 [B, H, N, N] scores would take ~10 GB per copy."""
+    return torch.cat([plain(q[:, :, i:i + 1], k[:, :, i:i + 1],
+                            v[:, :, i:i + 1], **kw)
+                      for i in range(q.shape[2])], dim=2)
+
+
 def check_kernels():
     from sd_animation_optical_flow_tpu_torch.ops import attention as A
     from sd_animation_optical_flow_tpu_torch.ops import ffn as FF
@@ -162,6 +176,58 @@ def check_kernels():
            lambda: A.xla_attention(q, k, v), lambda: _sdpa(qt, kt, vt),
            flops, nbytes, attn_tol, tpv_src,
            "sd_animation_optical_flow_tpu/ops/attention.py:62", iters=5)
+
+    # kernel #6 at the injected inpaint's shapes: q sliced out of the fused
+    # QKV projection, k/v the [own | reference] rows the UNet builds
+    # (contiguous), CFG batch 2, one uncond row; L2 (d 160)
+    # reaches the gate at a 1024x1536 frame (32 x 48 latent tokens)
+    for label, (nq, d) in {"inject L0": (6144, 40),
+                           "inject L1": (1536, 80),
+                           "inject L2 1024x1536": (1536, 160)}.items():
+        b, h, nk, n_own, n_unc = 2, 8, 2 * nq, nq, 1
+        (q, _, _), _, _ = _attn_case(gen, b, nq, nq, h, d, True)
+        k, v = (torch.randn((b, nk, h, d), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        # useful work: the uncond rows see n_own keys, the cond rows all
+        keys = n_unc * n_own + (b - n_unc) * nk
+        flops = 4.0 * h * d * nq * keys
+        nbytes = 2.0 * (2 * q.numel() + 2 * h * d * keys)
+        allowed = torch.ones((b, 1, 1, nk), dtype=torch.bool, device="cuda")
+        allowed[:n_unc, ..., n_own:] = False
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        record(f"flash_attention_keymask [{label}]",
+               lambda: A.flash_attention_keymask(q, k, v, n_own=n_own,
+                                                 n_uncond=n_unc),
+               lambda: A.attention_injected_plain(q, k, v, n_own=n_own,
+                                                  n_uncond=n_unc),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=allowed),
+               flops, nbytes, attn_tol, tpv_src,
+               "sd_animation_optical_flow_tpu/ops/attention.py:288", iters=10)
+
+    # kernel #10 at the strips' shapes (2 tiles of a 512x768 frame: latent
+    # 64 x 192 at L0, 32 x 96 at L1; L2 (d 160) reaches the gate with 4
+    # tiles: 16 x 96), q/k/v slices of the fused QKV
+    for label, (hh, w_tile, tiles, d, mode) in {
+            "strip L0 mutual": (64, 96, 2, 40, "mutual"),
+            "strip L0 target": (64, 96, 2, 40, "target"),
+            "strip L1 mutual": (32, 48, 2, 80, "mutual"),
+            "strip L2 4 tiles mutual": (16, 24, 4, 160, "mutual")}.items():
+        b, h, n = 2, 8, hh * tiles * w_tile
+        (q, k, v), flops, nbytes = _attn_case(gen, b, n, n, h, d, True)
+        bias = A.mfr_strip_bias(hh, w_tile, tiles, mode=mode, device="cuda")
+        bias16 = bias.to(torch.bfloat16)[None, None]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kw = dict(h=hh, w_strip=tiles * w_tile, n_tiles=tiles, mode=mode)
+        record(f"flash_attention_mfr [{label}]",
+               lambda: A.flash_attention_mfr(q, k, v, h=hh, w_tile=w_tile,
+                                             n_tiles=tiles, mode=mode),
+               lambda: _by_head(A.strip_attention_plain, q, k, v, **kw),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=bias16),
+               flops, nbytes, attn_tol, tpv_src,
+               "sd_animation_optical_flow_tpu/ops/attention.py:1078",
+               iters=5)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda")
@@ -311,11 +377,152 @@ def run_main_path(sd, kernels, gen, repeats: int = 2):
     return results
 
 
+def _blob_mask(h, w, cy, cx, r, gen):
+    """A blob (a disc with a wavy rim) covering part of an h x w frame."""
+    yy, xx = torch.meshgrid(torch.arange(h, device="cuda"),
+                            torch.arange(w, device="cuda"), indexing="ij")
+    phase = float(torch.rand((), generator=gen, device="cuda")) * 6.28
+    ang = torch.atan2(yy - cy, xx - cx)
+    rad = r * (1 + 0.2 * torch.sin(5 * ang + phase))
+    return (((yy - cy) ** 2 + (xx - cx) ** 2).sqrt() < rad).float()
+
+
+def run_keyframe_path(sd, sd9, kernels, gen):
+    """The keyframe pipeline's generation step, five steps in its order:
+    capture K/V on two keyframes (img2img), inject both into an inpaint
+    on the 9-channel model, the same batched with per-frame K/V, a
+    2-frame seed strip ('mutual') and a [target | reference] strip
+    inpaint ('target'). Each step runs once with the launch counters
+    reset just before it and read just after, once more timed (host
+    clock, synchronized), and once under the profiler. Returns
+    {step: (s/frame, counts, ok)} and the failures found."""
+    from sd_animation_optical_flow_tpu_torch.models.unet import \
+        NUM_KV_LAYERS, StripConfig
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    from sd_animation_optical_flow_tpu_torch.pipelines.keyframe_inpaint \
+        import concat_ref_kv
+    prompt, neg = "a watercolor fox in the snow", "lowres, blurry"
+    rand_img = lambda w: torch.rand((1, H, w, 3), generator=gen,
+                                    device="cuda") * 2 - 1
+    keys = [rand_img(W) for _ in range(2)]
+    frame, warped = rand_img(W), rand_img(W)
+    mask = _blob_mask(H, W, H * 0.49, W * 0.51, H * 0.29, gen)
+    f = sd.vae_cfg.downscale
+    lat_tokens = [(H // f // s) * (W // f // s) for s in (1, 2, 4, 8)]
+    failures, results = [], {}
+    kv_store = {}
+
+    def kv_ok(kv, batch, width_tiles=1):
+        # 16 pairs, [batch, tokens at the layer's level, C], contiguous;
+        # the UNet level of each transformer in capture order (6 encoder,
+        # the middle one at level 3, 9 decoder)
+        if kv is None or len(kv) != NUM_KV_LAYERS:
+            return False
+        for (k, v), lv in zip(kv, [0, 0, 1, 1, 2, 2, 3, 2, 2, 2, 1, 1, 1,
+                                   0, 0, 0]):
+            n = lat_tokens[lv] * width_tiles
+            c = sd.unet_cfg.model_channels * sd.unet_cfg.channel_mult[lv]
+            if k.shape != (batch, n, c) or v.shape != k.shape \
+                    or not k.is_contiguous():
+                return False
+        return True
+
+    def capture():
+        outs, kvs = [], []
+        for key in keys:
+            out, kv = F.img2img(sd, key, prompt, neg, 0.4, ddim_steps=STEPS,
+                                cfg_scale=CFG, seed=SEED, capture_kv=True)
+            outs.append(out)
+            kvs.append(kv)
+        torch.cuda.synchronize()
+        kv_store["keys"] = kvs
+        return torch.cat(outs), all(kv_ok(kv, 1) for kv in kvs), 2
+
+    def inject():
+        ref_kv = concat_ref_kv(kv_store["keys"])
+        out, _, _, kv = F.img2img_inpaint(
+            sd9, frame, prompt, neg, 0.8, ddim_steps=STEPS,
+            reference_img=warped, mask=mask, mask_blur=4, cfg_scale=CFG,
+            seed=SEED, reference_kv=ref_kv, capture_kv=True,
+            want_init_decoded=False)
+        torch.cuda.synchronize()
+        return out, kv_ok(kv, 1), 1
+
+    def inject_batch():
+        ka, kb = kv_store["keys"]
+        per_frame = tuple(
+            (torch.cat([torch.cat([a[0], b[0]], 1), torch.cat([b[0], a[0]],
+                                                              1)]),
+             torch.cat([torch.cat([a[1], b[1]], 1), torch.cat([b[1], a[1]],
+                                                              1)]))
+            for a, b in zip(ka, kb))
+        out, kv = F.img2img_inpaint_batch(
+            sd9, torch.cat([frame, warped]), [prompt, prompt], neg,
+            torch.stack([mask, mask.flip(1)]), torch.cat([warped, frame]),
+            0.8, ddim_steps=STEPS, mask_blur=4, cfg_scale=CFG, seed=SEED,
+            reference_kv=per_frame, capture_kv=True)
+        frames = F.split_kv_batch(kv, 2)
+        torch.cuda.synchronize()
+        return out, kv_ok(kv, 2) and all(kv_ok(fk, 1) for fk in frames), 2
+
+    def seed_strip():
+        out, kv = F.img2img(sd, torch.cat(keys, dim=2), prompt, neg, 0.8,
+                            ddim_steps=STEPS, cfg_scale=CFG, seed=SEED,
+                            strip=StripConfig(2, "mutual"), capture_kv=True)
+        torch.cuda.synchronize()
+        return out, kv_ok(kv, 1, width_tiles=2), 2
+
+    def target_strip():
+        strip_mask = torch.cat([mask, torch.zeros_like(mask)], dim=1)
+        strip_img = torch.cat([frame, keys[0]], dim=2)
+        out, _, _, _ = F.img2img_inpaint(
+            sd9, strip_img, prompt, neg, 0.8, ddim_steps=STEPS,
+            reference_img=torch.cat([warped, keys[0]], dim=2),
+            mask=strip_mask, mask_blur=4, cfg_scale=CFG, seed=SEED,
+            strip=StripConfig(2, "target"), want_init_decoded=False)
+        torch.cuda.synchronize()
+        return out, True, 1
+
+    steps = {"1 capture": (capture, (2, H, W, 3), ()),
+             "2 inject": (inject, (1, H, W, 3), ("flash_attention_keymask",)),
+             "3 inject batch": (inject_batch, (2, H, W, 3),
+                                ("flash_attention_keymask",)),
+             "4 seed strip": (seed_strip, (1, H, 2 * W, 3),
+                              ("flash_attention_mfr",)),
+             "5 target strip": (target_strip, (1, H, 2 * W, 3),
+                                ("flash_attention_mfr",))}
+    for name, (run, shape, must_launch) in steps.items():
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        out, kv_good, frames = run()
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.time()
+        run()
+        secs = (time.time() - t0) / frames
+        ok_out = tuple(out.shape) == shape and bool(
+            torch.isfinite(out).all()) and out.abs().max().item() <= 1.0
+        log(f"[keyframe] step {name}: {secs:.3f} s/frame, output "
+            f"{tuple(out.shape)} finite-in-range {ok_out}, std "
+            f"{out.float().std().item():.4f}, K/V store ok {kv_good}, "
+            f"launches {counts}")
+        if not (ok_out and kv_good):
+            failures.append(f"keyframe step {name}: bad output or K/V")
+        for k in must_launch:
+            if counts[k] == 0:
+                failures.append(f"keyframe step {name}: {k} never launched")
+        results[name] = (secs, counts, ok_out and kv_good)
+        if name != "1 capture":
+            profile_frame(run, f"step {name}")
+    return results, failures
+
+
 def profile_frame(run, label, top: int = 8):
     """One frame under torch.profiler: device busy time (sum of kernel
     times on the one stream) against the profiled frame's wall time, and
     the kernels that take the most device time. Profiling adds host
-    overhead, so the idle share is an upper bound."""
+    overhead, so the idle share is an upper bound. Returns (busy ms,
+    wall ms), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -328,13 +535,14 @@ def profile_frame(run, label, top: int = 8):
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms == 0:
         log(f"[profile] {label}: no device time recorded (not measured)")
-        return
+        return None
     log(f"[profile] {label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms"
         f" profiled wall (idle share {1 - busy_ms / wall_ms:.3f}); "
         f"{sum(e.count for e in kern)} kernel launches")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile] {label}:   {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+    return busy_ms, wall_ms
 
 
 def main() -> int:
@@ -361,9 +569,9 @@ def main() -> int:
     t0 = time.time()
     so = _cuda.build()
     _cuda.library()
-    log(f"[build] {so.name} in {time.time() - t0:.1f} s: attn_mma_kernel, "
-        "attn_mma_wide_kernel (csrc/attention.cu); linear_ln_kernel, "
-        "geglu_kernel (csrc/ffn.cu)")
+    log(f"[build] {so.name} in {time.time() - t0:.1f} s: attn_mma_kernel "
+        "(plain, keymask and MFR modes), attn_mma_wide_kernel "
+        "(csrc/attention.cu); linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
     ptxas = so.with_suffix(".log").read_text()
     for line in ptxas.splitlines():
         if "spill" in line and " 0 bytes spill stores" not in line:
@@ -373,16 +581,27 @@ def main() -> int:
     failures += [r["name"] for r in rows if not r["ok"]]
 
     gen = torch.Generator("cuda").manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     sd = C.create_model("sd15", dtype=torch.bfloat16, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
     perturb_zero_convs(sd.unet_params, gen)
-    log(f"[model] sd15 random init on the card in {time.time() - t0:.1f} s")
+
+    sd9 = C.create_model("sd15-inpaint9", dtype=torch.bfloat16,
+                         device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    perturb_zero_convs(sd9.unet_params, gen)
+    log(f"[model] sd15 and sd15-inpaint9 random init on the card in "
+        f"{time.time() - t0:.1f} s")
 
     kernels = {"flash_attention_tpv": A.flash_attention_tpv,
                "flash_attention": A.flash_attention,
                "linear_ln_fused": FF.linear_ln_fused,
-               "geglu_ff_fused": FF.geglu_ff_fused}
+               "geglu_ff_fused": FF.geglu_ff_fused,
+               "flash_attention_keymask": A.flash_attention_keymask,
+               "flash_attention_mfr": A.flash_attention_mfr}
+    img2img_kernels = list(kernels)[:4]
     unet_rel = check_unet_against_cpu(sd, gen)
     # bf16 through 16 transformer blocks and 25 resblocks of random
     # weights against f32: a few percent of the output's norm
@@ -393,16 +612,19 @@ def main() -> int:
     for sampler, (secs, counts, ok) in main.items():
         if not ok:
             failures.append(f"img2img {sampler}: bad output")
-        for name, n in counts.items():
-            if n == 0:
+        for name in img2img_kernels:
+            if counts[name] == 0:
                 failures.append(f"img2img {sampler}: {name} never launched")
-    log(f"[main] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    keyframe, kf_failures = run_keyframe_path(sd, sd9, kernels, gen)
+    failures += kf_failures
+    log(f"[main] peak device memory, both bundles and the K/V stores "
+        f"resident: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     table = []
+    paths = list(main.values()) + list(keyframe.values())
     for name, fn in kernels.items():
         mine = [r for r in rows if r["name"].startswith(name + " ")]
-        launches = sum(c[name] for _, c, _ in main.values())
+        launches = sum(c[name] for _, c, _ in paths)
         for r in mine:
             table.append({k: r[k] for k in (
                 "name", "route", "source", "replaces")}
@@ -411,6 +633,7 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")})
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
+                    "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
                     "unet_rel_err": unet_rel, "card": card}))
     if failures:
         for f in failures:

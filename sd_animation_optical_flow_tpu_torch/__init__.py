@@ -7,11 +7,13 @@ TPU's Pallas kernels become hand-written CUDA kernels for Hopper
 (``csrc/``, built at first use; see ``ops/_cuda.py``). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``.
 
-Ported so far: the SD-1.5 img2img main path —
+Ported so far: the SD-1.5 img2img main path, and the keyframe
+pipeline's generation step (K/V capture and injection, inpainting on the
+9-channel model, MFR strips) —
 
     from sd_animation_optical_flow_tpu_torch import create_model, img2img
     sd = create_model("sd15", dtype=torch.bfloat16)       # random weights
-    img, _ = img2img(sd, image, prompt, negative, 0.4, sampler="dpmpp:10")
+    img, kv = img2img(sd, image, prompt, negative, 0.4, capture_kv=True)
 """
 
 _LAZY = {
@@ -25,6 +27,14 @@ _LAZY = {
         "StableDiffusionBundle"),
     "img2img": ("sd_animation_optical_flow_tpu_torch.pipelines.facades",
                 "img2img"),
+    "img2img_inpaint": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.facades",
+        "img2img_inpaint"),
+    "img2img_inpaint_batch": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.facades",
+        "img2img_inpaint_batch"),
+    "StripConfig": ("sd_animation_optical_flow_tpu_torch.models.unet",
+                    "StripConfig"),
 }
 
 

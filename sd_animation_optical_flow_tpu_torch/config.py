@@ -1,7 +1,8 @@
 """Model configuration and construction.
 
 Counterpart of ``sd_animation_optical_flow_tpu/config.py``: ``BundleSpec``,
-``SD15``, ``load_spec("sd15")`` and ``create_model``. Models are built
+``SD15``, ``SD15_INPAINT9``, ``load_spec`` for their names and
+``create_model``. Models are built
 from random weights drawn from an explicit ``torch.Generator`` straight
 on the target device in the target dtype. Checkpoint loading is not
 ported yet.
@@ -40,10 +41,10 @@ class BundleSpec:
               dtype=torch.float32, device="cuda") -> StableDiffusionBundle:
         """Random-weight bundle on ``device`` (weightless smoke mode).
         ``generator`` defaults to one seeded with 0 on ``device``."""
-        if self.conditioning_key != "crossattn":
+        if self.conditioning_key not in ("crossattn", "hybrid"):
             raise NotImplementedError(
-                "hybrid (concat) conditioning is not ported to the torch "
-                "package yet (ROADMAP §1 item 6)")
+                f"conditioning_key {self.conditioning_key!r} is not ported "
+                "to the torch package (ROADMAP §1 item 7)")
         device = torch.device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
@@ -78,17 +79,22 @@ def _channels_last(tree):
 
 
 SD15 = BundleSpec()
+# the 9-channel inpainting UNet: 4 latent + 1 mask + 4 masked-image
+# latent channels, concatenated before the input conv ('hybrid')
+SD15_INPAINT9 = BundleSpec(conditioning_key="hybrid",
+                           unet=UNetConfig(in_channels=9))
 
 
 def load_spec(path_or_name: str) -> BundleSpec:
-    """A builtin spec by name. Only 'sd15' is ported; the other builtins
-    and YAML specs wait for their models."""
-    if path_or_name == "sd15":
-        return SD15
+    """A builtin spec by name: 'sd15' or 'sd15-inpaint9'. The depth and
+    upscale builtins and YAML specs wait for their models."""
+    builtins = {"sd15": SD15, "sd15-inpaint9": SD15_INPAINT9}
+    if path_or_name in builtins:
+        return builtins[path_or_name]
     raise NotImplementedError(
         f"spec {path_or_name!r} is not ported to the torch package yet: "
-        "only 'sd15' is (inpaint/depth/upscale specs: ROADMAP §1 items 6 "
-        "and 10; YAML specs: item 13)")
+        "only 'sd15' and 'sd15-inpaint9' are (depth/upscale specs: "
+        "ROADMAP §1 item 7; YAML specs: item 9)")
 
 
 def create_model(path_or_name: str, ckpt_path: Optional[str] = None,
@@ -100,6 +106,6 @@ def create_model(path_or_name: str, ckpt_path: Optional[str] = None,
     if ckpt_path:
         raise NotImplementedError(
             "checkpoint loading is not ported to the torch package yet "
-            "(ROADMAP §1 item 13)")
+            "(ROADMAP §1 item 9)")
     return load_spec(path_or_name).build(generator=generator, dtype=dtype,
                                          device=device)

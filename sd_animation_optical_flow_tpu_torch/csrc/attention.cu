@@ -30,6 +30,22 @@
 //     columns of the p v product. Tiles take ~180 KB of dynamic shared
 //     memory (opted in above 48 KB).
 //
+//   _flash_keymask_kernel_tpv (flash_attention_keymask: the CFG K/V
+//     injection, uncond rows see their own keys only)
+//     -> attn_mma_kernel<DP, MODE_KEYMASK>: batch rows b < n_uncond run
+//     their key loop to n_own only (the last tile masked in registers as
+//     any ragged tile), so the uncond half never reads a key past n_own;
+//     the TPU kernel masks the same scores to -1e30 and still streams
+//     them. The cond rows run all Nk.
+//   _flash_mfr_kernel (flash_attention_mfr: MFR strip self-attention)
+//     -> attn_mma_kernel<DP, MODE_MFR>: the band bias weight * exp(-dist
+//     / sigma) (Chebyshev radius, `target` / `mutual` tile rule) is
+//     computed in registers from the token indices (y = i / w_strip,
+//     tile = (i % w_strip) / w_tile, x = (i % w_strip) % w_tile) and added
+//     in the log2 domain; no coordinate array in device memory. Only key
+//     tiles whose rows lie within the radius of the block's query rows
+//     evaluate the bias (a block-uniform test), the rest run as mode 0.
+//
 // What bounds them on this card: at SD shapes attention is compute-bound
 // (4*N^2*D operations on ~4*N*D*2 bytes). These kernels use mma.sync
 // without pipelining the tile loads (no cp.async / TMA, no wgmma), so
@@ -52,17 +68,35 @@ struct AttnArgs {
   long long ksb, ksn, ksh;
   long long vsb, vsn, vsh;
   float scale_log2;  // softmax scale * log2(e): scores live in the log2 domain
+  // MODE_KEYMASK: batch rows < n_uncond see keys < n_own only
+  int n_own, n_uncond;
+  // MODE_MFR: strip geometry, band radius and tile rule, bias weight *
+  // log2(e) and 1 / sigma
+  int w_strip, w_tile, radius, target_only;
+  float bias_log2, inv_sigma;
 };
 
+enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2 };
+
 // ---------------------------------------------------------------------------
-// attn_mma_kernel: bf16, D up to 128 (the tpv route)
+// attn_mma_kernel: bf16, D up to 128 (the tpv route) or 160 (the keymask
+// and MFR routes)
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows per block
 constexpr int MMA_BK = 64;              // keys per shared-memory tile
 
-template <int DP>  // head dim padded to a multiple of 16
+// token i of a width-concatenated strip -> (row y, tile, column x in tile)
+__device__ __forceinline__ void strip_coords(int i, int w_strip, int w_tile, int& y, int& tile,
+                                             int& x) {
+  y = i / w_strip;
+  const int rem = i - y * w_strip;
+  tile = rem / w_tile;
+  x = rem - tile * w_tile;
+}
+
+template <int DP, int MODE>  // DP: head dim padded to a multiple of 16
 __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, int D) {
   constexpr int LD = DP + 8;       // tile row stride: conflict-free ldmatrix
   constexpr int KS = DP / 16;      // k-steps of q k^T
@@ -92,8 +126,22 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
 
-  for (int k0 = 0; k0 < a.Nk; k0 += MMA_BK) {
-    const int nvalid = min(MMA_BK, a.Nk - k0);
+  // keys this batch row attends to (the keymask: the uncond rows stop at
+  // n_own; n_own >= 1, so every row sees at least one key)
+  const int nk = (MODE == MODE_KEYMASK && b < a.n_uncond) ? min(a.Nk, a.n_own) : a.Nk;
+  // MFR: strip coordinates of this thread's two query rows, and the strip
+  // rows the block's queries span
+  int qy[2] = {0, 0}, qt[2] = {0, 0}, qx[2] = {0, 0};
+  int yq_lo = 0, yq_hi = 0;
+  if (MODE == MODE_MFR) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) strip_coords(q0 + r0 + g + 8 * r, a.w_strip, a.w_tile, qy[r], qt[r], qx[r]);
+    yq_lo = q0 / a.w_strip;
+    yq_hi = (min(q0 + MMA_BQ, a.Nq) - 1) / a.w_strip;
+  }
+
+  for (int k0 = 0; k0 < nk; k0 += MMA_BK) {
+    const int nvalid = min(MMA_BK, nk - k0);
     __syncthreads();  // q fragments taken / previous tile consumed
     load_rows(ks, LD, k + k0 * a.ksn, a.ksn, MMA_BK, nvalid, D, DP);
     load_rows(vs, LD, v + k0 * a.vsn, a.vsn, MMA_BK, nvalid, D, DP);
@@ -110,15 +158,39 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
         mma_bf16(s[n], qa[kk], kb[0], kb[1]);
       }
     }
-    // scale into the log2 domain, mask the ragged tile, running max;
-    // nvalid >= 1, so the max is finite after the first tile
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] *= a.scale_log2;  // into the log2 domain
+    if (MODE == MODE_MFR) {
+      const int yk_lo = k0 / a.w_strip, yk_hi = (k0 + nvalid - 1) / a.w_strip;
+      if (yk_hi >= yq_lo - a.radius && yk_lo <= yq_hi + a.radius) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            int ky, kt, kx;
+            strip_coords(k0 + n * 8 + 2 * t + c, a.w_strip, a.w_tile, ky, kt, kx);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int dy = qy[r] - ky, dx = qx[r] - kx;
+              const bool tiles = a.target_only ? (qt[r] == 0 && kt != 0) : (qt[r] != kt);
+              if (tiles && abs(dy) <= a.radius && abs(dx) <= a.radius)
+                s[n][2 * r + c] +=
+                    a.bias_log2 * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma);
+            }
+          }
+      }
+    }
+    // mask the ragged tile, running max; nvalid >= 1, so the max is
+    // finite after the first tile
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = n * 8 + 2 * t + (i & 1);
-        s[n][i] = key < nvalid ? s[n][i] * a.scale_log2 : -INFINITY;
+        if (key >= nvalid) s[n][i] = -INFINITY;
         if (i < 2)
           mx0 = fmaxf(mx0, s[n][i]);
         else
@@ -344,13 +416,14 @@ cudaError_t opt_in_smem(const void* fn, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+template <int MODE>
 cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
   const dim3 grid((a.Nq + MMA_BQ - 1) / MMA_BQ, a.B * a.H);
   const int threads = 32 * MMA_WARPS;
   switch ((D + 15) / 16) {
 #define SDAOF_MMA_CASE(NK)                                            \
   case NK:                                                            \
-    attn_mma_kernel<16 * NK><<<grid, threads, 0, st>>>(a, D);         \
+    attn_mma_kernel<16 * NK, MODE><<<grid, threads, 0, st>>>(a, D);   \
     return cudaGetLastError();
     SDAOF_MMA_CASE(1)
     SDAOF_MMA_CASE(2)
@@ -361,6 +434,16 @@ cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
     SDAOF_MMA_CASE(7)
     SDAOF_MMA_CASE(8)
 #undef SDAOF_MMA_CASE
+    case 9:
+    case 10:
+      // the keymask and MFR routes also take SD-1.5's 160-wide heads of
+      // the third UNet level (the plain route sends d > 128 to the wide
+      // kernel)
+      if constexpr (MODE != MODE_PLAIN) {
+        attn_mma_kernel<160, MODE><<<grid, threads, 0, st>>>(a, D);
+        return cudaGetLastError();
+      }
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -400,20 +483,11 @@ bool aligned(const AttnArgs& a, int D) {
   return D % 8 == 0 && (ptrs & 15) == 0 && (strides & 7) == 0;
 }
 
-}  // namespace
-
-// bf16 only. wide = 0: d <= 128 takes the attn_mma_kernel, wide = 1 (or
-// d > 128): the attn_mma_wide_kernel. Refuses unaligned inputs (see
-// aligned()). Returns a cudaError_t code (0 = ok).
-extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int H, int Nq, int Nk, int D, long long qsb, long long qsn,
-                               long long qsh, long long ksb, long long ksn, long long ksh,
-                               long long vsb, long long vsn, long long vsh, float scale_log2,
-                               int wide, int device, void* stream) {
-  if (D < 1 || D > 512 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  AttnArgs a;
+AttnArgs make_args(const void* q, const void* k, const void* v, void* o, int B, int H, int Nq,
+                   int Nk, long long qsb, long long qsn, long long qsh, long long ksb,
+                   long long ksn, long long ksh, long long vsb, long long vsn, long long vsh,
+                   float scale_log2) {
+  AttnArgs a = {};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -432,10 +506,75 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
   a.vsn = vsn;
   a.vsh = vsh;
   a.scale_log2 = scale_log2;
+  return a;
+}
+
+}  // namespace
+
+// bf16 only. wide = 0: d <= 128 takes the attn_mma_kernel, wide = 1 (or
+// d > 128): the attn_mma_wide_kernel. Refuses unaligned inputs (see
+// aligned()). Returns a cudaError_t code (0 = ok).
+extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void* o, int B,
+                               int H, int Nq, int Nk, int D, long long qsb, long long qsn,
+                               long long qsh, long long ksb, long long ksn, long long ksh,
+                               long long vsb, long long vsn, long long vsh, float scale_log2,
+                               int wide, int device, void* stream) {
+  if (D < 1 || D > 512 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn,
+                               vsh, scale_log2);
   if (!aligned(a, D)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide && D <= 128) return launch_mma(a, D, st);
+  if (!wide && D <= 128) return launch_mma<MODE_PLAIN>(a, D, st);
   return launch_mma_wide(a, D, st);
+}
+
+// The CFG K/V-injection attention (bf16, D a multiple of 8 up to 160):
+// batch rows < n_uncond attend to keys < n_own only (1 <= n_own).
+extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void* v, void* o,
+                                       int B, int H, int Nq, int Nk, int D, long long qsb,
+                                       long long qsn, long long qsh, long long ksb,
+                                       long long ksn, long long ksh, long long vsb,
+                                       long long vsn, long long vsh, float scale_log2,
+                                       int n_own, int n_uncond, int device, void* stream) {
+  if (D < 1 || D > 160 || Nq < 1 || Nk < 1 || n_own < 1 || n_uncond < 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+                         scale_log2);
+  a.n_own = n_own;
+  a.n_uncond = n_uncond;
+  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
+  return launch_mma<MODE_KEYMASK>(a, D, static_cast<cudaStream_t>(stream));
+}
+
+// MFR strip self-attention (bf16, D a multiple of 8 up to 160, Nq = Nk =
+// h * w_strip, w_strip = n_tiles * w_tile): scores of in-band pairs of
+// distinct tiles gain bias_log2 * exp(-dist * inv_sigma).
+extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, void* o, int B,
+                                   int H, int Nq, int Nk, int D, long long qsb, long long qsn,
+                                   long long qsh, long long ksb, long long ksn, long long ksh,
+                                   long long vsb, long long vsn, long long vsh,
+                                   float scale_log2, int w_strip, int w_tile, int radius,
+                                   int target_only, float bias_log2, float inv_sigma,
+                                   int device, void* stream) {
+  if (D < 1 || D > 160 || Nq < 1 || Nk != Nq || w_tile < 1 || w_strip < w_tile ||
+      w_strip % w_tile != 0 || Nq % w_strip != 0 || radius < 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+                         scale_log2);
+  a.w_strip = w_strip;
+  a.w_tile = w_tile;
+  a.radius = radius;
+  a.target_only = target_only;
+  a.bias_log2 = bias_log2;
+  a.inv_sigma = inv_sigma;
+  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
+  return launch_mma<MODE_MFR>(a, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sdaof_error_string(int err) {

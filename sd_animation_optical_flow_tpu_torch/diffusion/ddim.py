@@ -1,7 +1,8 @@
 """Classifier-free guidance and the DDIM forward noising.
 
 Counterpart of ``sd_animation_optical_flow_tpu/diffusion/ddim.py``
-(``CondBundle``, ``cfg_model_call``, ``stochastic_encode``). The guided
+(``CondBundle``, ``cfg_model_call``, ``guidance_progress``,
+``stochastic_encode``). The guided
 DDIM decode itself runs through the multistep engine
 (:mod:`.multistep`), as the JAX package's main path does.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .schedule import DDIMParams
@@ -49,6 +51,13 @@ def cfg_model_call(model_fn: Callable, x, t, cond: CondBundle,
     out = model_fn(x_in, t_in, ctx, control)
     out_u, out_c = out.chunk(2, dim=0)
     return out_u + scale * (out_c - out_u)
+
+
+def guidance_progress(t_enc: int, total_steps: int):
+    """Per-step denoise progress p handed to guidance and re-noise gate
+    schedules: p_i = (i + (S - t_enc) + 1) / S (numpy [t_enc])."""
+    i = np.arange(t_enc)
+    return (i + (total_steps - t_enc) + 1) / total_steps
 
 
 def stochastic_encode(ddim: DDIMParams, x0, t_enc: int, noise):

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .ddim import CondBundle, cfg_model_call
-from .schedule import DDIMParams, DiffusionSchedule
+from .schedule import DDIMParams, DiffusionSchedule, q_sample
 
 
 class MultistepCoeffs(NamedTuple):
@@ -119,22 +119,45 @@ def multistep_decode(
     cfg_scale: float = 7.0,
     cfg_dedup: bool = False,
     parameterization: str = "eps",
+    sched: Optional[DiffusionSchedule] = None,
+    init_latent: Optional[torch.Tensor] = None,
+    nmask: Optional[torch.Tensor] = None,
+    renoise_gate=None,
+    renoise_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the coefficient schedule over x (deterministic). The model
     must predict eps: the engine's update has no v-parameterization
     branch, so anything else is refused. The prev-x0 mix is combined in
-    f32 and cast back, so a bf16 carry stays bf16."""
+    f32 and cast back, so a bf16 carry stays bf16.
+
+    Inpainting re-noise (``init_latent`` with ``nmask``, the hook of the
+    JAX ``ddim_decode`` / ``dpmpp_2m_decode``): before slot i's model
+    call, where ``renoise_gate[i] > 0`` (host floats; the last entry
+    serves slots past its end, as a JAX gather clamps), the known region
+    is re-imposed as ``x = (1 - nm) * q_sample(init_latent, t_i,
+    renoise_noise[i]) + nm * x``. ``renoise_noise`` [S, 1 or B, h, w, c] is the per-slot noise (a
+    batch of 1 broadcasts over the batch); it is never drawn here."""
     if parameterization != "eps":
         raise ValueError("multistep_decode handles eps-prediction models "
                          f"only, got parameterization={parameterization!r}")
+    inpaint = init_latent is not None and nmask is not None
+    if inpaint and (sched is None or renoise_gate is None
+                    or renoise_noise is None):
+        raise ValueError("inpainting re-noise needs sched, renoise_gate and "
+                         "renoise_noise")
     b = x.shape[0]
     dt = x.dtype
     x0 = torch.zeros_like(x)
     for i in range(coeffs.num_slots):
         if not coeffs.active[i]:
             continue
-        ts = torch.full((b,), int(coeffs.timesteps[i]), dtype=torch.int32,
-                        device=x.device)
+        t_i = int(coeffs.timesteps[i])
+        ts = torch.full((b,), t_i, dtype=torch.int32, device=x.device)
+        if inpaint and float(renoise_gate[min(i, len(renoise_gate) - 1)]) > 0:
+            noised = q_sample(sched, init_latent, t_i,
+                              renoise_noise[i].to(x.device, dt))
+            nm = nmask.to(dt)
+            x = (1.0 - nm) * noised + nm * x
         e = cfg_model_call(model_fn, x, ts, cond, uncond, cfg_scale,
                            dedup=cfg_dedup)
         x0_prev = x0

@@ -1,7 +1,8 @@
 """Diffusion beta schedule and DDIM sub-schedule.
 
 Counterpart of ``sd_animation_optical_flow_tpu/diffusion/schedule.py``
-(``make_linear_schedule``, ``DDIMParams``, ``make_ddim_params``). The
+(``make_linear_schedule``, ``q_sample``, ``DDIMParams``,
+``make_ddim_params``). The
 arrays are host data: float32 tensors on the CPU, computed with numpy in
 the JAX package's precision (f64 schedule, f32 storage), from which the
 samplers read per-step scalars.
@@ -43,6 +44,22 @@ def make_linear_schedule(timesteps: int = 1000,
         sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
     )
+
+
+def q_sample(sched: DiffusionSchedule, x0, t, noise):
+    """Forward noising q(x_t | x_0). t: one host int for the whole batch,
+    or [B] int; the per-row scalars round to x0's dtype, as in the JAX
+    package. A host int keeps the schedule lookup on the host: a [B]
+    tensor on the card costs a device-to-host read, which waits for the
+    queued work."""
+    if isinstance(t, int):
+        r = lambda a: a[t].to(x0.dtype).item()
+        return (r(sched.sqrt_alphas_cumprod) * x0
+                + r(sched.sqrt_one_minus_alphas_cumprod) * noise)
+    idx = torch.as_tensor(t).long().cpu()
+    a = sched.sqrt_alphas_cumprod[idx].to(x0.dtype).to(x0.device)
+    s = sched.sqrt_one_minus_alphas_cumprod[idx].to(x0.dtype).to(x0.device)
+    return a.reshape(-1, 1, 1, 1) * x0 + s.reshape(-1, 1, 1, 1) * noise
 
 
 @dataclass(frozen=True)

@@ -6,11 +6,12 @@ at downsample factors 1/2/4, 8 heads, context dim 768, and the CFG stem
 dedup (``context_pair``). NHWC activations at the public functions;
 attention in the [B, N, H, D] layout of ``ops/attention.py``.
 
-Ported: ``unet_init``, ``unet_apply`` with and without ``context_pair``.
-Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): K/V injection (``ref_kv``), ControlNet residuals (``control``),
-attention biases and MFR strips, sequence parallelism (``sp``),
-class conditioning (``y`` / ``num_classes``) and DeepCache.
+Ported: ``unet_init``, ``unet_apply`` with and without ``context_pair``,
+cross-frame K/V injection (``ref_kv``) and MFR strips (``strip``). Not
+yet ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+ControlNet residuals (``control``), materialized attention biases
+(``attn_biases``), sequence parallelism (``sp``), class conditioning
+(``y`` / ``num_classes``) and DeepCache.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.attention import attention
+from ..ops.attention import attention, attention_injected, strip_attention
 from ..ops.ffn import (geglu_ff_fused, geglu_ff_plain, linear_ln_fused,
                       linear_ln_plain)
 from .layers import (Init, conv2d, conv2d_init, group_norm, linear,
@@ -29,6 +30,21 @@ from .layers import (Init, conv2d, conv2d_init, group_norm, linear,
 
 # SD-1.5 has 16 spatial transformers: 6 encoder, 1 middle, 9 decoder.
 NUM_KV_LAYERS = 16
+
+
+@dataclass(frozen=True)
+class StripConfig:
+    """Multi-frame-rendering strip self-attention: the latent is a
+    width-concatenated strip of ``n_tiles`` frames, and every
+    self-attention adds a Gaussian band attraction between
+    spatially-corresponding pixels of different tiles.
+
+    mode 'target': tile 0 (the denoised target) is attracted to the
+      reference tiles.
+    mode 'mutual': all distinct tile pairs attract (seed strips where
+      every tile is denoised jointly)."""
+    n_tiles: int
+    mode: str = "target"
 
 
 @dataclass(frozen=True)
@@ -137,16 +153,58 @@ def _fused_route(x) -> bool:
             and x.dtype == torch.bfloat16)
 
 
-def _self_attention(p, x, n_heads, pre_ln):
+def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
+                    hw=None):
     """Self-attention with the block's norm1 folded into one fused
-    [C, 3C] QKV projection; returns (out, (k, v)) with k/v [B, N, C]."""
+    [C, 3C] QKV projection; returns (out, (k, v)) with k/v [B, N, C]
+    (views of the projection, post-projection, pre-head-split).
+
+    ``strip``: the MFR strip route (``hw`` is the latent's (h, w_strip)).
+    ``ref_kv`` = (rk, rv) [Br, Nr, C], the JAX package's three injection
+    cases: Br equal to x's batch replaces K/V wholesale; under the CFG
+    batch (Br 1 or B // 2) the cond half attends to the reference K/V
+    and the uncond half to its own, key-masked past its own count
+    (:func:`attention_injected`)."""
     wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]],
                      dim=0).to(x.dtype)
     proj = linear_ln_fused if _fused_route(x) else linear_ln_plain
     q, k, v = proj(x, wqkv, pre_ln["scale"], pre_ln["bias"]).chunk(3, dim=-1)
-    out = attention(_heads(q, n_heads), _heads(k, n_heads),
-                    _heads(v, n_heads))
-    return linear(p["to_out"], _merge_heads(out)), (k, v)
+    captured = (k, v)
+    heads = lambda t: _heads(t, n_heads)
+    if strip is not None and strip.n_tiles > 1:
+        if ref_kv is not None:
+            raise ValueError("strip MFR attention does not compose with "
+                             "ref_kv")
+        out = strip_attention(heads(q), heads(k), heads(v), h=hw[0],
+                              w_strip=hw[1], n_tiles=strip.n_tiles,
+                              mode=strip.mode)
+        return linear(p["to_out"], _merge_heads(out)), captured
+    if ref_kv is not None:
+        rk, rv = (t.to(x.dtype) for t in ref_kv)
+        b = x.shape[0]
+        if rk.shape[0] == b:
+            k, v = rk, rv
+        else:
+            if rk.shape[0] not in (1, b // 2) or b % 2:
+                raise ValueError(f"reference K/V batch {rk.shape[0]} fits "
+                                 f"neither batch {b} nor its CFG half")
+            # [own | reference] rows: the reference K/V for both halves,
+            # then the uncond half's own K/V over its first tokens. The
+            # JAX package fills the uncond rows past n_own with tiled
+            # copies of the own K/V (its TPU kernel's block grid wanted
+            # them); neither kernel #6 nor the plain version reads a key
+            # there, so the reference's (finite) values stay instead
+            nref, n = rk.shape[1], k.shape[1]
+            kv = []
+            for own, ref in ((k, rk), (v, rv)):
+                both = ref.expand(b // 2, -1, -1).repeat(2, 1, 1)
+                both[: b // 2, :n] = own[: b // 2, :nref]
+                kv.append(heads(both))
+            out = attention_injected(heads(q), *kv, n_own=n,
+                                     n_uncond=b // 2)
+            return linear(p["to_out"], _merge_heads(out)), captured
+    out = attention(heads(q), heads(k), heads(v))
+    return linear(p["to_out"], _merge_heads(out)), captured
 
 
 def _cross_attention(p, x, context, n_heads, pre_ln):
@@ -170,7 +228,8 @@ def _ff_tail(p, x):
               residual=True)
 
 
-def _spatial_transformer(p, x, context, n_heads, cfg_pair=None):
+def _spatial_transformer(p, x, context, n_heads, ref_kv=None, strip=None,
+                         cfg_pair=None):
     """Returns (out, kv_list) — one (k, v) per depth block.
 
     ``cfg_pair=(ctx_u, ctx_c)``: CFG stem dedup — ``x`` arrives at HALF
@@ -185,7 +244,8 @@ def _spatial_transformer(p, x, context, n_heads, cfg_pair=None):
     kvs = []
     expand = cfg_pair is not None
     for blk in p["blocks"]:
-        a1, kv = _self_attention(blk["attn1"], x, n_heads, blk["norm1"])
+        a1, kv = _self_attention(blk["attn1"], x, n_heads, blk["norm1"],
+                                 ref_kv=ref_kv, strip=strip, hw=(h, w))
         x = x + a1
         kvs.append(kv)
         if expand:
@@ -209,7 +269,7 @@ def _spatial_transformer(p, x, context, n_heads, cfg_pair=None):
 
 def unet_init(init: Init, cfg: UNetConfig = UNetConfig()):
     if cfg.num_classes is not None:
-        _not_ported("class conditioning (num_classes)", "10")
+        _not_ported("class conditioning (num_classes)", "7")
     mc = cfg.model_channels
     ted = cfg.time_embed_dim
     p: dict = {"time_embed": [linear_init(init, mc, ted),
@@ -263,35 +323,44 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
                control: Optional[Tuple] = None,
                attn_biases: Optional[dict] = None,
                y: Optional[torch.Tensor] = None,
-               strip=None, sp=None,
+               strip: Optional[StripConfig] = None, sp=None,
                context_pair: Optional[Tuple] = None):
     """Forward pass.
 
     Args:
-      x: [B, H, W, in_channels] latents.
+      x: [B, H, W, in_channels] latents (9 channels for the inpainting
+        UNet: latent, mask, masked-image latent).
       timesteps: [B] diffusion timesteps.
       context: [B, L, context_dim] text conditioning.
+      ref_kv: None, or a 16-tuple (capture order) of None / (k, v) pairs,
+        k and v [Br, Nr, C], injected into the self-attentions (see
+        ``_self_attention`` for the batch cases).
+      strip: optional StripConfig — x is a width-concatenated strip and
+        every self-attention adds the MFR band bias.
       context_pair: optional (ctx_u, ctx_c) — CFG stem dedup. ``x`` and
         ``timesteps`` arrive at HALF the CFG batch; the stem (input conv,
         first resblock, first self-attention) runs once and the batch
         doubles at the first cross-attention. Output batch is 2B
-        ([uncond|cond]); ``context`` is ignored.
-      ref_kv, control, attn_biases, y, strip, sp: not ported yet; passing
-        any of them raises NotImplementedError.
+        ([uncond|cond]); ``context`` is ignored. Composes with ``strip``
+        (a positional bias, the same for both halves), not with
+        ``ref_kv``.
+      control, attn_biases, y, sp: not ported yet; passing any of them
+        raises NotImplementedError.
 
     Returns:
       (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
     """
-    if ref_kv is not None:
-        _not_ported("K/V injection (ref_kv)", "8")
     if control is not None:
-        _not_ported("ControlNet residuals (control)", "9")
-    if attn_biases is not None or strip is not None:
-        _not_ported("attention biases and MFR strips", "9")
+        _not_ported("ControlNet residuals (control)", "6")
+    if attn_biases is not None:
+        _not_ported("materialized attention biases (attn_biases)", "2")
     if sp is not None:
-        _not_ported("sequence parallelism (sp)", "11")
+        _not_ported("sequence parallelism (sp)", "8")
     if y is not None or cfg.num_classes is not None:
-        _not_ported("class conditioning (y / num_classes)", "10")
+        _not_ported("class conditioning (y / num_classes)", "7")
+    if context_pair is not None and ref_kv is not None:
+        raise ValueError("context_pair (CFG stem dedup) does not compose "
+                         "with ref_kv: the CFG halves differ")
     nh = cfg.num_heads
     t_emb = timestep_embedding(timesteps, cfg.model_channels, dtype=x.dtype)
     emb = linear(params["time_embed"][1],
@@ -301,14 +370,19 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
     ctx = None if half else context
     kv_hist: list = []
     hs = []
+    layer = 0       # spatial transformers so far: ref_kv's index
 
     def tfm(p, h):
-        nonlocal half, emb, ctx, hs
+        nonlocal half, emb, ctx, hs, layer
+        layer += 1
         if not half:
-            h, kvs = _spatial_transformer(p, h, ctx, nh)
+            rkv = ref_kv[layer - 1] if ref_kv is not None else None
+            h, kvs = _spatial_transformer(p, h, ctx, nh, ref_kv=rkv,
+                                          strip=strip)
             kv_hist.extend(kvs)
             return h
-        h, kvs = _spatial_transformer(p, h, None, nh, cfg_pair=context_pair)
+        h, kvs = _spatial_transformer(p, h, None, nh, strip=strip,
+                                      cfg_pair=context_pair)
         kv_hist.extend(kvs)
         half = False
         emb = torch.cat([emb, emb], dim=0)
@@ -349,4 +423,4 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
 
 def unet_apply_deepcache(*args, **kwargs):
     """DeepCache partial forward — not ported yet."""
-    _not_ported("DeepCache (unet_apply_deepcache)", "9")
+    _not_ported("DeepCache (unet_apply_deepcache)", "6")

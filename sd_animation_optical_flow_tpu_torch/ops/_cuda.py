@@ -37,6 +37,13 @@ _SIGNATURES = {
     # q, k, v, o, B, H, Nq, Nk, D, 9 strides, scale_log2, wide, device,
     # stream
     "sdaof_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+    # ... scale_log2, n_own, n_uncond, device, stream
+    "sdaof_attention_keymask": [_P] * 4 + [_I] * 5 + [_L] * 9
+    + [_F, _I, _I, _I, _P],
+    # ... scale_log2, w_strip, w_tile, radius, target_only, bias_log2,
+    # inv_sigma, device, stream
+    "sdaof_attention_mfr": [_P] * 4 + [_I] * 5 + [_L] * 9
+    + [_F, _I, _I, _I, _I, _F, _F, _I, _P],
     # x, ln_scale, ln_bias, w, y, M, din, dout, eps, device, stream
     "sdaof_linear_ln": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     # x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, din, dff, eps, residual,

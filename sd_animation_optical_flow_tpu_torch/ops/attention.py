@@ -14,12 +14,20 @@ Kernels (``csrc/attention.cu``), each with its plain version beside it:
 * :func:`flash_attention` replaces the TPU's ``_flash_kernel`` (launched
   by ``flash_attention``): wide heads, the VAE mid-block attention
   (d = 512).
+* :func:`flash_attention_keymask` replaces the TPU's
+  ``_flash_keymask_kernel_tpv`` (launched by ``flash_attention_keymask``
+  via ``attention_injected``): the CFG K/V-injection attention, plain
+  version :func:`attention_injected_plain`.
+* :func:`flash_attention_mfr` replaces the TPU's ``_flash_mfr_kernel``
+  (launched by ``flash_attention_mfr`` via ``strip_attention``): strip
+  self-attention with the MFR band bias, plain version
+  :func:`strip_attention_plain`.
 
-Both kernels compute the function of :func:`xla_attention` (softmax in
-f32) with a tracked running max, so unlike the TPU's max-free form they
-need no bound on the logits. On a CPU tensor each wrapper returns its
-plain version, :func:`xla_attention`; on a CUDA tensor it launches its
-kernel (bf16 only) or raises. ``<wrapper>.launches`` counts kernel launches.
+Every kernel computes the function of its plain version (softmax in f32)
+with a tracked running max, so unlike the TPU's max-free forms they need
+no bound on the logits. On a CPU tensor each wrapper returns its plain
+version; on a CUDA tensor it launches its kernel (bf16 only) or raises.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -48,7 +56,9 @@ def xla_attention(q, k, v, *, bias=None):
     return out.to(q.dtype)
 
 
-def _launch(q, k, v, *, wide: bool):
+def _launch(entry: str, q, k, v, *extra, max_d: int = 512):
+    """Check q/k/v and launch the C entry point ``entry`` with the shared
+    attention arguments, then ``extra``."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
     if k.shape != (b, nk, h, d) or v.shape != k.shape:
@@ -58,15 +68,15 @@ def _launch(q, k, v, *, wide: bool):
         if t.device != q.device or t.dtype != torch.bfloat16:
             raise TypeError("the CUDA kernel takes bf16 q, k, v on one card, "
                             f"got {t.dtype} on {t.device}")
-    if d % 8 or d > 512:
+    if d % 8 or d > max_d:
         raise ValueError(f"the CUDA kernel takes d a multiple of 8 up to "
-                         f"512, got {d}")
+                         f"{max_d}, got {d}")
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
-    _cuda.call("sdaof_attention", q.device, q.data_ptr(), k.data_ptr(),
+    _cuda.call(entry, q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), b, h, nq, nk, d,
                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               (1.0 / math.sqrt(d)) * _LOG2E, int(wide))
+               (1.0 / math.sqrt(d)) * _LOG2E, *extra)
     return out
 
 
@@ -90,7 +100,7 @@ def flash_attention_tpv(q, k, v):
     slices of a fused QKV projection go in without a copy."""
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
-    out = _launch(q, k, v, wide=False)
+    out = _launch("sdaof_attention", q, k, v, 0)
     flash_attention_tpv.launches += 1
     return out
 
@@ -105,7 +115,7 @@ def flash_attention(q, k, v):
     output columns; bf16, d a multiple of 8 up to 512)."""
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
-    out = _launch(q, k, v, wide=True)
+    out = _launch("sdaof_attention", q, k, v, 1)
     flash_attention.launches += 1
     return out
 
@@ -132,3 +142,157 @@ def attention(q, k, v, *, bias=None):
             return flash_attention(q, k, v)
         return flash_attention_tpv(q, k, v)
     return xla_attention(q, k, v, bias=bias)
+
+
+# ---------------------------------------------------------------------------
+# CFG K/V injection (kernel #6)
+# ---------------------------------------------------------------------------
+
+def attention_injected_plain(q, k, v, *, n_own: int, n_uncond: int):
+    """Plain version of the K/V-injection attention: :func:`xla_attention`
+    with a -1e9 bias on the keys >= ``n_own`` of the first ``n_uncond``
+    batch rows (the JAX ``attention_injected`` off the flash path)."""
+    b, nk = q.shape[0], k.shape[1]
+    row = torch.where(torch.arange(nk, device=q.device) < n_own, 0.0, -1e9)
+    bias = torch.zeros((b, nk), device=q.device)
+    bias[:n_uncond] = row
+    return xla_attention(q, k, v, bias=bias[:, None, None, :])
+
+
+def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
+    """Attention of the CFG K/V-injection path (kernel #6,
+    ``attn_mma_kernel<DP, MODE_KEYMASK>``): batch rows ``< n_uncond`` see
+    keys ``< n_own`` only, the other rows see all keys. The uncond rows'
+    key loop stops at ``n_own``. bf16 on the card, d a multiple of 8 up
+    to 160 (SD-1.5's widest head); q [B, Nq, H, D], k/v [B, Nk, H, D]."""
+    b = q.shape[0]
+    if not 1 <= n_own or not 0 <= n_uncond <= b:
+        raise ValueError(f"keymask needs n_own >= 1 and 0 <= n_uncond <= B, "
+                         f"got n_own={n_own}, n_uncond={n_uncond}, B={b}")
+    if q.device.type != "cuda":
+        return attention_injected_plain(q, k, v, n_own=n_own,
+                                        n_uncond=n_uncond)
+    out = _launch("sdaof_attention_keymask", q, k, v, int(n_own),
+                  int(n_uncond), max_d=160)
+    flash_attention_keymask.launches += 1
+    return out
+
+
+flash_attention_keymask.launches = 0
+
+
+def attention_injected(q, k, v, *, n_own: int, n_uncond: int):
+    """Route the K/V-injection attention with the JAX gate minus its TPU
+    test: Nq >= 1536 -> :func:`flash_attention_keymask`; smaller shapes
+    -> the plain version, as JAX leaves them to XLA."""
+    if q.shape[1] >= 1536:
+        return flash_attention_keymask(q, k, v, n_own=n_own,
+                                       n_uncond=n_uncond)
+    return attention_injected_plain(q, k, v, n_own=n_own, n_uncond=n_uncond)
+
+
+# ---------------------------------------------------------------------------
+# MFR strip attention (kernel #10)
+# ---------------------------------------------------------------------------
+
+# the reference keys sigma by the latent tile height; its table
+# {96: 1, 48: 0.8, 24: 0.6, 12: 0.4} is 0.4 + 0.2 * log2(h / 12)
+MFR_RADIUS = 6
+MFR_WEIGHT = 4.0
+
+
+def mfr_sigma(h: int) -> float:
+    return 0.4 + 0.2 * math.log2(max(h, 1) / 12.0)
+
+
+def _strip_positions(h: int, w_tile: int, n_tiles: int, n_pad: int,
+                     device=None):
+    """Token coordinates of a width-concatenated strip flattened
+    row-major: int32 [1, 3, n_pad] rows (y, x_local, tile)."""
+    i = torch.arange(n_pad, dtype=torch.int32, device=device)
+    ws = n_tiles * w_tile
+    rem = i % ws
+    return torch.stack([(i // ws) % h, rem % w_tile, rem // w_tile])[None]
+
+
+def mfr_strip_bias(h: int, w_tile: int, n_tiles: int, *,
+                   radius: int = MFR_RADIUS, weight: float = MFR_WEIGHT,
+                   sigma: float | None = None, mode: str = "target",
+                   dtype=torch.float32, device=None):
+    """Materialized [N, N] MFR band bias, N = h * n_tiles * w_tile:
+    ``weight * exp(-dist / sigma)`` between tokens of distinct tiles
+    (``mutual``) or from tile-0 queries to the other tiles (``target``)
+    within a Chebyshev ``radius``, 0 elsewhere."""
+    if sigma is None:
+        sigma = mfr_sigma(h)
+    n = h * n_tiles * w_tile
+    y, x, tile = _strip_positions(h, w_tile, n_tiles, n, device)[0]
+    dy = y[:, None] - y[None, :]
+    dx = x[:, None] - x[None, :]
+    in_band = (dy.abs() <= radius) & (dx.abs() <= radius)
+    if mode == "target":
+        apply = (tile[:, None] == 0) & (tile[None, :] != 0)
+    elif mode == "mutual":
+        apply = tile[:, None] != tile[None, :]
+    else:
+        raise ValueError(mode)
+    dist = torch.sqrt((dy * dy + dx * dx).float())
+    bias = torch.where(apply & in_band, weight * torch.exp(-dist / sigma),
+                       0.0)
+    return bias.to(dtype)
+
+
+def strip_attention_plain(q, k, v, *, h: int, w_strip: int, n_tiles: int,
+                          mode: str = "target"):
+    """Plain version of the strip attention: :func:`xla_attention` with the
+    materialized :func:`mfr_strip_bias`."""
+    bias = mfr_strip_bias(h, w_strip // n_tiles, n_tiles, mode=mode,
+                          device=q.device)
+    return xla_attention(q, k, v, bias=bias[None, None])
+
+
+def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
+                        radius: int = MFR_RADIUS, weight: float = MFR_WEIGHT,
+                        sigma: float | None = None, mode: str = "target"):
+    """Strip self-attention with the MFR band bias computed in the kernel
+    (kernel #10, ``attn_mma_kernel<DP, MODE_MFR>``) from the token
+    indices; q/k/v [B, N, H, D] with N = h * n_tiles * w_tile. bf16 on
+    the card, d a multiple of 8 up to 160."""
+    if sigma is None:
+        sigma = mfr_sigma(h)
+    if mode not in ("target", "mutual"):
+        raise ValueError(mode)
+    n = h * n_tiles * w_tile
+    if q.shape[1] != n or k.shape[1] != n:
+        raise ValueError(f"MFR strip attention is full-strip self-attention "
+                         f"over {n} tokens, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if q.device.type != "cuda":
+        bias = mfr_strip_bias(h, w_tile, n_tiles, radius=radius,
+                              weight=weight, sigma=sigma, mode=mode,
+                              device=q.device)
+        return xla_attention(q, k, v, bias=bias[None, None])
+    out = _launch("sdaof_attention_mfr", q, k, v, n_tiles * w_tile, w_tile,
+                  int(radius), int(mode == "target"), float(weight) * _LOG2E,
+                  1.0 / float(sigma), max_d=160)
+    flash_attention_mfr.launches += 1
+    return out
+
+
+flash_attention_mfr.launches = 0
+
+
+def strip_attention(q, k, v, *, h: int, w_strip: int, n_tiles: int,
+                    mode: str = "target"):
+    """Self-attention over a width-concatenated strip of ``n_tiles`` frames
+    with the MFR band bias. Routed with the JAX gate minus its TPU test:
+    Nq >= 1536 -> :func:`flash_attention_mfr`, smaller shapes -> the
+    plain version."""
+    if w_strip % n_tiles:
+        raise ValueError(f"strip width {w_strip} does not split into "
+                         f"{n_tiles} tiles")
+    if q.shape[1] >= 1536:
+        return flash_attention_mfr(q, k, v, h=h, w_tile=w_strip // n_tiles,
+                                   n_tiles=n_tiles, mode=mode)
+    return strip_attention_plain(q, k, v, h=h, w_strip=w_strip,
+                                 n_tiles=n_tiles, mode=mode)

@@ -1,0 +1,73 @@
+"""cv2-parity image resizing as two separable weight-matrix products.
+
+Counterpart of ``sd_animation_optical_flow_tpu/ops/resize.py``
+(``resize_matrix``, ``resize``): the per-axis weight matrices are built on
+the host with numpy per (in, out, mode) and applied as an H-axis then a
+W-axis product, f32 accumulation, rounded to the input dtype after each.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _clip_gather_weights(idx, w, size):
+    """Accumulate out-of-range taps onto the clamped edge pixel
+    (cv2 BORDER_REPLICATE semantics used by cv2.resize)."""
+    out, taps = idx.shape
+    mat = np.zeros((out, size), np.float64)
+    np.add.at(mat, (np.repeat(np.arange(out), taps),
+                    np.clip(idx, 0, size - 1).ravel()), w.ravel())
+    return mat
+
+
+@functools.lru_cache(maxsize=256)
+def resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
+    """[out_size, in_size] row-stochastic resize weights for one axis
+    (modes 'nearest', 'linear', 'area'; the JAX package's 'cubic' and
+    'lanczos4' wait for the frame-prep code that uses them)."""
+    if in_size == out_size:
+        return np.eye(out_size, dtype=np.float32)
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    src = (dst + 0.5) * scale - 0.5
+
+    if mode == "nearest":
+        idx = np.clip(np.floor((dst + 0.5) * scale).astype(int), 0,
+                      in_size - 1)
+        mat = np.zeros((out_size, in_size))
+        mat[np.arange(out_size), idx] = 1.0
+    elif mode == "linear":
+        i0 = np.floor(src).astype(int)
+        f = src - i0
+        mat = _clip_gather_weights(np.stack([i0, i0 + 1], 1),
+                                   np.stack([1 - f, f], 1), in_size)
+    elif mode == "area":
+        if out_size >= in_size:
+            # cv2 INTER_AREA upscale falls back to bilinear-like sampling
+            return resize_matrix(in_size, out_size, "linear")
+        mat = np.zeros((out_size, in_size))
+        for o in range(out_size):
+            lo, hi = o * scale, (o + 1) * scale
+            for i in range(int(np.floor(lo)), min(int(np.ceil(hi)), in_size)):
+                overlap = min(hi, i + 1) - max(lo, i)
+                if overlap > 0:
+                    mat[o, i] = overlap
+        mat /= mat.sum(1, keepdims=True)
+    else:
+        raise ValueError(f"unknown resize mode {mode!r}")
+    return mat.astype(np.float32)
+
+
+def resize(x, out_hw, mode: str = "linear"):
+    """x [..., H, W, C] -> [..., out_h, out_w, C]."""
+    out_h, out_w = out_hw
+    h, w = x.shape[-3], x.shape[-2]
+    mh = torch.from_numpy(resize_matrix(h, out_h, mode)).to(x.device, x.dtype)
+    mw = torch.from_numpy(resize_matrix(w, out_w, mode)).to(x.device, x.dtype)
+    y = torch.einsum("oh,...hwc->...owc", mh.float(), x.float()).to(x.dtype)
+    return torch.einsum("pw,...owc->...opc", mw.float(),
+                        y.float()).to(x.dtype)

@@ -1,26 +1,32 @@
-"""Model facade: plain img2img.
+"""Model facades: img2img, img2img_inpaint, img2img_inpaint_batch.
 
 Counterpart of ``sd_animation_optical_flow_tpu/pipelines/facades.py``
-(``StableDiffusionBundle``, ``img2img``), main route only: CLIP chunked
-encode -> VAE encode (sampled) -> ``stochastic_encode`` -> CFG UNet steps
-through the multistep engine (DDIM or DPM-Solver++(2M), stem dedup) ->
-VAE decode.
+(``StableDiffusionBundle``, ``img2img``, ``build_inpaint_conditioning``,
+``img2img_inpaint`` on its fused path, ``img2img_inpaint_batch``,
+``split_kv_batch``): CLIP chunked encode -> VAE encode (sampled) ->
+``stochastic_encode`` -> CFG UNet steps through the multistep engine
+(DDIM or DPM-Solver++(2M); stem dedup unless K/V are injected; the
+inpaint re-noise before each step) -> VAE decode, with the K/V capture
+pass (the terminal-step UNet pass whose 16 self-attention (k, v) pairs
+the keyframe pipeline stores and injects into later frames), K/V
+injection (``reference_kv``) and MFR strips (``strip``).
 
-Noise is explicit: :func:`_img2img_core` takes the posterior noise and
-the forward-noising noise as tensors (the tests hand both frameworks the
-same arrays); :func:`img2img` draws them from
-``torch.Generator(device).manual_seed(seed)``. torch and JAX generators
-give different numbers from one seed, so the same seed does not give the
-JAX package's image.
+Noise is explicit: the core functions take every noise as a tensor (the
+tests hand both frameworks the same arrays); the public facades draw
+them from ``torch.Generator(device).manual_seed(seed)``. torch and JAX
+generators give different numbers from one seed, so the same seed does
+not give the JAX package's image.
 
-Images are NHWC in [-1, 1].
+Images are NHWC in [-1, 1]; masks [H, W] (or [B, H, W]) in [0, 1].
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..diffusion import ddim as D
@@ -31,6 +37,8 @@ from ..diffusion.schedule import (DiffusionSchedule, make_ddim_params,
 from ..models import clip as CL
 from ..models import unet as U
 from ..models import vae as V
+from ..ops.filters import fill_masked, gaussian_blur
+from ..ops.resize import resize
 from .tokenizer import PromptTokenizer
 
 _SAMPLER = re.compile(r"ddim|dpmpp(:[1-9][0-9]*)?")
@@ -93,14 +101,30 @@ def sampler_coeffs(sched: DiffusionSchedule, ddim_steps: int, t_enc: int,
     return M.make_dpmpp_coeffs(sched, dts)
 
 
-def _img2img_core(sd: StableDiffusionBundle, img, ctx_cond, ctx_uncond,
-                  enc_noise, noise, *, t_enc: int, ddim_steps: int,
-                  cfg_scale: float, sampler: str):
-    """VAE encode (posterior sample with ``enc_noise``) -> stochastic_encode
-    with ``noise`` -> CFG multistep decode (stem dedup) -> VAE decode.
-    Returns (image clipped to [-1, 1], final latent)."""
-    init_latent = V.encode(sd.vae_params, sd.vae_cfg, img.to(sd.dtype),
-                           noise=enc_noise)
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported to the torch package "
+                              f"yet (ROADMAP §1 item {item})")
+
+
+def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
+                 ctx_uncond, noise, *, t_enc: int, ddim_steps: int,
+                 cfg_scale: float, sampler: str, c_concat=None, nmask=None,
+                 renoise_gate=None, renoise_noise=None, ref_kv=None,
+                 capture_kv: bool = False, final_composite: bool = False,
+                 strip=None):
+    """The JAX ``_img2img_core``: ``stochastic_encode`` with ``noise`` ->
+    CFG multistep decode (with the inpaint re-noise when ``nmask`` is
+    given) -> optional final composite -> optional K/V capture -> VAE
+    decode. Returns (image clipped to [-1, 1], final latent, kv_hist or
+    None).
+
+    Stem dedup is on unless ``ref_kv`` is given (the CFG halves then see
+    different K/V); with ``c_concat`` both CondBundles share the one
+    tensor, so dedup holds for the inpaint model too. The capture pass
+    runs the UNet once more at t = 1 on the final latent (with
+    ``c_concat`` appended), ``ctx_cond`` only, no injection and no strip
+    bias (as in the JAX package); the stored pairs are contiguous
+    copies, not views of the fused QKV projections."""
     ddim = make_ddim_params(sd.sched, ddim_steps)
     x1 = D.stochastic_encode(ddim, init_latent, t_enc, noise)
 
@@ -108,16 +132,48 @@ def _img2img_core(sd: StableDiffusionBundle, img, ctx_cond, ctx_uncond,
         pair = ctx if isinstance(ctx, tuple) else None
         out, _ = U.unet_apply(sd.unet_params, sd.unet_cfg, x, t,
                               None if pair is not None else ctx,
-                              context_pair=pair)
+                              ref_kv=ref_kv, strip=strip, context_pair=pair)
         return out
 
     coeffs = sampler_coeffs(sd.sched, ddim_steps, t_enc, sampler)
+    inpaint = nmask is not None
     decoded = M.multistep_decode(
-        model_fn, coeffs, x1, D.CondBundle(crossattn=ctx_cond),
-        D.CondBundle(crossattn=ctx_uncond), cfg_scale=cfg_scale,
-        cfg_dedup=True, parameterization=sd.parameterization)
-    img_out = V.decode(sd.vae_params, sd.vae_cfg, decoded)
-    return img_out.clamp(-1.0, 1.0), decoded
+        model_fn, coeffs, x1, D.CondBundle(ctx_cond, c_concat),
+        D.CondBundle(ctx_uncond, c_concat), cfg_scale=cfg_scale,
+        cfg_dedup=ref_kv is None, parameterization=sd.parameterization,
+        sched=sd.sched, init_latent=init_latent if inpaint else None,
+        nmask=nmask, renoise_gate=renoise_gate, renoise_noise=renoise_noise)
+    if final_composite and inpaint:
+        # the mask in the latent's dtype: an f32 mask would promote the
+        # composite, and with it the capture pass, to f32
+        nm = nmask.to(decoded.dtype)
+        decoded = init_latent * (1.0 - nm) + decoded * nm
+
+    kv_hist = None
+    if capture_kv:
+        ts = torch.ones((init_latent.shape[0],), dtype=torch.int32,
+                        device=decoded.device)
+        x_cap = decoded if c_concat is None else \
+            torch.cat([decoded, c_concat.to(decoded.dtype)], dim=-1)
+        _, kv = U.unet_apply(sd.unet_params, sd.unet_cfg, x_cap, ts,
+                             ctx_cond)
+        kv_hist = tuple((k.contiguous(), v.contiguous()) for k, v in kv)
+    img = V.decode(sd.vae_params, sd.vae_cfg, decoded)
+    return img.clamp(-1.0, 1.0), decoded, kv_hist
+
+
+def _img2img_core(sd: StableDiffusionBundle, img, ctx_cond, ctx_uncond,
+                  enc_noise, noise, *, t_enc: int, ddim_steps: int,
+                  cfg_scale: float, sampler: str, ref_kv=None,
+                  capture_kv: bool = False, strip=None):
+    """VAE encode (posterior sample with ``enc_noise``) then
+    :func:`_latent_core`. Returns (image, final latent, kv_hist)."""
+    init_latent = V.encode(sd.vae_params, sd.vae_cfg, img.to(sd.dtype),
+                           noise=enc_noise)
+    return _latent_core(sd, init_latent, ctx_cond, ctx_uncond, noise,
+                        t_enc=t_enc, ddim_steps=ddim_steps,
+                        cfg_scale=cfg_scale, sampler=sampler, ref_kv=ref_kv,
+                        capture_kv=capture_kv, strip=strip)
 
 
 def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
@@ -128,28 +184,26 @@ def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
             control_specs=(), guidance_space: str = "latent",
             sampler: str = "ddim", cfg_interval: int = 1,
             deepcache_interval: int = 0, strip=None, sp=None):
-    """Plain img2img. img: [B, H, W, 3] in [-1, 1] (a tensor; moved to the
-    bundle's device). Returns (image, None): K/V capture is not ported.
+    """Plain img2img. img: [B, H, W, 3] in [-1, 1] (moved to the bundle's
+    device). Returns (image, kv_hist): kv_hist is the 16-layer tuple of
+    (k, v) [B, N, C] when ``capture_kv``, else None.
 
     ``sampler``: 'ddim' (eta 0) or 'dpmpp' / 'dpmpp:N' (DPM-Solver++(2M)).
-    The guidance, ControlNet, K/V, strip, sequence-parallel, DeepCache and
+    ``reference_kv``: per-layer (k, v) to inject (batch 1 or B).
+    ``strip``: a ``StripConfig`` — img is a width-concatenated strip.
+    The guidance, ControlNet, sequence-parallel, DeepCache and
     CFG-interval hooks of the JAX facade are not ported yet and raise
     NotImplementedError."""
     unported = {
         "target_img (guidance blending)": (target_img is not None, "6"),
-        "control_specs (ControlNet)": (bool(control_specs), "9"),
-        "reference_kv (K/V injection)": (reference_kv is not None, "8"),
-        "capture_kv (K/V capture)": (capture_kv, "8"),
-        "strip (MFR strips)": (strip is not None, "9"),
-        "sp (sequence parallelism)": (sp is not None, "11"),
-        "deepcache_interval": (deepcache_interval != 0, "9"),
-        "cfg_interval != 1": (cfg_interval != 1, "9"),
+        "control_specs (ControlNet)": (bool(control_specs), "6"),
+        "sp (sequence parallelism)": (sp is not None, "8"),
+        "deepcache_interval": (deepcache_interval != 0, "6"),
+        "cfg_interval != 1": (cfg_interval != 1, "6"),
     }
     for what, (given, item) in unported.items():
         if given:
-            raise NotImplementedError(
-                f"{what} is not ported to the torch package yet "
-                f"(ROADMAP §1 item {item})")
+            _not_ported(what, item)
     check_sampler(sampler)
     img = img.to(sd.device)
     ctx_c = sd.get_learned_conditioning(c_text)
@@ -160,8 +214,239 @@ def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
     gen = torch.Generator(sd.device).manual_seed(seed)
     enc_noise = torch.randn(shape, generator=gen, device=sd.device)
     noise = torch.randn(shape, generator=gen, device=sd.device)
-    out, _ = _img2img_core(
+    out, _, kv = _img2img_core(
         sd, img, ctx_c.expand(b, -1, -1), ctx_u.expand(b, -1, -1),
         enc_noise, noise, t_enc=_t_enc(denoising_strength, ddim_steps),
-        ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler=sampler)
-    return out, None
+        ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler=sampler,
+        ref_kv=reference_kv, capture_kv=capture_kv, strip=strip)
+    return out, kv
+
+
+# ---------------------------------------------------------------------------
+# inpainting
+# ---------------------------------------------------------------------------
+
+class InpaintNoise(NamedTuple):
+    """Every noise of one inpaint call (the JAX program draws them inside
+    ``_inpaint_fused``; here they are inputs). ``enc`` and ``cdt`` are
+    the posterior noises of the two VAE encodes, [1, h, w, c] broadcast
+    over the batch; ``fill`` [B, h, w, c] randomises the masked latent
+    on the fill path (None with a reference); ``forward`` [1 or B, ...]
+    is the ``stochastic_encode`` noise; ``renoise`` [S, 1 or B, ...] the
+    per-step re-noise stack."""
+    enc: torch.Tensor
+    cdt: torch.Tensor
+    fill: Optional[torch.Tensor]
+    forward: torch.Tensor
+    renoise: torch.Tensor
+
+
+def draw_inpaint_noise(gen: torch.Generator, latent_shape, n_slots: int, *,
+                       has_reference: bool, tile_noise: bool,
+                       tile_renoise: bool, device) -> InpaintNoise:
+    """Draw an :class:`InpaintNoise` from ``gen``. ``tile_noise``: one
+    forward noise for the whole batch; ``tile_renoise``: one re-noise per
+    step for the whole batch (the JAX DDIM sampler tiles it with
+    ``tile_noise``, DPM++ never does)."""
+    one = (1,) + tuple(latent_shape[1:])
+    rn = lambda shape: torch.randn(shape, generator=gen, device=device)
+    enc, cdt = rn(one), rn(one)
+    fill = None if has_reference else rn(tuple(latent_shape))
+    forward = rn(one if tile_noise else tuple(latent_shape))
+    step = one if tile_renoise else tuple(latent_shape)
+    return InpaintNoise(enc, cdt, fill, forward, rn((max(n_slots, 1),) + step))
+
+
+def build_inpaint_conditioning(sd: StableDiffusionBundle, image, mask01,
+                               noise):
+    """5-channel inpaint conditioning: the rounded mask (1 channel, latent
+    resolution, nearest) and the VAE latent of the mask-zeroed image (4
+    channels, posterior noise ``noise`` [1 or B, h, w, c]). image
+    [B, H, W, 3]; mask01 [H, W] (shared by the batch) or [B, H, W]."""
+    cmask = torch.round(mask01 if mask01.dim() == 3 else mask01[None])
+    cmask = cmask[..., None]
+    cond_latent = V.encode(sd.vae_params, sd.vae_cfg,
+                           image * (1.0 - cmask.to(image.dtype)), noise=noise)
+    h, w = cond_latent.shape[1:3]
+    cmask_lat = resize(cmask, (h, w), "nearest")
+    return torch.cat([cmask_lat.to(cond_latent.dtype), cond_latent], dim=-1)
+
+
+def _inpaint_fused(sd: StableDiffusionBundle, image, reference_img, mask01,
+                   ctx_c, ctx_u, gates, ref_kv, noise: InpaintNoise, *,
+                   mask_blur: int, t_enc: int, ddim_steps: int,
+                   cfg_scale: float, capture_kv: bool,
+                   final_composite: bool, has_reference: bool,
+                   want_init_decoded: bool, sampler: str = "ddim",
+                   strip=None):
+    """image / reference_img [B, H, W, 3]; mask01 [B, H, W]. Mask blur ->
+    composite (or the multi-radius fill without a reference) -> VAE
+    encode -> binarised latent mask -> 5-channel conditioning -> the
+    core. Returns (image, composited input, decoded init latent or
+    None, kv_hist)."""
+    dtype = image.dtype
+    m = mask01.float()
+    image_mask = torch.stack([gaussian_blur(mm, float(mask_blur))
+                              for mm in m]) if mask_blur > 0 else m
+    image_mask = image_mask.clamp(0.0, 1.0)
+    m4 = image_mask[..., None].to(dtype)
+    if has_reference:
+        composited = image * (1.0 - m4) + reference_img * m4
+    else:
+        # fill path: seed the masked pixels with multi-radius blurred
+        # colors before encoding
+        composited = fill_masked(image, torch.round(image_mask)).to(dtype)
+
+    # the posterior noises are [1, ...], broadcast over the batch (the
+    # JAX _vae_encode_tiled): frame i matches a single-frame encode
+    init_latent = V.encode(sd.vae_params, sd.vae_cfg, composited,
+                           noise=noise.enc)
+    h, w = init_latent.shape[1:3]
+    nmask = torch.round(resize(image_mask[..., None], (h, w), "linear"))
+    if not has_reference:
+        # fill path: randomise the masked latent (kept in the latent's
+        # dtype, which the UNet's weights share)
+        init_latent = ((1.0 - nmask) * init_latent
+                       + nmask * noise.fill).to(init_latent.dtype)
+
+    c_concat = build_inpaint_conditioning(sd, composited, image_mask,
+                                          noise.cdt)
+
+    out, _, kv = _latent_core(
+        sd, init_latent, ctx_c, ctx_u, noise.forward, t_enc=t_enc,
+        ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler=sampler,
+        c_concat=c_concat, nmask=nmask, renoise_gate=gates,
+        renoise_noise=noise.renoise, ref_kv=ref_kv, capture_kv=capture_kv,
+        final_composite=final_composite, strip=strip)
+    init_decoded = V.decode(sd.vae_params, sd.vae_cfg, init_latent).clamp(
+        -1.0, 1.0) if want_init_decoded else None
+    return out, composited, init_decoded, kv
+
+
+def _gates(guidance_schedule_func, t_enc: int, ddim_steps: int):
+    """Per-step re-noise gates (host floats) and whether the final
+    composite runs (the last gate > 0)."""
+    fn = guidance_schedule_func or (lambda p: 0.1)
+    if t_enc == 0:
+        return np.zeros((1,), np.float32), True
+    gates = np.asarray([float(fn(p)) for p in
+                        D.guidance_progress(t_enc, ddim_steps)], np.float32)
+    return gates, bool(gates[-1] > 0)
+
+
+def _latent_shape(sd: StableDiffusionBundle, image_shape):
+    f = sd.vae_cfg.downscale
+    b, h, w, _ = image_shape
+    return (b, h // f, w // f, sd.vae_cfg.embed_dim)
+
+
+def img2img_inpaint(sd: StableDiffusionBundle, image, c_text: str,
+                    uc_text: str, denoising_strength: float = 0.05,
+                    ddim_steps: int = 50, reference_img=None, mask=None,
+                    mask_blur: int = 16, guidance_schedule_func=None,
+                    cfg_scale: float = 7.0, seed: int = 1234,
+                    reference_kv=None, capture_kv: bool = False,
+                    control_specs=(), want_init_decoded: bool = True,
+                    sampler: str = "ddim", cfg_interval: int = 1,
+                    strip=None, sp=None):
+    """Masked inpainting img2img on the inpainting model (9-channel UNet).
+
+    image / reference_img: [1, H, W, 3] in [-1, 1]; mask: [H, W] in {0, 1}
+    (1 = inpaint). Without ``reference_img`` the masked pixels are filled
+    from their surroundings and denoised from full strength. Returns
+    (image, composited_input, init_latent_decoded or None, kv_hist).
+    ControlNet (``control_specs``), ``cfg_interval`` and ``sp`` are not
+    ported yet and raise NotImplementedError."""
+    if control_specs:
+        _not_ported("control_specs (ControlNet)", "6")
+    if cfg_interval != 1:
+        _not_ported("cfg_interval != 1", "6")
+    if sp is not None:
+        _not_ported("sp (sequence parallelism)", "8")
+    if mask is None:
+        raise ValueError("img2img_inpaint requires a mask")
+    check_sampler(sampler)
+    ctx_c = sd.get_learned_conditioning(c_text)
+    ctx_u = sd.get_learned_conditioning(uc_text)
+    mask01 = torch.as_tensor(mask, dtype=torch.float32, device=sd.device)
+    has_reference = reference_img is not None
+    if not has_reference:
+        denoising_strength = 1.0
+    t_enc = _t_enc(denoising_strength, ddim_steps)
+    gates, final_composite = _gates(guidance_schedule_func, t_enc,
+                                    ddim_steps)
+    img_d = torch.as_tensor(image, device=sd.device).to(sd.dtype)
+    ref_d = img_d if not has_reference else \
+        torch.as_tensor(reference_img, device=sd.device).to(sd.dtype)
+    n_slots = sampler_coeffs(sd.sched, ddim_steps, t_enc, sampler).num_slots
+    gen = torch.Generator(sd.device).manual_seed(seed)
+    noise = draw_inpaint_noise(gen, _latent_shape(sd, img_d.shape), n_slots,
+                               has_reference=has_reference, tile_noise=False,
+                               tile_renoise=False, device=sd.device)
+    return _inpaint_fused(
+        sd, img_d, ref_d, mask01[None], ctx_c, ctx_u, gates, reference_kv,
+        noise, mask_blur=mask_blur, t_enc=t_enc, ddim_steps=ddim_steps,
+        cfg_scale=cfg_scale, capture_kv=capture_kv,
+        final_composite=final_composite, has_reference=has_reference,
+        want_init_decoded=want_init_decoded, sampler=sampler, strip=strip)
+
+
+def img2img_inpaint_batch(sd: StableDiffusionBundle, images, c_texts,
+                          uc_text: str, masks, reference_imgs,
+                          denoising_strength: float = 0.05,
+                          ddim_steps: int = 50, mask_blur: int = 16,
+                          guidance_schedule_func=None,
+                          cfg_scale: float = 7.0, seed: int = 1234,
+                          sampler: str = "ddim", cfg_interval: int = 1,
+                          mesh=None, reference_kv=None,
+                          capture_kv: bool = False):
+    """B independent masked-inpainting frames in one batch. The noise is
+    drawn once and broadcast over the batch (the DDIM re-noise too), so
+    frame i matches a single-frame ``img2img_inpaint`` fed the same
+    noise.
+
+    images / reference_imgs: [B, H, W, 3] in [-1, 1]; masks [B, H, W] in
+    {0, 1}; c_texts: B prompts. ``reference_kv``: per-layer (k, v) with
+    batch B (each frame injects its own references) or 1 (one set for
+    all). Returns images [B, H, W, 3], and with ``capture_kv`` also the
+    batch's kv_hist (split it per frame with :func:`split_kv_batch`).
+    ``mesh`` (data parallelism) and ``cfg_interval`` are not ported yet
+    and raise NotImplementedError."""
+    if mesh is not None:
+        _not_ported("mesh (data-parallel batches)", "8")
+    if cfg_interval != 1:
+        _not_ported("cfg_interval != 1", "6")
+    check_sampler(sampler)
+    images = torch.as_tensor(images, device=sd.device).to(sd.dtype)
+    b = images.shape[0]
+    if len(c_texts) != b:
+        raise ValueError(f"{len(c_texts)} prompts for {b} frames")
+    ctx_c = torch.cat([sd.get_learned_conditioning(t) for t in c_texts])
+    ctx_u = sd.get_learned_conditioning(uc_text).expand(b, -1, -1)
+    t_enc = _t_enc(denoising_strength, ddim_steps)
+    gates, final_composite = _gates(guidance_schedule_func, t_enc,
+                                    ddim_steps)
+    n_slots = sampler_coeffs(sd.sched, ddim_steps, t_enc, sampler).num_slots
+    gen = torch.Generator(sd.device).manual_seed(seed)
+    noise = draw_inpaint_noise(gen, _latent_shape(sd, images.shape), n_slots,
+                               has_reference=True, tile_noise=True,
+                               tile_renoise=sampler == "ddim",
+                               device=sd.device)
+    out, _, _, kv = _inpaint_fused(
+        sd, images, torch.as_tensor(reference_imgs,
+                                    device=sd.device).to(sd.dtype),
+        torch.as_tensor(masks, dtype=torch.float32, device=sd.device),
+        ctx_c, ctx_u, gates, reference_kv, noise, mask_blur=mask_blur,
+        t_enc=t_enc, ddim_steps=ddim_steps, cfg_scale=cfg_scale,
+        capture_kv=capture_kv, final_composite=final_composite,
+        has_reference=True, want_init_decoded=False, sampler=sampler)
+    return (out, kv) if capture_kv else out
+
+
+def split_kv_batch(kv_hist, b: int):
+    """Split a captured batch-B kv_hist into B per-frame kv_hist tuples
+    (each layer's k/v sliced to batch 1, the store / injection shape)."""
+    if kv_hist is None:
+        return [None] * b
+    return [tuple((k[i:i + 1], v[i:i + 1]) for k, v in kv_hist)
+            for i in range(b)]

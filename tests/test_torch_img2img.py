@@ -177,14 +177,14 @@ def test_img2img_slice_matches_jax(bundles, np_rng, sampler):
 
     ref_img, ref_lat = jax.jit(jax_slice)(
         up, vp, *map(jnp.asarray, (img, ctx_c, ctx_u, enc_noise, noise)))
-    out_img, out_lat = TF._img2img_core(
+    out_img, out_lat, kv = TF._img2img_core(
         sd, np_t(img), np_t(ctx_c), np_t(ctx_u), np_t(enc_noise),
         np_t(noise), t_enc=t_enc, ddim_steps=steps, cfg_scale=7.0,
         sampler=sampler)
     psnr = _psnr(out_img, ref_img)
     print(f"\n[slice {sampler}] decoded-frame PSNR {psnr:.1f} dB, latent "
           f"rel err {rel_err(out_lat, ref_lat):.2e}")
-    assert out_img.shape == ref_img.shape == (1, 32, 48, 3)
+    assert out_img.shape == ref_img.shape == (1, 32, 48, 3) and kv is None
     assert psnr >= 80.0
     assert rel_err(out_lat, ref_lat) < 1e-4
 
@@ -206,9 +206,8 @@ def test_img2img_api_on_cpu(bundles):
         with pytest.raises(ValueError, match="sampler"):
             TF.img2img(sd, img, "a fox", "", sampler=bad)
     for kw in ({"target_img": img}, {"control_specs": (1,)},
-               {"reference_kv": ()}, {"capture_kv": True},
-               {"strip": object()}, {"sp": object()},
-               {"deepcache_interval": 2}, {"cfg_interval": 2}):
+               {"sp": object()}, {"deepcache_interval": 2},
+               {"cfg_interval": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TF.img2img(sd, img, "a fox", "", **kw)
 
@@ -217,7 +216,9 @@ def test_create_model_boundaries():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TC.create_model("sd15", ckpt_path="model.safetensors", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.load_spec("sd15-inpaint9")
+        TC.load_spec("sd15-depth")
+    assert TC.load_spec("sd15-inpaint9").unet.in_channels == 9
+    assert TC.load_spec("sd15-inpaint9").conditioning_key == "hybrid"
     spec = TC.load_spec("sd15")
     assert spec.unet.model_channels == 320 and spec.vae.ch == 128 \
         and spec.clip.width == 768 and spec.scale_factor == 0.18215

@@ -9,7 +9,11 @@ the JAX package instead). On a machine with a card, and without JAX:
 Shapes are small but cover the kernels' edges: ragged query and key
 tiles, head dims that are not a multiple of 16 (zero-padded tiles) or
 above 128 (the wide kernel), strided and misaligned q/k/v views, rows
-past a 32-row tile. Tolerance: max |kernel - plain| <= 2e-2 * max |plain|,
+past a 32-row tile; for the keymask kernel n_own = Nk, n_own not a
+multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
+ragged N, 3 tiles, both modes and key tiles outside the band; both at
+SD-1.5's widest head (d = 160) and at a d padded up to it.
+Tolerance: max |kernel - plain| <= 2e-2 * max |plain|,
 with no floor (a few bf16 ulps of the largest output; both sides round
 bf16 products accumulated in f32)."""
 
@@ -101,6 +105,64 @@ def test_geglu_kernel(gen, m, din, ln, residual):
            TF.geglu_ff_plain(x, w1, b1, w2, b2, g, bta, 1e-5, residual))
 
 
+@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", [
+    (2, 200, 400, 2, 40, 200, 1),       # the CFG batch, one reference
+    (2, 100, 300, 2, 80, 300, 1),       # n_own = Nk: nothing masked
+    (2, 130, 390, 3, 40, 130, 1),       # n_own not a multiple of 64
+    (4, 96, 200, 2, 24, 96, 2),         # n_uncond = B / 2, ragged Nk
+    (2, 64, 100, 1, 40, 30, 2),         # every row masked
+    (2, 96, 200, 2, 160, 96, 1),        # SD-1.5's L2 head width
+    (2, 70, 130, 1, 152, 70, 1)])       # d padded up to 160
+def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
+                                        n_uncond):
+    q = _randn(gen, b, nq, h, d)
+    k = _randn(gen, b, nk, h, d)
+    v = _randn(gen, b, nk, h, d)
+    n0 = TA.flash_attention_keymask.launches
+    _check(TA.flash_attention_keymask(q, k, v, n_own=n_own,
+                                      n_uncond=n_uncond),
+           TA.attention_injected_plain(q, k, v, n_own=n_own,
+                                       n_uncond=n_uncond))
+    assert TA.flash_attention_keymask.launches == n0 + 1
+
+
+@pytest.mark.parametrize("b,hh,w_tile,n_tiles,heads,d,mode,radius", [
+    (1, 5, 7, 2, 2, 40, "target", 6),   # ragged N = 70
+    (2, 5, 7, 2, 2, 40, "mutual", 6),
+    (1, 6, 8, 3, 2, 80, "target", 6),   # 3 tiles
+    (2, 6, 8, 3, 1, 80, "mutual", 6),
+    (1, 16, 12, 2, 2, 40, "mutual", 2),  # key tiles outside the band
+    (1, 4, 6, 4, 2, 160, "mutual", 6),  # SD-1.5's L2 head width, 4 tiles
+    (2, 5, 7, 2, 1, 160, "target", 6)])
+def test_flash_attention_mfr_kernel(gen, b, hh, w_tile, n_tiles, heads, d,
+                                    mode, radius):
+    n = hh * n_tiles * w_tile
+    q, k, v = (_randn(gen, b, n, heads, d) for _ in range(3))
+    n0 = TA.flash_attention_mfr.launches
+    out = TA.flash_attention_mfr(q, k, v, h=hh, w_tile=w_tile,
+                                 n_tiles=n_tiles, mode=mode, radius=radius)
+    bias = TA.mfr_strip_bias(hh, w_tile, n_tiles, radius=radius, mode=mode,
+                             device="cuda")
+    _check(out, TA.xla_attention(q, k, v, bias=bias[None, None]))
+    assert TA.flash_attention_mfr.launches == n0 + 1
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_routers_launch_the_kernels_past_the_gate(gen, d):
+    """At Nq >= 1536 the injection and strip routers launch their kernels
+    at each SD-1.5 head width; the card never runs their plain versions
+    there."""
+    q, k, v = (_randn(gen, 2, 1536, 1, d) for _ in range(3))
+    n0 = TA.flash_attention_keymask.launches
+    _check(TA.attention_injected(q, k, v, n_own=768, n_uncond=1),
+           TA.attention_injected_plain(q, k, v, n_own=768, n_uncond=1))
+    assert TA.flash_attention_keymask.launches == n0 + 1
+    n0 = TA.flash_attention_mfr.launches
+    _check(TA.strip_attention(q, k, v, h=16, w_strip=96, n_tiles=4),
+           TA.strip_attention_plain(q, k, v, h=16, w_strip=96, n_tiles=4))
+    assert TA.flash_attention_mfr.launches == n0 + 1
+
+
 def test_kernels_refuse_what_they_do_not_take(gen):
     x = _randn(gen, 64, 40)                 # din not a multiple of 16
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -116,3 +178,11 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     q = _randn(gen, 1, 64, 2, 20)            # d not a multiple of 8
     with pytest.raises(ValueError):
         TA.flash_attention_tpv(q, q, q)
+    q = _randn(gen, 2, 64, 1, 168)           # d > 160
+    with pytest.raises(ValueError):
+        TA.flash_attention_keymask(q, q, q, n_own=32, n_uncond=1)
+    with pytest.raises(ValueError):
+        TA.flash_attention_mfr(q, q, q, h=4, w_tile=8, n_tiles=2)
+    q = _randn(gen, 1, 64, 2, 40)            # 64 tokens != 4 * 2 * 10
+    with pytest.raises(ValueError):
+        TA.flash_attention_mfr(q, q, q, h=4, w_tile=10, n_tiles=2)

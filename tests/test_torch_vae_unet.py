@@ -107,8 +107,7 @@ def test_unet_unported_arguments_raise(models):
     x = torch.zeros((2, 8, 12, 4))
     t = torch.zeros((2,), dtype=torch.int32)
     ctx = torch.zeros((2, 13, 64))
-    for kw in ({"ref_kv": ()}, {"control": ()}, {"attn_biases": {}},
-               {"strip": object()}, {"sp": object()},
+    for kw in ({"control": ()}, {"attn_biases": {}}, {"sp": object()},
                {"y": torch.zeros(2)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TU.unet_apply(tp, tu, x, t, ctx, **kw)
