@@ -9,8 +9,9 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
  1. print the card (name, power limit) and the f32 matmul/conv precision;
  2. build the CUDA kernels from ``sd_animation_optical_flow_tpu_torch/csrc``;
  3. hold each kernel against its plain PyTorch version at the SD-1.5
-    512x768 main path's shapes in bf16, and time kernel, plain version
-    and one PyTorch library call for the same function;
+    512x768 main path's shapes in bf16 (the training kernels at the
+    training step's), and time kernel, plain version and one PyTorch
+    library call for the same function;
  4. one UNet evaluation at full SD-1.5 width on the card (bf16, kernels)
     against the same weights and inputs on the CPU in f32 (plain
     versions);
@@ -24,7 +25,12 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     (kernel #6), the same batched with per-frame K/V, a 2-frame seed
     strip and a [target | reference] strip inpaint (kernel #10), each
     checked (output, 16-pair K/V stores, its kernel launched), timed and
-    profiled;
+    profiled; then the diffusion fine-tuning step on ``sd15`` (f32 master
+    weights, bf16 activations, batch 2 at 512x768, ``adamw_with_ema_wings``):
+    one step's gradient against the f32 plain route, three steps with
+    their launches checked (#7, #8, #9 ten each, #1 at least ten, the
+    fused FFN kernels none), the parameters and the EMA checked, timed
+    and profiled;
  6. print the kernel table as one JSON line, the card line, and the
     result line.
 """
@@ -36,6 +42,7 @@ import math
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
@@ -119,15 +126,25 @@ def check_kernels():
 
     def record(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
                tol, source, replaces, iters):
-        out = kernel_fn()
+        """Hold each output of ``kernel_fn`` (a tensor or a tuple) to the
+        same output of ``plain_fn``: max |err| <= tol * max |plain| per
+        output; the row reports the output with the largest err / limit."""
+        outs = kernel_fn()
         torch.cuda.synchronize()
-        ref = plain_fn()
+        refs = plain_fn()
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        rms = ref.float().pow(2).mean().sqrt().item()
-        finite = bool(torch.isfinite(out).all())
-        ok = finite and err <= tol * scale
+        if isinstance(outs, torch.Tensor):
+            outs, refs = (outs,), (refs,)
+        ok, worst = True, None
+        for out, ref in zip(outs, refs):
+            e = (out.float() - ref.float()).abs().max().item()
+            sc = ref.float().abs().max().item()
+            ok = ok and bool(torch.isfinite(out).all()) and e <= tol * sc
+            if worst is None or e / max(sc, 1e-30) > worst[0] / max(
+                    worst[1], 1e-30):
+                worst = (e, sc, ref.float().pow(2).mean().sqrt().item())
+        err, scale, rms = worst
+        del outs, refs
         ms = cuda_ms(kernel_fn, iters)
         plain_ms = cuda_ms(plain_fn, max(2, iters // 4))
         lib_ms = cuda_ms(library_fn, iters) if library_fn else None
@@ -141,7 +158,8 @@ def check_kernels():
                > flops / PEAK_BF16_FLOPS else "operations",
                "library_ms": lib_ms, "ok": ok}
         log(f"[kernel] {name}: max|err| {err:.3e} (tol {tol * scale:.3e} ="
-            f" {tol:g} * max|plain| {scale:.3e}; rms(plain) {rms:.3e}) "
+            f" {tol:g} * max|plain| {scale:.3e}; rms(plain) {rms:.3e}; worst "
+            f"output) "
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain "
             f"{plain_ms:.3f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}  bound "
@@ -275,7 +293,81 @@ def check_kernels():
                   + b2.numel()) + 8.0 * din,
            ffn_tol, ffn_src, "sd_animation_optical_flow_tpu/ops/ffn.py:54",
            iters=20)
+    check_training_kernels(gen, record, attn_tol)
     return rows
+
+
+def _stats_by_head(q, k, v):
+    """flash_fwd_stats_plain one head at a time (f32 [B, 1, N, N] scores:
+    302 MB at L0 instead of 2.4 GB)."""
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    b, nq, h, _ = q.shape
+    outs, lses = zip(*(A.flash_fwd_stats_plain(
+        q[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1])
+        for i in range(h)))
+    return torch.cat(outs, dim=2), torch.stack(lses, 1).reshape(b * h, nq)
+
+
+def _bwd_by_head(plain, q, k, v, do, lse, dvec):
+    """A plain backward (outputs shaped as q / k) one head at a time."""
+    b, nq, h, _ = q.shape
+    rows = lambda t, i: t.reshape(b, h, nq)[:, i].contiguous()
+    parts = [plain(q[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1],
+                   do[:, :, i:i + 1], rows(lse, i), rows(dvec, i))
+             for i in range(h)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=2)
+    return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+
+
+def check_training_kernels(gen, record, tol):
+    """Kernels #7 (forward with statistics), #8 (dK, dV) and #9 (dQ) at
+    the training step's self-attention shapes (batch 2, bf16, q/k/v
+    slices of the fused QKV projection), each against its plain version
+    (one head at a time). Library: SDPA's forward for #7; SDPA's backward
+    (autograd of its output with the same dO) for the pair #8 + #9,
+    reported once, on the #8 row. ``record`` adds the rows."""
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    src = "sd_animation_optical_flow_tpu_torch/csrc/attention.cu"
+    bwd_src = "sd_animation_optical_flow_tpu_torch/csrc/attention_bwd.cu"
+    rep = "sd_animation_optical_flow_tpu/ops/attention.py:"
+    for label, (b, n, h, d) in {"self L0": (2, 6144, 8, 40),
+                                "self L1": (2, 1536, 8, 80)}.items():
+        (q, k, v), _, _ = _attn_case(gen, b, n, n, h, d, True)
+        do = torch.randn((b, n, h, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        out, lse = A.flash_fwd_stats(q, k, v)
+        dvec = A.flash_dvec(out, do)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdpa_out = _sdpa(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        qkv_bytes = 2.0 * 3 * b * n * h * d
+        stat_bytes = 4.0 * b * h * n
+        flop = b * h * n * n * d
+        record(f"flash_fwd_stats [{label}]",
+               lambda: A.flash_fwd_stats(q, k, v),
+               lambda: _stats_by_head(q, k, v),
+               lambda: _sdpa(qt.detach(), kt.detach(), vt.detach()),
+               4.0 * flop, qkv_bytes + 2.0 * b * n * h * d + stat_bytes,
+               tol, src, rep + "600", iters=10)
+        record(f"flash_bwd_dkv [{label}]",
+               lambda: A.flash_bwd_dkv(q, k, v, do, lse, dvec),
+               lambda: _bwd_by_head(A._bwd_dkv_plain, q, k, v, do, lse,
+                                    dvec),
+               lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                           retain_graph=True),
+               8.0 * flop, qkv_bytes + 2.0 * b * n * h * d
+               + 2 * stat_bytes + 2 * 2.0 * b * n * h * d,
+               tol, bwd_src, rep + "631", iters=10)
+        record(f"flash_bwd_dq [{label}]",
+               lambda: A.flash_bwd_dq(q, k, v, do, lse, dvec),
+               lambda: _bwd_by_head(A._bwd_dq_plain, q, k, v, do, lse,
+                                    dvec),
+               None, 6.0 * flop, qkv_bytes + 2.0 * b * n * h * d
+               + 2 * stat_bytes + 2.0 * b * n * h * d,
+               tol, bwd_src, rep + "673", iters=10)
+        del sdpa_out
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +609,152 @@ def run_keyframe_path(sd, sd9, kernels, gen):
     return results, failures
 
 
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 2, 3, 1e-5
+TRAIN_KERNELS = ("flash_fwd_stats", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def _grad_list(params, cfg, sched, x0, ctx, t, noise):
+    from sd_animation_optical_flow_tpu_torch.training.losses import p_losses
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
+    leaves = tree_leaves(params)
+    loss = p_losses(params, cfg, sched, x0, ctx, t, noise)
+    return loss.item(), list(torch.autograd.grad(loss, leaves))
+
+
+def run_train_phase(sd, kernels, gen):
+    """The diffusion fine-tuning step at full SD-1.5 width: f32 master
+    weights (the bundle's UNet, zero-init convs perturbed) with bf16
+    activations, batch 2 of VAE-encoded random 512x768 images and CLIP
+    encodings of 77-token prompts, eps, ``adamw_with_ema_wings`` at lr
+    1e-5. First one step's gradient on the kernel route against the
+    same step on the plain route in f32 activations (the routed
+    attention functions swapped for ``xla_attention``); then
+    ``TRAIN_STEPS`` steps, each with the launch counters reset just
+    before and read just after, then one profiled step. Returns
+    (summary dict, per-step counts, failures)."""
+    import functools
+    from sd_animation_optical_flow_tpu_torch.models import clip as CL
+    from sd_animation_optical_flow_tpu_torch.models import vae as V
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    from sd_animation_optical_flow_tpu_torch.training import losses as TL
+    from sd_animation_optical_flow_tpu_torch.training import optim as TO
+    from sd_animation_optical_flow_tpu_torch.training import train_step as TT
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
+    failures = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = ["a watercolor fox in the snow, " * 12,
+               "an oil painting of a harbour at dusk, " * 10]
+    with torch.no_grad():
+        imgs = torch.rand((TRAIN_BATCH, H, W, 3), generator=gen,
+                          device="cuda") * 2 - 1
+        x0 = V.encode(sd.vae_params, sd.vae_cfg, imgs.to(sd.dtype),
+                      generator=gen)
+        ids = torch.stack([torch.from_numpy(sd.tokenizer.chunked(p)[0])
+                           for p in prompts]).long().to("cuda")
+        ctx = CL.clip_text_apply(sd.clip_params, sd.clip_cfg, ids,
+                                 clip_skip=sd.clip_skip).to(sd.dtype)
+    cfg, sched = sd.unet_cfg, sd.sched
+    state = TT.init_train_state(sd.unet_params, functools.partial(
+        TO.adamw_with_ema_wings, lr=TRAIN_LR))
+    leaves = tree_leaves(state.params)
+    n_params = sum(p.numel() for p in leaves)
+    log(f"[train] x0 {tuple(x0.shape)} {x0.dtype}, context "
+        f"{tuple(ctx.shape)}, {len(leaves)} f32 parameter tensors "
+        f"({n_params / 1e6:.1f} M)")
+    draws = [TL.sample_t_noise(sched, x0, gen) for _ in range(TRAIN_STEPS)]
+
+    # step 1's gradient: kernel route (bf16) against the f32 plain route
+    for fn in kernels.values():
+        fn.launches = 0
+    t1, noise1 = draws[0]
+    with mock.patch.multiple(A, flash_attention_diff=A.xla_attention,
+                             shortk_attention=A.xla_attention):
+        loss_p, g_plain = _grad_list(state.params, cfg, sched, x0.float(),
+                                     ctx.float(), t1, noise1.float())
+    torch.cuda.synchronize()
+    plain_launches = sum(fn.launches for fn in kernels.values())
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    loss_k, g_kern = _grad_list(state.params, cfg, sched, x0, ctx, t1,
+                                noise1)
+    dot = sum((a * b).sum() for a, b in zip(g_kern, g_plain)).item()
+    nk2 = sum(a.pow(2).sum() for a in g_kern).item()
+    np2 = sum(b.pow(2).sum() for b in g_plain).item()
+    nd2 = sum((a - b).pow(2).sum() for a, b in zip(g_kern, g_plain)).item()
+    grad_rel = math.sqrt(nd2 / np2)
+    grad_cos = dot / math.sqrt(nk2 * np2)
+    del g_kern, g_plain
+    log(f"[train] step-1 gradient, kernel route bf16 vs plain route f32 "
+        f"(batch {TRAIN_BATCH}): rel L2 {grad_rel:.4e}, cosine "
+        f"{grad_cos:.6f}; loss {loss_k:.6f} vs {loss_p:.6f}; kernel "
+        f"launches on the plain route {plain_launches}; peak "
+        f"{plain_peak:.2f} GiB on the plain route")
+    if not (grad_rel <= 0.1) or plain_launches:
+        failures.append(f"train: gradient rel L2 {grad_rel:.3e} > 0.1 or "
+                        f"kernels on the plain route ({plain_launches})")
+
+    p0 = [p.detach().clone() for p in leaves]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = TT.make_train_step(cfg, sched, parameterization="eps")
+    losses, times, counts = [], [], []
+    for i, (t, noise) in enumerate(draws):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = step(state, x0, ctx, t, noise).item()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(loss)
+        counts.append({k: fn.launches for k, fn in kernels.items()})
+        if i == 0:
+            unchanged = sum(torch.equal(p, q) for p, q in zip(leaves, p0))
+            frac = sum((p != q).sum().item() for p, q in zip(leaves, p0)) \
+                / n_params
+            log(f"[train] after step 1: {len(leaves) - unchanged} of "
+                f"{len(leaves)} parameter tensors changed ({frac:.4f} of "
+                f"the entries)")
+            if unchanged:
+                failures.append(f"train: {unchanged} parameter tensors "
+                                "unchanged by step 1")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ema = [state.opt.state[p]["ema"] for p in leaves]
+    ema_moved = sum(not torch.equal(e, q) for e, q in zip(ema, p0))
+    ema_lags = sum(not torch.equal(e, p.detach())
+                   for e, p in zip(ema, leaves))
+    snapshot_gib = 4.0 * n_params / 2**30
+    del p0
+    for i, c in enumerate(counts):
+        log(f"[train] step {i + 1}: loss {losses[i]:.6f}, {times[i]:.3f} s "
+            f"(host clock), launches {c}")
+        if c["flash_attention_tpv"] < 10 or c["linear_ln_fused"] \
+                or c["geglu_ff_fused"] \
+                or any(c[k] != 10 for k in TRAIN_KERNELS):
+            failures.append(f"train step {i + 1}: launches {c} (want #7 = "
+                            "#8 = #9 = 10, #1 >= 10, #3 = #4 = 0)")
+    log(f"[train] EMA after {TRAIN_STEPS} steps: {ema_moved} of "
+        f"{len(leaves)} tensors moved from the start, {ema_lags} differ "
+        f"from the params (ema_step {state.opt.ema_step})")
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"train: non-finite loss {losses}")
+    if ema_moved < len(leaves) or ema_lags == 0:
+        failures.append("train: the EMA did not move")
+    secs = min(times[1:])
+    log(f"[train] {secs:.3f} s/step (min of steps 2-{TRAIN_STEPS}; host "
+        f"clock, synchronized); peak device memory over the steps "
+        f"{peak:.2f} GiB (with a {snapshot_gib:.2f} GiB f32 snapshot of "
+        f"the params for the checks)")
+    t, noise = draws[-1]
+    prof = profile_frame(lambda: (step(state, x0, ctx, t, noise),
+                                  torch.cuda.synchronize()), "train step")
+    summary = {"s_per_step": secs, "step_s": times, "losses": losses,
+               "grad_rel_l2": grad_rel, "grad_cos": grad_cos,
+               "peak_gib": peak, "plain_route_peak_gib": plain_peak,
+               "profile_busy_wall_ms": prof}
+    return summary, counts, failures
+
+
 def profile_frame(run, label, top: int = 8):
     """One frame under torch.profiler: device busy time (sum of kernel
     times on the one stream) against the profiled frame's wall time, and
@@ -530,8 +768,12 @@ def profile_frame(run, label, top: int = 8):
         t0 = time.time()
         run()
         wall_ms = 1e3 * (time.time() - t0)
+    # kernels only: a record_function range (the optimizer's
+    # "Optimizer.step#...") also carries device time, that of the
+    # kernels inside it
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms == 0:
         log(f"[profile] {label}: no device time recorded (not measured)")
@@ -570,8 +812,10 @@ def main() -> int:
     so = _cuda.build()
     _cuda.library()
     log(f"[build] {so.name} in {time.time() - t0:.1f} s: attn_mma_kernel "
-        "(plain, keymask and MFR modes), attn_mma_wide_kernel "
-        "(csrc/attention.cu); linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
+        "(plain, keymask, MFR and stats modes), attn_mma_wide_kernel "
+        "(csrc/attention.cu); attn_bwd_dkv_kernel, attn_bwd_dq_kernel "
+        "(csrc/attention_bwd.cu); linear_ln_kernel, geglu_kernel "
+        "(csrc/ffn.cu)")
     ptxas = so.with_suffix(".log").read_text()
     for line in ptxas.splitlines():
         if "spill" in line and " 0 bytes spill stores" not in line:
@@ -600,7 +844,10 @@ def main() -> int:
                "linear_ln_fused": FF.linear_ln_fused,
                "geglu_ff_fused": FF.geglu_ff_fused,
                "flash_attention_keymask": A.flash_attention_keymask,
-               "flash_attention_mfr": A.flash_attention_mfr}
+               "flash_attention_mfr": A.flash_attention_mfr,
+               "flash_fwd_stats": A.flash_fwd_stats,
+               "flash_bwd_dkv": A.flash_bwd_dkv,
+               "flash_bwd_dq": A.flash_bwd_dq}
     img2img_kernels = list(kernels)[:4]
     unet_rel = check_unet_against_cpu(sd, gen)
     # bf16 through 16 transformer blocks and 25 resblocks of random
@@ -619,9 +866,17 @@ def main() -> int:
     failures += kf_failures
     log(f"[main] peak device memory, both bundles and the K/V stores "
         f"resident: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    inference = list(main.values()) + list(keyframe.values())
+    # the training kernels run only where a gradient is recorded
+    for name in TRAIN_KERNELS:
+        if any(c[name] for _, c, _ in inference):
+            failures.append(f"{name} launched on an inference path")
+    del sd9
+    train, train_counts, train_failures = run_train_phase(sd, kernels, gen)
+    failures += train_failures
 
     table = []
-    paths = list(main.values()) + list(keyframe.values())
+    paths = inference + [(None, c, None) for c in train_counts]
     for name, fn in kernels.items():
         mine = [r for r in rows if r["name"].startswith(name + " ")]
         launches = sum(c[name] for _, c, _ in paths)
@@ -634,7 +889,8 @@ def main() -> int:
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
-                    "unet_rel_err": unet_rel, "card": card}))
+                    "train": train, "unet_rel_err": unet_rel,
+                    "card": card}))
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

@@ -37,6 +37,13 @@
 //     any ragged tile), so the uncond half never reads a key past n_own;
 //     the TPU kernel masks the same scores to -1e30 and still streams
 //     them. The cond rows run all Nk.
+//   _flash_kernel_tpv_stats (_flash_fwd_stats: the forward of
+//     flash_attention_diff under a gradient, training's self-attention)
+//     -> attn_mma_kernel<DP, MODE_STATS>: mode 0 that also writes each
+//     query row's base-2 log-sum-exp m + log2(l) (f32 [B*H, Nq]) for the
+//     backward (csrc/attention_bwd.cu). The TPU kernel is max-free and
+//     returns the denominator l itself; with a tracked max the LSE is the
+//     statistic that stays finite (exp2(lse) = l at the TPU's zero max).
 //   _flash_mfr_kernel (flash_attention_mfr: MFR strip self-attention)
 //     -> attn_mma_kernel<DP, MODE_MFR>: the band bias weight * exp(-dist
 //     / sigma) (Chebyshev radius, `target` / `mutual` tile rule) is
@@ -63,6 +70,7 @@ struct AttnArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // MODE_STATS: [B*H, Nq] base-2 log-sum-exp of the scores
   int B, H, Nq, Nk;
   long long qsb, qsn, qsh;
   long long ksb, ksn, ksh;
@@ -76,7 +84,7 @@ struct AttnArgs {
   float bias_log2, inv_sigma;
 };
 
-enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2 };
+enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2, MODE_STATS = 3 };
 
 // ---------------------------------------------------------------------------
 // attn_mma_kernel: bf16, D up to 128 (the tpv route) or 160 (the keymask
@@ -245,6 +253,11 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
   }
   const int row0 = q0 + r0 + g, row1 = row0 + 8;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (MODE == MODE_STATS && t == 0) {
+    float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.Nq;
+    if (row0 < a.Nq) lse[row0] = m0 + log2f(l0);
+    if (row1 < a.Nq) lse[row1] = m1 + log2f(l1);
+  }
   bf16* out = static_cast<bf16*>(a.o);
 #pragma unroll
   for (int n = 0; n < DN; ++n)
@@ -439,7 +452,7 @@ cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
       // the keymask and MFR routes also take SD-1.5's 160-wide heads of
       // the third UNet level (the plain route sends d > 128 to the wide
       // kernel)
-      if constexpr (MODE != MODE_PLAIN) {
+      if constexpr (MODE == MODE_KEYMASK || MODE == MODE_MFR) {
         attn_mma_kernel<160, MODE><<<grid, threads, 0, st>>>(a, D);
         return cudaGetLastError();
       }
@@ -528,6 +541,25 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!wide && D <= 128) return launch_mma<MODE_PLAIN>(a, D, st);
   return launch_mma_wide(a, D, st);
+}
+
+// Attention with statistics (bf16, D a multiple of 8 up to 128): out as
+// sdaof_attention with wide = 0, and lse [B*H, Nq] f32, each query row's
+// base-2 log-sum-exp of the scores scaled by scale_log2.
+extern "C" int sdaof_attention_fwd_stats(const void* q, const void* k, const void* v, void* o,
+                                         float* lse, int B, int H, int Nq, int Nk, int D,
+                                         long long qsb, long long qsn, long long qsh,
+                                         long long ksb, long long ksn, long long ksh,
+                                         long long vsb, long long vsn, long long vsh,
+                                         float scale_log2, int device, void* stream) {
+  if (D < 1 || D > 128 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+                         scale_log2);
+  a.lse = lse;
+  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
+  return launch_mma<MODE_STATS>(a, D, static_cast<cudaStream_t>(stream));
 }
 
 // The CFG K/V-injection attention (bf16, D a multiple of 8 up to 160):

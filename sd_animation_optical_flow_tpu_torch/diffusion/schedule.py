@@ -1,8 +1,9 @@
 """Diffusion beta schedule and DDIM sub-schedule.
 
 Counterpart of ``sd_animation_optical_flow_tpu/diffusion/schedule.py``
-(``make_linear_schedule``, ``q_sample``, ``DDIMParams``,
-``make_ddim_params``). The
+(``make_linear_schedule``, ``q_sample``, the v-parameterization helpers
+``get_v``, ``predict_eps_from_z_and_v``, ``predict_start_from_z_and_v``,
+``DDIMParams``, ``make_ddim_params``). The
 arrays are host data: float32 tensors on the CPU, computed with numpy in
 the JAX package's precision (f64 schedule, f32 storage), from which the
 samplers read per-step scalars.
@@ -46,20 +47,47 @@ def make_linear_schedule(timesteps: int = 1000,
     )
 
 
+def _coefs(sched: DiffusionSchedule, t, like):
+    """(sqrt(alpha_bar_t), sqrt(1 - alpha_bar_t)) for t a host int (two
+    floats) or [B] int (two [B, 1, 1, 1] tensors on ``like``'s device),
+    rounded to ``like``'s dtype, as in the JAX package. A host int, or a
+    [B] tensor on the CPU, keeps the lookup on the host: a [B] tensor on
+    the card costs a device-to-host read, which waits for the queued
+    work."""
+    if isinstance(t, int):
+        r = lambda a: a[t].to(like.dtype).item()
+        return r(sched.sqrt_alphas_cumprod), \
+            r(sched.sqrt_one_minus_alphas_cumprod)
+    idx = torch.as_tensor(t).long().cpu()
+    r = lambda a: a[idx].to(like.dtype).to(like.device).reshape(-1, 1, 1, 1)
+    return r(sched.sqrt_alphas_cumprod), \
+        r(sched.sqrt_one_minus_alphas_cumprod)
+
+
 def q_sample(sched: DiffusionSchedule, x0, t, noise):
     """Forward noising q(x_t | x_0). t: one host int for the whole batch,
-    or [B] int; the per-row scalars round to x0's dtype, as in the JAX
-    package. A host int keeps the schedule lookup on the host: a [B]
-    tensor on the card costs a device-to-host read, which waits for the
-    queued work."""
-    if isinstance(t, int):
-        r = lambda a: a[t].to(x0.dtype).item()
-        return (r(sched.sqrt_alphas_cumprod) * x0
-                + r(sched.sqrt_one_minus_alphas_cumprod) * noise)
-    idx = torch.as_tensor(t).long().cpu()
-    a = sched.sqrt_alphas_cumprod[idx].to(x0.dtype).to(x0.device)
-    s = sched.sqrt_one_minus_alphas_cumprod[idx].to(x0.dtype).to(x0.device)
-    return a.reshape(-1, 1, 1, 1) * x0 + s.reshape(-1, 1, 1, 1) * noise
+    or [B] int (see :func:`_coefs`)."""
+    a, s = _coefs(sched, t, x0)
+    return a * x0 + s * noise
+
+
+def get_v(sched: DiffusionSchedule, x0, t, noise):
+    """The v-parameterization target ``sqrt(a) * noise - sqrt(1 - a) *
+    x0``."""
+    a, s = _coefs(sched, t, x0)
+    return a * noise - s * x0
+
+
+def predict_eps_from_z_and_v(sched: DiffusionSchedule, x_t, t, v):
+    """v-parameterization -> eps."""
+    a, s = _coefs(sched, t, x_t)
+    return a * v + s * x_t
+
+
+def predict_start_from_z_and_v(sched: DiffusionSchedule, x_t, t, v):
+    """v-parameterization -> x0."""
+    a, s = _coefs(sched, t, x_t)
+    return a * x_t - s * v
 
 
 @dataclass(frozen=True)

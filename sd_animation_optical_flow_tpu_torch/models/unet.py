@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..ops._cuda import records_grad
 from ..ops.attention import attention, attention_injected, strip_attention
 from ..ops.ffn import (geglu_ff_fused, geglu_ff_plain, linear_ln_fused,
                       linear_ln_plain)
@@ -143,11 +144,18 @@ def _merge_heads(x):
     return x.reshape(b, n, h * d)
 
 
-def _fused_route(x) -> bool:
+def _fused_route(x, *weights) -> bool:
     """Gate for the LN-prologue projection and GEGLU kernels (the JAX
     gates minus their TPU test): bf16, feature dim <= 640, at least 4096
     rows. Other shapes take the plain chain, as JAX leaves them to XLA;
-    on the CPU the routed call computes its plain version too."""
+    on the CPU the routed call computes its plain version too.
+
+    Neither kernel has a backward, in JAX as here: where a gradient is
+    recorded through x or the block's ``weights`` (training), the gate
+    is closed and the plain chain runs, as the JAX package's working
+    training path runs where its bf16 gate is off."""
+    if records_grad(x, *weights):
+        return False
     n_rows = x.shape[0] * x.shape[1] if x.ndim == 3 else x.shape[0]
     return (x.shape[-1] <= 640 and n_rows >= 4096
             and x.dtype == torch.bfloat16)
@@ -167,7 +175,8 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
     (:func:`attention_injected`)."""
     wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]],
                      dim=0).to(x.dtype)
-    proj = linear_ln_fused if _fused_route(x) else linear_ln_plain
+    proj = linear_ln_fused if _fused_route(x, wqkv, *pre_ln.values()) \
+        else linear_ln_plain
     q, k, v = proj(x, wqkv, pre_ln["scale"], pre_ln["bias"]).chunk(3, dim=-1)
     captured = (k, v)
     heads = lambda t: _heads(t, n_heads)
@@ -209,7 +218,9 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
 
 def _cross_attention(p, x, context, n_heads, pre_ln):
     # LN2 feeds only the Q projection (K/V come from the context)
-    proj = linear_ln_fused if _fused_route(x) else linear_ln_plain
+    proj = linear_ln_fused \
+        if _fused_route(x, p["to_q"]["w"], *pre_ln.values()) \
+        else linear_ln_plain
     q = proj(x, p["to_q"]["w"], pre_ln["scale"], pre_ln["bias"])
     wkv = torch.cat([p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
     k, v = (context.to(x.dtype) @ wkv.t()).chunk(2, dim=-1)
@@ -222,7 +233,9 @@ def _ff_tail(p, x):
     """The transformer-block tail ``x + FF(LN3(x))``: the fused GEGLU
     kernel (LN prologue, residual epilogue) on the JAX package's gate,
     else the plain composition."""
-    ff = geglu_ff_fused if _fused_route(x) else geglu_ff_plain
+    ff = geglu_ff_fused if _fused_route(
+        x, *p["ff_proj"].values(), *p["ff_out"].values(),
+        *p["norm3"].values()) else geglu_ff_plain
     return ff(x, p["ff_proj"]["w"], p["ff_proj"]["b"], p["ff_out"]["w"],
               p["ff_out"]["b"], p["norm3"]["scale"], p["norm3"]["bias"],
               residual=True)

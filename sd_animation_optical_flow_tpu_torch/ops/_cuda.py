@@ -44,6 +44,18 @@ _SIGNATURES = {
     # inv_sigma, device, stream
     "sdaof_attention_mfr": [_P] * 4 + [_I] * 5 + [_L] * 9
     + [_F, _I, _I, _I, _I, _F, _F, _I, _P],
+    # q, k, v, o, lse, B, H, Nq, Nk, D, 9 strides, scale_log2, device,
+    # stream
+    "sdaof_attention_fwd_stats": [_P] * 5 + [_I] * 5 + [_L] * 9
+    + [_F, _I, _P],
+    # q, k, v, do, lse, dvec, dk, dv, B, H, Nq, Nk, D, 12 strides (q, k,
+    # v, do), scale_log2, device, stream
+    "sdaof_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 12
+    + [_F, _I, _P],
+    # q, k, v, do, lse, dvec, dq, B, H, Nq, Nk, D, 12 strides, scale_log2,
+    # device, stream
+    "sdaof_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12
+    + [_F, _I, _P],
     # x, ln_scale, ln_bias, w, y, M, din, dout, eps, device, stream
     "sdaof_linear_ln": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     # x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, din, dff, eps, residual,
@@ -124,6 +136,25 @@ def library() -> ctypes.CDLL:
             lib.sdaof_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def records_grad(*tensors) -> bool:
+    """True when autograd would record an op on these inputs: grad mode
+    is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel without a backward raises where a gradient would be
+    recorded through it: its output, written through a raw pointer, has
+    no ``grad_fn``, so autograd would drop the gradient silently."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            "tensors that do not require grad (the differentiable attention "
+            "is flash_attention_diff / shortk_attention; the fused FFN "
+            "kernels have no gradient route)")
 
 
 def call(name: str, device: torch.device, *args) -> None:

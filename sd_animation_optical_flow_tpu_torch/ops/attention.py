@@ -1,11 +1,12 @@
-"""Attention for the port: the plain version, two CUDA kernels, and the
-router that picks between them.
+"""Attention for the port: the plain versions, the CUDA kernels, the
+differentiable forms of training, and the router that picks between them.
 
 Counterpart of ``sd_animation_optical_flow_tpu/ops/attention.py``. Shapes
 keep the JAX package's layout: q [B, Nq, H, D], k/v [B, Nk, H, D] ->
 out [B, Nq, H, D].
 
-Kernels (``csrc/attention.cu``), each with its plain version beside it:
+Kernels (``csrc/attention.cu``, ``csrc/attention_bwd.cu``), each with its
+plain version beside it:
 
 * :func:`flash_attention_tpv` replaces the TPU's ``_flash_kernel_tpv``
   (launched there by ``flash_attention_tpv`` / ``shortk_attention`` /
@@ -22,12 +23,22 @@ Kernels (``csrc/attention.cu``), each with its plain version beside it:
   (launched by ``flash_attention_mfr`` via ``strip_attention``): strip
   self-attention with the MFR band bias, plain version
   :func:`strip_attention_plain`.
+* :func:`flash_fwd_stats` (``_flash_kernel_tpv_stats``),
+  :func:`flash_bwd_dkv` (``_flash_bwd_dkv_kernel``) and
+  :func:`flash_bwd_dq` (``_flash_bwd_dq_kernel``, ``csrc/attention_bwd.cu``)
+  are the forward with statistics and the two backward kernels of
+  :func:`flash_attention_diff`, the differentiable self-attention of
+  training; plain versions :func:`flash_fwd_stats_plain` and
+  :func:`flash_bwd_plain`.
 
 Every kernel computes the function of its plain version (softmax in f32)
 with a tracked running max, so unlike the TPU's max-free forms they need
 no bound on the logits. On a CPU tensor each wrapper returns its plain
 version; on a CUDA tensor it launches its kernel (bf16 only) or raises.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches. A wrapper whose kernel
+has no backward raises on a CUDA tensor where a gradient would be
+recorded through it; the router sends such inputs to
+:func:`flash_attention_diff` or :func:`shortk_attention`.
 """
 
 from __future__ import annotations
@@ -56,28 +67,43 @@ def xla_attention(q, k, v, *, bias=None):
     return out.to(q.dtype)
 
 
-def _launch(entry: str, q, k, v, *extra, max_d: int = 512):
-    """Check q/k/v and launch the C entry point ``entry`` with the shared
-    attention arguments, then ``extra``."""
+def _checked(q, k, v, max_d: int, *more):
+    """Check q/k/v (and ``more``, shaped as q) for the CUDA kernels and
+    return them with 16-byte rows (see :func:`_aligned`)."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    if k.shape != (b, nk, h, d) or v.shape != k.shape:
+    if k.shape != (b, nk, h, d) or v.shape != k.shape \
+            or any(t.shape != q.shape for t in more):
         raise ValueError(f"attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    for t in (q, k, v):
+    for t in (q, k, v, *more):
         if t.device != q.device or t.dtype != torch.bfloat16:
             raise TypeError("the CUDA kernel takes bf16 q, k, v on one card, "
                             f"got {t.dtype} on {t.device}")
     if d % 8 or d > max_d:
         raise ValueError(f"the CUDA kernel takes d a multiple of 8 up to "
                          f"{max_d}, got {d}")
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    return tuple(_aligned(t) for t in (q, k, v, *more))
+
+
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def _launch(entry: str, q, k, v, *extra, max_d: int = 512):
+    """Check q/k/v and launch the C entry point ``entry`` with the shared
+    attention arguments, then ``extra``."""
+    q, k, v = _checked(q, k, v, max_d)
+    b, nq, h, d = q.shape
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     _cuda.call(entry, q.device, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), b, h, nq, nk, d,
-               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-               (1.0 / math.sqrt(d)) * _LOG2E, *extra)
+               v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1], d,
+               *_strides(q, k, v), _scale_log2(d), *extra)
     return out
+
+
+def _scale_log2(d: int) -> float:
+    return (1.0 / math.sqrt(d)) * _LOG2E
 
 
 def _aligned(t):
@@ -97,9 +123,12 @@ def flash_attention_tpv(q, k, v):
     through shared memory, the ragged last K tile masked). bf16 with d
     a multiple of 8 (d <= 128; wider heads take kernel #2's design). Any
     strides along B/N/H that keep 16-byte rows, so the q/k/v column
-    slices of a fused QKV projection go in without a copy."""
+    slices of a fused QKV projection go in without a copy. No backward:
+    under a recorded gradient use :func:`flash_attention_diff` or
+    :func:`shortk_attention`, whose forwards launch this kernel."""
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
+    _cuda.refuse_grad("flash_attention_tpv", q, k, v)
     out = _launch("sdaof_attention", q, k, v, 0)
     flash_attention_tpv.launches += 1
     return out
@@ -112,9 +141,11 @@ def flash_attention(q, k, v):
     """Online-softmax attention for wide heads (kernel #2,
     ``attn_mma_wide_kernel``: 8 warps share 32 query rows, the softmax
     statistics go through shared memory, each warp owns 1/8 of the
-    output columns; bf16, d a multiple of 8 up to 512)."""
+    output columns; bf16, d a multiple of 8 up to 512). No backward, as
+    the JAX ``flash_attention`` has no VJP."""
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
+    _cuda.refuse_grad("flash_attention", q, k, v)
     out = _launch("sdaof_attention", q, k, v, 1)
     flash_attention.launches += 1
     return out
@@ -133,15 +164,239 @@ def attention(q, k, v, *, bias=None):
       d > 128 -> :func:`flash_attention`;
     * anything else -> :func:`xla_attention` (plain torch ops on either
       device, as JAX leaves those shapes to XLA).
-    """
+
+    Where a gradient is recorded through q, k or v (grad mode on and one
+    of them requires grad) the two kernel routes take their
+    differentiable forms, as JAX's ``jax.grad`` goes through the custom
+    VJPs: the short-K gate -> :func:`shortk_attention`, the
+    self-attention gate -> :func:`flash_attention_diff`. The wide-head
+    route has no backward (the JAX ``flash_attention`` has no VJP) and
+    raises. The route keys on ``requires_grad``, not on grad mode alone:
+    the facades run with grad mode on, on weights that do not require
+    grad."""
     nq, nk, d = q.shape[1], k.shape[1], q.shape[-1]
+    grad = _cuda.records_grad(q, k, v)
     if bias is None and nq >= 1536 and nk <= 512 and d <= 128:
-        return flash_attention_tpv(q, k, v)
+        return shortk_attention(q, k, v) if grad \
+            else flash_attention_tpv(q, k, v)
     if bias is None and nq >= 1536 and nk >= 1536:
         if d > 128:
+            if grad:
+                raise RuntimeError(
+                    f"attention at d = {d} > 128 with Nq, Nk >= 1536 routes "
+                    "to flash_attention, which has no backward (neither has "
+                    "the JAX flash_attention)")
             return flash_attention(q, k, v)
-        return flash_attention_tpv(q, k, v)
+        return flash_attention_diff(q, k, v) if grad \
+            else flash_attention_tpv(q, k, v)
     return xla_attention(q, k, v, bias=bias)
+
+
+# ---------------------------------------------------------------------------
+# differentiable attention (kernels #7, #8, #9): the forward with
+# statistics and the flash backward of flash_attention_diff
+# ---------------------------------------------------------------------------
+
+def _scores_log2(q, k):
+    """f32 scores in the log2 domain, [B, H, Nq, Nk]."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * _scale_log2(q.shape[-1])
+
+
+def flash_fwd_stats_plain(q, k, v):
+    """Plain version of :func:`flash_fwd_stats`: f32 softmax, out in q's
+    dtype and ``lse`` [B * H, Nq] f32, the base-2 log-sum-exp of the
+    scaled scores (``exp2(lse)`` is the JAX kernel's denominator ``l``
+    when its max-free exponent is taken at zero)."""
+    b, _, h, _ = q.shape
+    s = _scores_log2(q, k)
+    lse = torch.logsumexp(s * math.log(2.0), dim=-1) * _LOG2E
+    p = torch.exp2(s - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return out, lse.reshape(b * h, -1)
+
+
+def _recompute(q, k, v, do, lse, dvec):
+    """f32 P = exp2(S - lse) and dS = P * (dO V^T - D), [B, H, Nq, Nk],
+    from the [B * H, Nq] rows ``lse`` and ``dvec``."""
+    b, nq, h, _ = q.shape
+    p = torch.exp2(_scores_log2(q, k) - lse.reshape(b, h, nq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - dvec.reshape(b, h, nq, 1))
+
+
+def _bwd_dkv_plain(q, k, v, do, lse, dvec):
+    """Plain version of :func:`flash_bwd_dkv`: dV = P^T dO and
+    dK = scale * dS^T Q."""
+    p, ds = _recompute(q, k, v, do, lse, dvec)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) \
+        / math.sqrt(q.shape[-1])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_dq_plain(q, k, v, do, lse, dvec):
+    """Plain version of :func:`flash_bwd_dq`: dQ = scale * dS K."""
+    _, ds = _recompute(q, k, v, do, lse, dvec)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) \
+        / math.sqrt(q.shape[-1])
+    return dq.to(q.dtype)
+
+
+def flash_dvec(out, do):
+    """D = rowsum(dO * O), [B * H, Nq] f32: one torch reduction, as JAX
+    computes it in XLA beside its backward kernels."""
+    b, nq, h, _ = out.shape
+    dvec = (do.float() * out.float()).sum(-1)            # [B, Nq, H]
+    return dvec.transpose(1, 2).reshape(b * h, nq).contiguous()
+
+
+def flash_bwd_plain(q, k, v, out, lse, do):
+    """Plain version of the flash backward: (dq, dk, dv) in the inputs'
+    dtypes from the forward's ``out`` and ``lse`` and the cotangent
+    ``do``; f32 recompute of P, D = rowsum(dO * O), dV = P^T dO,
+    dP = dO V^T, dS = P * (dP - D), dK = scale * dS^T Q,
+    dQ = scale * dS K."""
+    dvec = flash_dvec(out, do)
+    dk, dv = _bwd_dkv_plain(q, k, v, do, lse, dvec)
+    return _bwd_dq_plain(q, k, v, do, lse, dvec), dk, dv
+
+
+def flash_fwd_stats(q, k, v):
+    """Attention that also returns the statistics its backward needs:
+    (out [B, Nq, H, D], lse [B * H, Nq] f32). Kernel #7,
+    ``attn_mma_kernel<DP, MODE_STATS>``: kernel #1 that writes each query
+    row's ``m + log2(l)`` beside ``out``. bf16 on the card, d a multiple
+    of 8 up to 128; q/k/v strided as for :func:`flash_attention_tpv`."""
+    if q.device.type != "cuda":
+        return flash_fwd_stats_plain(q, k, v)
+    _cuda.refuse_grad("flash_fwd_stats", q, k, v)
+    q, k, v = _checked(q, k, v, 128)
+    b, nq, h, d = q.shape
+    out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, nq), dtype=torch.float32, device=q.device)
+    _cuda.call("sdaof_attention_fwd_stats", q.device, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+               b, h, nq, k.shape[1], d, *_strides(q, k, v), _scale_log2(d))
+    flash_fwd_stats.launches += 1
+    return out, lse
+
+
+flash_fwd_stats.launches = 0
+
+
+def _bwd_inputs(name, q, k, v, do, lse, dvec):
+    # no double backward: refused under create_graph=True
+    _cuda.refuse_grad(name, q, k, v, do)
+    q, k, v, do = _checked(q, k, v, 128, do)
+    b, nq, h, _ = q.shape
+    for t in (lse, dvec):
+        if t.shape != (b * h, nq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError("lse / dvec must be contiguous f32 [B * H, Nq] "
+                             f"on q's card, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return q, k, v, do
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dvec):
+    """dK and dV of the flash backward (kernel #8,
+    ``attn_bwd_dkv_kernel``): a block per (b * h, 64 keys) loops over the
+    query tiles, recomputes S^T and P, and accumulates dV += P^T dO and
+    dK += dS^T Q in f32 registers. Returns contiguous [B, Nk, H, D] in
+    k's dtype. ``lse`` / ``dvec``: [B * H, Nq] f32."""
+    if q.device.type != "cuda":
+        return _bwd_dkv_plain(q, k, v, do, lse, dvec)
+    q, k, v, do = _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse, dvec)
+    dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), \
+        torch.empty_like(v, memory_format=torch.contiguous_format)
+    b, nq, h, d = q.shape
+    _cuda.call("sdaof_attention_bwd_dkv", q.device, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq,
+               k.shape[1], d, *_strides(q, k, v, do), _scale_log2(d))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, do, lse, dvec):
+    """dQ of the flash backward (kernel #9, ``attn_bwd_dq_kernel``): a
+    block per (b * h, 64 queries) loops over the key tiles (the ragged
+    last one masked), recomputes P and dS and accumulates dQ += dS K in
+    f32 registers. Returns contiguous [B, Nq, H, D] in q's dtype."""
+    if q.device.type != "cuda":
+        return _bwd_dq_plain(q, k, v, do, lse, dvec)
+    q, k, v, do = _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, dvec)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    b, nq, h, d = q.shape
+    _cuda.call("sdaof_attention_bwd_dq", q.device, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               dvec.data_ptr(), dq.data_ptr(), b, h, nq, k.shape[1], d,
+               *_strides(q, k, v, do), _scale_log2(d))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+class _FlashAttentionDiff(torch.autograd.Function):
+    """The custom VJP of the JAX ``flash_attention_diff``: the forward
+    saves (q, k, v, out, lse), the backward is D, then #8, then #9."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_fwd_stats(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dvec = flash_dvec(out, do)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, dvec)
+        return flash_bwd_dq(q, k, v, do, lse, dvec), dk, dv
+
+
+def flash_attention_diff(q, k, v):
+    """Differentiable flash attention (the JAX ``flash_attention_diff``):
+    O(N) memory in both directions. With a gradient recorded through q,
+    k or v the forward is kernel #7 and the backward kernels #8 and #9
+    (on a CPU tensor: their plain versions); with nothing to record it is
+    kernel #1, as the JAX primal is."""
+    if not _cuda.records_grad(q, k, v):
+        return flash_attention_tpv(q, k, v)
+    return _FlashAttentionDiff.apply(q, k, v)
+
+
+class _ShortKAttention(torch.autograd.Function):
+    """The custom VJP of the JAX ``shortk_attention``: forward kernel #1,
+    backward recomputed through :func:`xla_attention` (at a prompt-length
+    K the score tensor is small)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_tpv(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = xla_attention(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), do)
+
+
+def shortk_attention(q, k, v):
+    """Short-K attention (the prompt cross-attention) with a backward:
+    the forward is kernel #1, the backward differentiates
+    :func:`xla_attention`."""
+    if not _cuda.records_grad(q, k, v):
+        return flash_attention_tpv(q, k, v)
+    return _ShortKAttention.apply(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +427,7 @@ def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
     if q.device.type != "cuda":
         return attention_injected_plain(q, k, v, n_own=n_own,
                                         n_uncond=n_uncond)
+    _cuda.refuse_grad("flash_attention_keymask", q, k, v)
     out = _launch("sdaof_attention_keymask", q, k, v, int(n_own),
                   int(n_uncond), max_d=160)
     flash_attention_keymask.launches += 1
@@ -272,6 +528,7 @@ def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
                               weight=weight, sigma=sigma, mode=mode,
                               device=q.device)
         return xla_attention(q, k, v, bias=bias[None, None])
+    _cuda.refuse_grad("flash_attention_mfr", q, k, v)
     out = _launch("sdaof_attention_mfr", q, k, v, n_tiles * w_tile, w_tile,
                   int(radius), int(mode == "target"), float(weight) * _LOG2E,
                   1.0 / float(sigma), max_d=160)

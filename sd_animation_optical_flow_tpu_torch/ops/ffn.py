@@ -13,7 +13,10 @@ Kernels (``csrc/ffn.cu``), each with its plain version beside it:
 
 On a CPU tensor each wrapper returns its plain version (the unfused
 chain); on a CUDA tensor it launches its kernel (bf16 only) or raises.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches. Neither kernel has a
+backward (neither has its Pallas original): on a CUDA tensor each wrapper
+raises where a gradient would be recorded through its inputs, and the
+UNet routes such calls to the plain chain.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ def linear_ln_fused(x, w, ln_scale, ln_bias, *, ln_eps: float = 1e-5):
     640) and dout multiples of 16."""
     if x.device.type != "cuda":
         return linear_ln_plain(x, w, ln_scale, ln_bias, ln_eps)
+    _cuda.refuse_grad("linear_ln_fused", x, w, ln_scale, ln_bias)
     x2, m, din = _rows(x)
     dout = w.shape[0]
     if w.shape != (dout, din):
@@ -105,6 +109,7 @@ def geglu_ff_fused(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
     if x.device.type != "cuda":
         return geglu_ff_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps,
                               residual)
+    _cuda.refuse_grad("geglu_ff_fused", x, w1, b1, w2, b2, ln_scale, ln_bias)
     x2, m, din = _rows(x)
     dff = w2.shape[1]
     if w1.shape != (2 * dff, din) or w2.shape != (din, dff):

@@ -14,12 +14,20 @@ into the other, so both frameworks can run on the same weights:
 Input leaves are anything ``numpy.asarray`` reads (numpy or JAX arrays);
 the port itself never imports JAX. The ldm checkpoint names of each
 entry are in ``sd_animation_optical_flow_tpu/utils/port_weights.py``.
+
+:func:`train_state_from_jax` carries a JAX training state (params, the
+optax ``adamw`` moments and the EMA wings) into the port's
+``TrainState``, so a JAX run can be resumed in the port.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..training.optim import AdamWWithEMAWings
+from ..training.train_step import TrainState, init_train_state
+from .tree import tree_leaves, tree_map
 
 
 def _leaf(key, a, dtype, device):
@@ -46,3 +54,56 @@ def params_from_jax(tree, *, dtype=torch.float32, device="cpu", _key=None):
         return type(tree)(params_from_jax(v, dtype=dtype, device=device)
                           for v in tree)
     return _leaf(_key, tree, dtype, device)
+
+
+def _find(state, has):
+    """The first node of a (nested tuple) optimizer state that has all the
+    fields ``has``, or None; read by field name, since the port cannot
+    import optax's types."""
+    if all(hasattr(state, f) for f in has):
+        return state
+    if isinstance(state, tuple):
+        for sub in state:
+            found = _find(sub, has)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(params, opt_state, make_opt, *, step: int = 0,
+                         device="cpu") -> TrainState:
+    """A JAX ``TrainState``'s (params, opt_state, step) -> the port's
+    ``TrainState`` with ``make_opt`` (as for ``init_train_state``) holding
+    the same optimizer state: the optax ``ScaleByAdamState`` (count, mu,
+    nu) becomes AdamW's (step, exp_avg, exp_avg_sq), with the layout
+    transposes of :func:`params_from_jax`, and an ``EMAWingsState``'s
+    shadow and step become an :class:`AdamWWithEMAWings`' ``"ema"``
+    state and ``ema_step``. Both frameworks then take the same next
+    step."""
+    state = init_train_state(params_from_jax(params, device=device), make_opt)
+    state.step = int(step)
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    wings = _find(opt_state, ("inner", "ema_params", "step"))
+    if wings is not None and not isinstance(state.opt, AdamWWithEMAWings):
+        raise ValueError("the JAX state carries EMA wings: make_opt must "
+                         "build an AdamWWithEMAWings")
+    # every moment tree mirrors the params tree: pair leaves by path
+    trees = [adam.mu, adam.nu] + ([wings.ema_params] if wings else [])
+    leaves = [tree_leaves(tree_map(lambda _, x: x, state.params,
+                                   params_from_jax(t, device=device)))
+              for t in trees]
+    count = float(np.asarray(adam.count))
+    for i, p in enumerate(tree_leaves(state.params)):
+        st = state.opt.state[p]
+        st["step"] = torch.tensor(count, dtype=torch.float32)
+        st["exp_avg"] = torch.empty_like(p).copy_(leaves[0][i])
+        st["exp_avg_sq"] = torch.empty_like(p).copy_(leaves[1][i])
+        if wings is not None:
+            st["ema"] = torch.empty_like(p).copy_(leaves[2][i])
+    if wings is not None:
+        state.opt.ema_step = int(np.asarray(wings.step))
+    return state
+

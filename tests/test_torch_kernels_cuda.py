@@ -12,7 +12,11 @@ above 128 (the wide kernel), strided and misaligned q/k/v views, rows
 past a 32-row tile; for the keymask kernel n_own = Nk, n_own not a
 multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
 ragged N, 3 tiles, both modes and key tiles outside the band; both at
-SD-1.5's widest head (d = 160) and at a d padded up to it.
+SD-1.5's widest head (d = 160) and at a d padded up to it; for the
+forward with statistics and the two backward kernels (#7-#9) ragged
+query and key tiles, d from 16 to 128, and the fused-QKV slices under
+autograd. Every wrapper whose kernel has no backward refuses inputs
+that record a gradient.
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain|,
 with no floor (a few bf16 ulps of the largest output; both sides round
 bf16 products accumulated in f32)."""
@@ -186,3 +190,97 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     q = _randn(gen, 1, 64, 2, 40)            # 64 tokens != 4 * 2 * 10
     with pytest.raises(ValueError):
         TA.flash_attention_mfr(q, q, q, h=4, w_tile=10, n_tiles=2)
+
+
+# ---------------------------------------------------------------------------
+# kernels #7-#9: the differentiable attention of training
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [(2, 300, 231, 3, 40), (1, 130, 257, 2, 80), (1, 77, 64, 2, 128),
+             (1, 50, 90, 2, 24), (2, 64, 64, 1, 16)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", BWD_CASES)
+def test_flash_fwd_stats_kernel(gen, b, nq, nk, h, d):
+    q = _randn(gen, b, nq, h, d)
+    k = _randn(gen, b, nk, h, d)
+    v = _randn(gen, b, nk, h, d)
+    n0 = TA.flash_fwd_stats.launches
+    out, lse = TA.flash_fwd_stats(q, k, v)
+    ref_out, ref_lse = TA.flash_fwd_stats_plain(q, k, v)
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    _check(out, ref_out)
+    _check(lse, ref_lse)
+    assert TA.flash_fwd_stats.launches == n0 + 1
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", BWD_CASES)
+def test_flash_bwd_kernels(gen, b, nq, nk, h, d):
+    """#8 and #9 on the plain forward's residuals: ragged query and key
+    tiles, d padded up to a multiple of 16, the widest head (128)."""
+    q = _randn(gen, b, nq, h, d)
+    k = _randn(gen, b, nk, h, d)
+    v = _randn(gen, b, nk, h, d)
+    do = _randn(gen, b, nq, h, d)
+    out, lse = TA.flash_fwd_stats_plain(q, k, v)
+    dvec = TA.flash_dvec(out, do)
+    n8, n9 = TA.flash_bwd_dkv.launches, TA.flash_bwd_dq.launches
+    dk, dv = TA.flash_bwd_dkv(q, k, v, do, lse, dvec)
+    dq = TA.flash_bwd_dq(q, k, v, do, lse, dvec)
+    rdk, rdv = TA._bwd_dkv_plain(q, k, v, do, lse, dvec)
+    rdq = TA._bwd_dq_plain(q, k, v, do, lse, dvec)
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.shape == ref.shape and got.is_contiguous()
+        _check(got, ref)
+    assert (TA.flash_bwd_dkv.launches, TA.flash_bwd_dq.launches) == \
+        (n8 + 1, n9 + 1)
+
+
+def test_flash_attention_diff_grads_on_card(gen):
+    """q/k/v as column slices of one fused projection that requires grad:
+    the kernel wrapper without a backward refuses it, flash_attention_diff
+    gives the plain backward's gradients."""
+    qkv = _randn(gen, 2, 200, 3 * 80).requires_grad_()
+    q, k, v = (t.reshape(2, 200, 2, 40) for t in qkv.chunk(3, dim=-1))
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.flash_attention_tpv(q, k, v)
+    do = _randn(gen, 2, 200, 2, 40)
+    out = TA.flash_attention_diff(q, k, v)
+    (grad,) = torch.autograd.grad(out, qkv, do)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    ref_out, lse = TA.flash_fwd_stats_plain(qd, kd, vd)
+    _check(out.detach(), ref_out)
+    ref = torch.cat([g.reshape(2, 200, 80) for g in TA.flash_bwd_plain(
+        qd, kd, vd, out.detach(), lse, do)], dim=-1)
+    for got, want in zip(grad.chunk(3, dim=-1), ref.chunk(3, dim=-1)):
+        _check(got, want)
+
+
+def test_wrappers_without_backward_refuse_a_gradient(gen):
+    """No kernel output reaches autograd without a grad_fn: each wrapper
+    whose kernel has no backward raises where a gradient would be
+    recorded, and launches under torch.no_grad()."""
+    q = _randn(gen, 2, 1536, 1, 40).requires_grad_()
+    stats = [torch.zeros(2, 1536, device="cuda")] * 2     # lse, dvec
+    wide = _randn(gen, 1, 64, 1, 160).requires_grad_()
+    x = _randn(gen, 64, 320).requires_grad_()
+    w1 = _randn(gen, 2560, 320)
+    w2 = _randn(gen, 320, 1280)
+    b1, b2 = _randn(gen, 2560), _randn(gen, 320)
+    calls = [lambda: TA.flash_attention_tpv(q, q, q),
+             lambda: TA.flash_attention(wide, wide, wide),
+             lambda: TA.flash_attention_keymask(q, q, q, n_own=768,
+                                                n_uncond=1),
+             lambda: TA.flash_attention_mfr(q, q, q, h=16, w_tile=48,
+                                            n_tiles=2),
+             lambda: TA.flash_fwd_stats(q, q, q),
+             lambda: TA.flash_bwd_dq(q, q, q, q, *stats),
+             lambda: TF.linear_ln_fused(x, _randn(gen, 960, 320),
+                                        torch.ones(320, device="cuda"),
+                                        torch.zeros(320, device="cuda")),
+             lambda: TF.geglu_ff_fused(x, w1, b1, w2, b2)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call()[0]).all()
