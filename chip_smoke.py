@@ -25,12 +25,19 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     (kernel #6), the same batched with per-frame K/V, a 2-frame seed
     strip and a [target | reference] strip inpaint (kernel #10), each
     checked (output, 16-pair K/V stores, its kernel launched), timed and
-    profiled; then the diffusion fine-tuning step on ``sd15`` (f32 master
-    weights, bf16 activations, batch 2 at 512x768, ``adamw_with_ema_wings``):
+    profiled; then the ``[banded]`` phase: one full-width UNet
+    evaluation with the two keyframes' K/V injected and the banded
+    cross-frame bias materialized at every self-attention
+    (``attn_biases``: the plain route, as in JAX), checked against the
+    unbiased call and the CPU in f32; then the diffusion fine-tuning
+    step on ``sd15`` (f32 master weights, bf16 activations, batch 2 at
+    512x768, ``adamw_with_ema_wings``):
     one step's gradient against the f32 plain route, three steps with
     their launches checked (#7, #8, #9 ten each, #1 at least ten, the
     fused FFN kernels none), the parameters and the EMA checked, timed
-    and profiled;
+    and profiled. No pipeline path runs kernel #5 (none does in JAX):
+    its launches are those of one call per check shape through
+    ``flash_attention_banded``, made apart from the comparisons;
  6. print the kernel table as one JSON line, the card line, and the
     result line.
 """
@@ -125,7 +132,7 @@ def check_kernels():
     rows = []
 
     def record(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
-               tol, source, replaces, iters):
+               tol, source, replaces, iters, note=""):
         """Hold each output of ``kernel_fn`` (a tensor or a tuple) to the
         same output of ``plain_fn``: max |err| <= tol * max |plain| per
         output; the row reports the output with the largest err / limit."""
@@ -163,7 +170,7 @@ def check_kernels():
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain "
             f"{plain_ms:.3f} ms  library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}  bound "
-            f"{bound_ms:.4f} ms ({row['bound_by']})")
+            f"{bound_ms:.4f} ms ({row['bound_by']}){note}")
         rows.append(row)
 
     tpv_src = "sd_animation_optical_flow_tpu_torch/csrc/attention.cu"
@@ -247,6 +254,8 @@ def check_kernels():
                "sd_animation_optical_flow_tpu/ops/attention.py:1078",
                iters=5)
 
+    check_banded_kernel(gen, record, rows, attn_tol, tpv_src)
+
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda")
                 * scale).to(torch.bfloat16)
@@ -295,6 +304,63 @@ def check_kernels():
            iters=20)
     check_training_kernels(gen, record, attn_tol)
     return rows
+
+
+def _band_pairs(h, w, radius):
+    """In-band (query, key) pairs of one h x w frame against one frame:
+    sum over (y, x) of the band's rows times its columns."""
+    span = lambda n: sum(min(n - 1, i + radius) - max(0, i - radius) + 1
+                         for i in range(n))
+    return span(h) * span(w)
+
+
+def check_banded_kernel(gen, record, rows, tol, src):
+    """Kernel #5 at the three UNet levels of a 512x768 frame against two
+    frames' keys (q a slice of the fused QKV projection, k/v the
+    contiguous joined reference rows the UNet injects), weight 0 and 0.7,
+    and L0 with base = -inf. Before each comparison one call through
+    ``flash_attention_banded`` with its counter reset drives the op; its
+    count is the row's ``drive_launches``. The bound counts every key
+    (with a finite base every key weighs); the log line adds the bound of
+    the in-band pairs alone, the floor an exact tile skip could reach."""
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    for label, (hh, ww, d, weight, base) in {
+            "L0 w0": (64, 96, 40, 0.0, -1000.0),
+            "L0 w0.7": (64, 96, 40, 0.7, -1000.0),
+            "L0 base -inf": (64, 96, 40, 0.0, -math.inf),
+            "L1 w0": (32, 48, 80, 0.0, -1000.0),
+            "L1 w0.7": (32, 48, 80, 0.7, -1000.0),
+            "L2 w0": (16, 24, 160, 0.0, -1000.0),
+            "L2 w0.7": (16, 24, 160, 0.7, -1000.0)}.items():
+        b, h, frames, nq = 2, 8, 2, hh * ww
+        nk = frames * nq
+        (q, _, _), _, _ = _attn_case(gen, b, nq, nq, h, d, True)
+        k, v = (torch.randn((b, nk, h, d), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        kw = dict(h=hh, w=ww, weight=weight, base=base)
+        bias16 = A.banded_strip_bias(hh, ww, frames, weight=weight,
+                                     base=base, dtype=torch.bfloat16,
+                                     device="cuda")[None, None]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        flops = 4.0 * b * h * nq * nk * d
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        band_flops = 4.0 * b * h * d * frames * _band_pairs(hh, ww, 8)
+        band_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                            band_flops / PEAK_BF16_FLOPS)
+        A.flash_attention_banded.launches = 0
+        A.flash_attention_banded(q, k, v, **kw)
+        drive = A.flash_attention_banded.launches
+        record(f"flash_attention_banded [{label}]",
+               lambda: A.flash_attention_banded(q, k, v, **kw),
+               lambda: _by_head(A.flash_attention_banded_plain, q, k, v,
+                                **kw),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=bias16),
+               flops, nbytes, tol, src,
+               "sd_animation_optical_flow_tpu/ops/attention.py:178",
+               iters=5, note=f"; in-band pairs only {band_ms:.4f} ms")
+        rows[-1]["drive_launches"] = drive
+        del q, k, v, qt, kt, vt, bias16
 
 
 def _stats_by_head(q, k, v):
@@ -487,7 +553,8 @@ def run_keyframe_path(sd, sd9, kernels, gen):
     inpaint ('target'). Each step runs once with the launch counters
     reset just before it and read just after, once more timed (host
     clock, synchronized), and once under the profiler. Returns
-    {step: (s/frame, counts, ok)} and the failures found."""
+    {step: (s/frame, counts, ok)}, the failures found and the two
+    keyframes' captured K/V."""
     from sd_animation_optical_flow_tpu_torch.models.unet import \
         NUM_KV_LAYERS, StripConfig
     from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
@@ -606,7 +673,80 @@ def run_keyframe_path(sd, sd9, kernels, gen):
         results[name] = (secs, counts, ok_out and kv_good)
         if name != "1 capture":
             profile_frame(run, f"step {name}")
-    return results, failures
+    return results, failures, kv_store["keys"]
+
+
+def run_banded_phase(sd, keys_kv, kernels, gen):
+    """The UNet's materialized ``attn_biases`` route at full width: one
+    bf16 evaluation, x batch 1 at the 64x96 latent, t 401, the cond
+    context, ``ref_kv`` = the two keyframes' K/V joined
+    (``concat_ref_kv``: batch 1, so it replaces K/V wholesale) and at
+    each of the 16 self-attentions ``banded_strip_bias(h_l, w_l, 2)`` at
+    its level's latent size. Checks: the output is finite, differs from
+    the same call without biases, and is within 0.1 relative L2 of the
+    same call on the CPU in f32; the counters reset just before and read
+    just after (no kernel #5: biased attention takes the plain route, as
+    in JAX). Returns (summary dict, failures)."""
+    from sd_animation_optical_flow_tpu_torch.models import unet as U
+    from sd_animation_optical_flow_tpu_torch.ops.attention import \
+        banded_strip_bias
+    from sd_animation_optical_flow_tpu_torch.pipelines.keyframe_inpaint \
+        import concat_ref_kv
+    f = sd.vae_cfg.downscale
+    h0, w0 = H // f, W // f
+    levels = [0, 0, 1, 1, 2, 2, 3, 2, 2, 2, 1, 1, 1, 0, 0, 0]
+    biases = {i: banded_strip_bias(h0 >> lv, w0 >> lv, 2,
+                                   device="cuda")[None, None]
+              for i, lv in enumerate(levels)}
+    ref_kv = concat_ref_kv(keys_kv)
+    x = torch.randn((1, h0, w0, 4), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.full((1,), 401, dtype=torch.int32, device="cuda")
+    ctx = sd.get_learned_conditioning("a watercolor fox in the snow")
+    call = lambda **kw: U.unet_apply(sd.unet_params, sd.unet_cfg, x, t, ctx,
+                                     ref_kv=ref_kv, **kw)
+    with torch.no_grad():
+        call(attn_biases=biases)                 # warm-up
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out, kv = call(attn_biases=biases)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        unbiased, _ = call()
+        t0 = time.time()
+        out_cpu, _ = U.unet_apply(
+            to_cpu_f32(sd.unet_params), sd.unet_cfg, x.float().cpu(),
+            t.cpu(), ctx.float().cpu(), ref_kv=to_cpu_f32(
+                [list(p) for p in ref_kv]),
+            attn_biases={i: b.cpu() for i, b in biases.items()})
+        cpu_s = time.time() - t0
+    rel_l2 = lambda a, b: ((a.float().cpu() - b.float().cpu()).norm()
+                           / b.float().cpu().norm()).item()
+    rel_cpu, rel_unbiased = rel_l2(out, out_cpu), rel_l2(out, unbiased)
+    finite = bool(torch.isfinite(out).all())
+    # x's own K/V: half the tokens of the two frames' reference rows
+    kv_ok = len(kv) == 16 and all(
+        k.shape == (1, rk.shape[1] // 2, rk.shape[2])
+        for (k, _), (rk, _) in zip(kv, ref_kv))
+    log(f"[banded] sd15 UNet at {h0}x{w0} latent, ref_kv of 2 keyframes, "
+        f"banded bias at 16 self-attentions: {secs:.3f} s (host clock, "
+        f"synchronized), peak {peak:.2f} GiB, finite {finite}, K/V ok "
+        f"{kv_ok}; rel L2 vs the CPU f32 call {rel_cpu:.4e} (CPU "
+        f"{cpu_s:.1f} s), vs the unbiased call {rel_unbiased:.4e}; launches "
+        f"{counts}")
+    failures = []
+    if not (finite and kv_ok and rel_cpu <= 0.1 and rel_unbiased > 1e-3):
+        failures.append(f"banded: finite {finite}, K/V ok {kv_ok}, rel L2 "
+                        f"vs CPU {rel_cpu:.3e} (<= 0.1), vs unbiased "
+                        f"{rel_unbiased:.3e} (> 1e-3)")
+    summary = {"s": secs, "peak_gib": peak, "rel_l2_cpu": rel_cpu,
+               "rel_l2_unbiased": rel_unbiased, "counts": counts}
+    return summary, failures
 
 
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 2, 3, 1e-5
@@ -812,7 +952,7 @@ def main() -> int:
     so = _cuda.build()
     _cuda.library()
     log(f"[build] {so.name} in {time.time() - t0:.1f} s: attn_mma_kernel "
-        "(plain, keymask, MFR and stats modes), attn_mma_wide_kernel "
+        "(plain, keymask, MFR, stats and banded modes), attn_mma_wide_kernel "
         "(csrc/attention.cu); attn_bwd_dkv_kernel, attn_bwd_dq_kernel "
         "(csrc/attention_bwd.cu); linear_ln_kernel, geglu_kernel "
         "(csrc/ffn.cu)")
@@ -847,7 +987,8 @@ def main() -> int:
                "flash_attention_mfr": A.flash_attention_mfr,
                "flash_fwd_stats": A.flash_fwd_stats,
                "flash_bwd_dkv": A.flash_bwd_dkv,
-               "flash_bwd_dq": A.flash_bwd_dq}
+               "flash_bwd_dq": A.flash_bwd_dq,
+               "flash_attention_banded": A.flash_attention_banded}
     img2img_kernels = list(kernels)[:4]
     unet_rel = check_unet_against_cpu(sd, gen)
     # bf16 through 16 transformer blocks and 25 resblocks of random
@@ -862,16 +1003,21 @@ def main() -> int:
         for name in img2img_kernels:
             if counts[name] == 0:
                 failures.append(f"img2img {sampler}: {name} never launched")
-    keyframe, kf_failures = run_keyframe_path(sd, sd9, kernels, gen)
+    keyframe, kf_failures, keys_kv = run_keyframe_path(sd, sd9, kernels, gen)
     failures += kf_failures
     log(f"[main] peak device memory, both bundles and the K/V stores "
         f"resident: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    inference = list(main.values()) + list(keyframe.values())
+    del sd9
+    torch.cuda.empty_cache()
+    banded, banded_failures = run_banded_phase(sd, keys_kv, kernels, gen)
+    failures += banded_failures
+    del keys_kv
+    inference = list(main.values()) + list(keyframe.values()) \
+        + [(None, banded["counts"], None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
         if any(c[name] for _, c, _ in inference):
             failures.append(f"{name} launched on an inference path")
-    del sd9
     train, train_counts, train_failures = run_train_phase(sd, kernels, gen)
     failures += train_failures
 
@@ -880,6 +1026,9 @@ def main() -> int:
     for name, fn in kernels.items():
         mine = [r for r in rows if r["name"].startswith(name + " ")]
         launches = sum(c[name] for _, c, _ in paths)
+        if name == "flash_attention_banded":
+            # on no pipeline path, as in JAX: its drives beside the checks
+            launches = sum(r["drive_launches"] for r in mine)
         for r in mine:
             table.append({k: r[k] for k in (
                 "name", "route", "source", "replaces")}
@@ -889,7 +1038,7 @@ def main() -> int:
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
-                    "train": train, "unet_rel_err": unet_rel,
+                    "banded": banded, "train": train, "unet_rel_err": unet_rel,
                     "card": card}))
     if failures:
         for f in failures:

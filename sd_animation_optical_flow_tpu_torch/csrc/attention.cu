@@ -52,6 +52,25 @@
 //     in the log2 domain; no coordinate array in device memory. Only key
 //     tiles whose rows lie within the radius of the block's query rows
 //     evaluate the bias (a block-uniform test), the rest run as mode 0.
+//   _flash_banded_kernel (flash_attention_banded: one frame's queries
+//     against n frames' keys joined along the token axis, banded
+//     cross-frame bias)
+//     -> attn_mma_kernel<DP, MODE_BANDED>: query i sits at (i / w, i % w)
+//     and key j at the same split of j % (h * w), both computed in
+//     registers from the indices (the TPU kernel reads precomputed
+//     qpos / kpos coordinate rows). Every key gets a bias: weight *
+//     exp(-dist / sigma) inside the |dy|, |dx| <= radius band (0 when
+//     weight = 0) and base outside, in the log2 domain. A key tile that
+//     lies in one frame, with all its rows out of the band of the block's
+//     query rows, adds base uniformly (a block-uniform test); the other
+//     tiles, those straddling a frame boundary among them, evaluate it
+//     per element. No tile is skipped: with a finite base every key
+//     counts.
+//
+// The running max of every mode starts at a finite floor (-1e30, as the
+// TPU kernels' does), not at -inf: a row whose first key tile scores all
+// -inf (the banded base = -inf) would otherwise rescale by
+// exp2(-inf - -inf) = NaN.
 //
 // What bounds them on this card: at SD shapes attention is compute-bound
 // (4*N^2*D operations on ~4*N*D*2 bytes). These kernels use mma.sync
@@ -82,13 +101,19 @@ struct AttnArgs {
   // log2(e) and 1 / sigma
   int w_strip, w_tile, radius, target_only;
   float bias_log2, inv_sigma;
+  // MODE_BANDED: frame height and width (radius, bias_log2 and inv_sigma
+  // as MFR's), and the out-of-band bias * log2(e)
+  int fh, fw;
+  float base_log2;
 };
 
-enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2, MODE_STATS = 3 };
+enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2, MODE_STATS = 3, MODE_BANDED = 4 };
+
+constexpr float MAX_FLOOR = -1e30f;  // the running max's start
 
 // ---------------------------------------------------------------------------
-// attn_mma_kernel: bf16, D up to 128 (the tpv route) or 160 (the keymask
-// and MFR routes)
+// attn_mma_kernel: bf16, D up to 128 (the tpv route) or 160 (the keymask,
+// MFR and banded routes)
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_WARPS = 4;
@@ -131,7 +156,7 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
   float o[DN][4];
 #pragma unroll
   for (int n = 0; n < DN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float m0 = MAX_FLOOR, m1 = MAX_FLOOR;  // running max of rows g, g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
 
   // keys this batch row attends to (the keymask: the uncond rows stop at
@@ -146,6 +171,18 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
     for (int r = 0; r < 2; ++r) strip_coords(q0 + r0 + g + 8 * r, a.w_strip, a.w_tile, qy[r], qt[r], qx[r]);
     yq_lo = q0 / a.w_strip;
     yq_hi = (min(q0 + MMA_BQ, a.Nq) - 1) / a.w_strip;
+  }
+  // banded: frame coordinates of the two query rows, and the frame rows
+  // the block's queries span
+  if (MODE == MODE_BANDED) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + r0 + g + 8 * r;
+      qy[r] = i / a.fw;
+      qx[r] = i - qy[r] * a.fw;
+    }
+    yq_lo = q0 / a.fw;
+    yq_hi = (min(q0 + MMA_BQ, a.Nq) - 1) / a.fw;
   }
 
   for (int k0 = 0; k0 < nk; k0 += MMA_BK) {
@@ -190,8 +227,35 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
           }
       }
     }
-    // mask the ragged tile, running max; nvalid >= 1, so the max is
-    // finite after the first tile
+    if (MODE == MODE_BANDED) {
+      const int hw = a.fh * a.fw;
+      const int j0 = k0 % hw;  // frame-local index of the tile's first key
+      const int yk_lo = j0 / a.fw, yk_hi = (j0 + nvalid - 1) / a.fw;
+      if (j0 + nvalid <= hw && (yk_hi < yq_lo - a.radius || yk_lo > yq_hi + a.radius)) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[n][i] += a.base_log2;
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int jl = (k0 + n * 8 + 2 * t + c) % hw;
+            const int ky = jl / a.fw, kx = jl - ky * a.fw;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int dy = qy[r] - ky, dx = qx[r] - kx;
+              if (abs(dy) > a.radius || abs(dx) > a.radius)
+                s[n][2 * r + c] += a.base_log2;
+              else if (a.bias_log2 != 0.f)
+                s[n][2 * r + c] +=
+                    a.bias_log2 * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma);
+            }
+          }
+      }
+    }
+    // mask the ragged tile (nvalid >= 1), running max from the floor
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -449,10 +513,10 @@ cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
 #undef SDAOF_MMA_CASE
     case 9:
     case 10:
-      // the keymask and MFR routes also take SD-1.5's 160-wide heads of
-      // the third UNet level (the plain route sends d > 128 to the wide
-      // kernel)
-      if constexpr (MODE == MODE_KEYMASK || MODE == MODE_MFR) {
+      // the keymask, MFR and banded routes also take SD-1.5's 160-wide
+      // heads of the third UNet level (the plain route sends d > 128 to
+      // the wide kernel)
+      if constexpr (MODE == MODE_KEYMASK || MODE == MODE_MFR || MODE == MODE_BANDED) {
         attn_mma_kernel<160, MODE><<<grid, threads, 0, st>>>(a, D);
         return cudaGetLastError();
       }
@@ -607,6 +671,35 @@ extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, 
   a.inv_sigma = inv_sigma;
   if (!aligned(a, D)) return cudaErrorMisalignedAddress;
   return launch_mma<MODE_MFR>(a, D, static_cast<cudaStream_t>(stream));
+}
+
+// Banded multi-frame attention (bf16, D a multiple of 8 up to 160, Nq =
+// fh * fw, Nk a whole number of frames): key j sits at frame-local
+// position j % (fh * fw); in-band pairs (|dy|, |dx| <= radius) gain
+// bias_log2 * exp(-dist * inv_sigma) (nothing when bias_log2 = 0), the
+// others base_log2 (which may be -inf).
+extern "C" int sdaof_attention_banded(const void* q, const void* k, const void* v, void* o,
+                                      int B, int H, int Nq, int Nk, int D, long long qsb,
+                                      long long qsn, long long qsh, long long ksb, long long ksn,
+                                      long long ksh, long long vsb, long long vsn, long long vsh,
+                                      float scale_log2, int fh, int fw, int radius,
+                                      float bias_log2, float base_log2, float inv_sigma,
+                                      int device, void* stream) {
+  if (D < 1 || D > 160 || fh < 1 || fw < 1 || Nq != fh * fw || Nk < Nq || Nk % Nq != 0 ||
+      radius < 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+                         scale_log2);
+  a.fh = fh;
+  a.fw = fw;
+  a.radius = radius;
+  a.bias_log2 = bias_log2;
+  a.base_log2 = base_log2;
+  a.inv_sigma = inv_sigma;
+  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
+  return launch_mma<MODE_BANDED>(a, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sdaof_error_string(int err) {

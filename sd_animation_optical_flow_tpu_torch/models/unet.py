@@ -7,11 +7,12 @@ dedup (``context_pair``). NHWC activations at the public functions;
 attention in the [B, N, H, D] layout of ``ops/attention.py``.
 
 Ported: ``unet_init``, ``unet_apply`` with and without ``context_pair``,
-cross-frame K/V injection (``ref_kv``) and MFR strips (``strip``). Not
-yet ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-ControlNet residuals (``control``), materialized attention biases
-(``attn_biases``), sequence parallelism (``sp``), class conditioning
-(``y`` / ``num_classes``) and DeepCache.
+cross-frame K/V injection (``ref_kv``), MFR strips (``strip``) and
+materialized attention biases (``attn_biases``, e.g. the banded
+multi-frame bias of ``ops/attention.banded_strip_bias``). Not yet ported
+(each raises ``NotImplementedError`` naming its ROADMAP item): ControlNet
+residuals (``control``), sequence parallelism (``sp``), class
+conditioning (``y`` / ``num_classes``) and DeepCache.
 """
 
 from __future__ import annotations
@@ -161,8 +162,8 @@ def _fused_route(x, *weights) -> bool:
             and x.dtype == torch.bfloat16)
 
 
-def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
-                    hw=None):
+def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, bias=None,
+                    strip=None, hw=None):
     """Self-attention with the block's norm1 folded into one fused
     [C, 3C] QKV projection; returns (out, (k, v)) with k/v [B, N, C]
     (views of the projection, post-projection, pre-head-split).
@@ -172,7 +173,12 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
     cases: Br equal to x's batch replaces K/V wholesale; under the CFG
     batch (Br 1 or B // 2) the cond half attends to the reference K/V
     and the uncond half to its own, key-masked past its own count
-    (:func:`attention_injected`)."""
+    (:func:`attention_injected`).
+    ``bias``: an additive attention bias broadcast to [B, H, Nq, Nk]
+    (Nk the reference's tokens under ``ref_kv``), taken by the router's
+    plain route as in JAX. Under the CFG injection the uncond rows' key
+    mask (0 / -1e9) joins it and the sum goes to the same route, as the
+    JAX package composes them."""
     wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]],
                      dim=0).to(x.dtype)
     proj = linear_ln_fused if _fused_route(x, wqkv, *pre_ln.values()) \
@@ -181,9 +187,9 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
     captured = (k, v)
     heads = lambda t: _heads(t, n_heads)
     if strip is not None and strip.n_tiles > 1:
-        if ref_kv is not None:
+        if ref_kv is not None or bias is not None:
             raise ValueError("strip MFR attention does not compose with "
-                             "ref_kv")
+                             "ref_kv or attn_biases")
         out = strip_attention(heads(q), heads(k), heads(v), h=hw[0],
                               w_strip=hw[1], n_tiles=strip.n_tiles,
                               mode=strip.mode)
@@ -208,11 +214,16 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, strip=None,
             for own, ref in ((k, rk), (v, rv)):
                 both = ref.expand(b // 2, -1, -1).repeat(2, 1, 1)
                 both[: b // 2, :n] = own[: b // 2, :nref]
-                kv.append(heads(both))
-            out = attention_injected(heads(q), *kv, n_own=n,
-                                     n_uncond=b // 2)
-            return linear(p["to_out"], _merge_heads(out)), captured
-    out = attention(heads(q), heads(k), heads(v))
+                kv.append(both)
+            k, v = kv
+            if bias is None:
+                out = attention_injected(heads(q), heads(k), heads(v),
+                                         n_own=n, n_uncond=b // 2)
+                return linear(p["to_out"], _merge_heads(out)), captured
+            mask = torch.zeros((b, nref), device=x.device)
+            mask[: b // 2, n:] = -1e9
+            bias = bias + mask[:, None, None, :]
+    out = attention(heads(q), heads(k), heads(v), bias=bias)
     return linear(p["to_out"], _merge_heads(out)), captured
 
 
@@ -241,9 +252,11 @@ def _ff_tail(p, x):
               residual=True)
 
 
-def _spatial_transformer(p, x, context, n_heads, ref_kv=None, strip=None,
-                         cfg_pair=None):
+def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
+                         attn_bias=None, strip=None, cfg_pair=None):
     """Returns (out, kv_list) — one (k, v) per depth block.
+    ``attn_bias``: the additive bias of every self-attention (see
+    :func:`_self_attention`).
 
     ``cfg_pair=(ctx_u, ctx_c)``: CFG stem dedup — ``x`` arrives at HALF
     the CFG batch, the self-attention runs once on it, and the batch
@@ -258,7 +271,8 @@ def _spatial_transformer(p, x, context, n_heads, ref_kv=None, strip=None,
     expand = cfg_pair is not None
     for blk in p["blocks"]:
         a1, kv = _self_attention(blk["attn1"], x, n_heads, blk["norm1"],
-                                 ref_kv=ref_kv, strip=strip, hw=(h, w))
+                                 ref_kv=ref_kv, bias=attn_bias, strip=strip,
+                                 hw=(h, w))
         x = x + a1
         kvs.append(kv)
         if expand:
@@ -348,6 +362,11 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
       ref_kv: None, or a 16-tuple (capture order) of None / (k, v) pairs,
         k and v [Br, Nr, C], injected into the self-attentions (see
         ``_self_attention`` for the batch cases).
+      attn_biases: optional {layer_idx: bias} additive self-attention
+        biases (capture order, as ``ref_kv``), each broadcast to [B, H,
+        Nq, Nk] at its layer, e.g. ``banded_strip_bias(h, w, n)[None,
+        None]`` for queries of one frame against ``ref_kv`` of n frames.
+        Biased attention takes the router's plain route, as in JAX.
       strip: optional StripConfig — x is a width-concatenated strip and
         every self-attention adds the MFR band bias.
       context_pair: optional (ctx_u, ctx_c) — CFG stem dedup. ``x`` and
@@ -356,24 +375,23 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
         doubles at the first cross-attention. Output batch is 2B
         ([uncond|cond]); ``context`` is ignored. Composes with ``strip``
         (a positional bias, the same for both halves), not with
-        ``ref_kv``.
-      control, attn_biases, y, sp: not ported yet; passing any of them
-        raises NotImplementedError.
+        ``ref_kv`` or ``attn_biases``.
+      control, y, sp: not ported yet; passing any of them raises
+        NotImplementedError.
 
     Returns:
       (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
     """
     if control is not None:
         _not_ported("ControlNet residuals (control)", "6")
-    if attn_biases is not None:
-        _not_ported("materialized attention biases (attn_biases)", "2")
     if sp is not None:
         _not_ported("sequence parallelism (sp)", "8")
     if y is not None or cfg.num_classes is not None:
         _not_ported("class conditioning (y / num_classes)", "7")
-    if context_pair is not None and ref_kv is not None:
+    if context_pair is not None and (ref_kv is not None
+                                     or attn_biases is not None):
         raise ValueError("context_pair (CFG stem dedup) does not compose "
-                         "with ref_kv: the CFG halves differ")
+                         "with ref_kv or attn_biases")
     nh = cfg.num_heads
     t_emb = timestep_embedding(timesteps, cfg.model_channels, dtype=x.dtype)
     emb = linear(params["time_embed"][1],
@@ -390,8 +408,9 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
         layer += 1
         if not half:
             rkv = ref_kv[layer - 1] if ref_kv is not None else None
+            bias = attn_biases.get(layer - 1) if attn_biases else None
             h, kvs = _spatial_transformer(p, h, ctx, nh, ref_kv=rkv,
-                                          strip=strip)
+                                          attn_bias=bias, strip=strip)
             kv_hist.extend(kvs)
             return h
         h, kvs = _spatial_transformer(p, h, None, nh, strip=strip,

@@ -44,6 +44,10 @@ _SIGNATURES = {
     # inv_sigma, device, stream
     "sdaof_attention_mfr": [_P] * 4 + [_I] * 5 + [_L] * 9
     + [_F, _I, _I, _I, _I, _F, _F, _I, _P],
+    # ... scale_log2, fh, fw, radius, bias_log2, base_log2, inv_sigma,
+    # device, stream
+    "sdaof_attention_banded": [_P] * 4 + [_I] * 5 + [_L] * 9
+    + [_F, _I, _I, _I, _F, _F, _F, _I, _P],
     # q, k, v, o, lse, B, H, Nq, Nk, D, 9 strides, scale_log2, device,
     # stream
     "sdaof_attention_fwd_stats": [_P] * 5 + [_I] * 5 + [_L] * 9

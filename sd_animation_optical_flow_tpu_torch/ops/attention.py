@@ -23,6 +23,16 @@ plain version beside it:
   (launched by ``flash_attention_mfr`` via ``strip_attention``): strip
   self-attention with the MFR band bias, plain version
   :func:`strip_attention_plain`.
+* :func:`flash_attention_banded` replaces the TPU's
+  ``_flash_banded_kernel`` (launched by ``flash_attention_banded``):
+  one frame's queries against ``n`` frames' keys with the banded
+  cross-frame bias computed in the kernel; plain version
+  :func:`flash_attention_banded_plain` (:func:`xla_attention` with the
+  materialized :func:`banded_strip_bias`). Unlike the TPU kernel it takes
+  no ``qpos`` / ``kpos`` coordinate inputs (the kernel derives each
+  token's frame coordinates from its index in registers), and its
+  running max starts at a finite floor, as the TPU kernel's does, so a
+  ``base`` of -inf gives no NaN.
 * :func:`flash_fwd_stats` (``_flash_kernel_tpv_stats``),
   :func:`flash_bwd_dkv` (``_flash_bwd_dkv_kernel``) and
   :func:`flash_bwd_dq` (``_flash_bwd_dq_kernel``, ``csrc/attention_bwd.cu``)
@@ -163,7 +173,9 @@ def attention(q, k, v, *, bias=None):
     * no bias, Nq and Nk >= 1536: d <= 128 -> :func:`flash_attention_tpv`,
       d > 128 -> :func:`flash_attention`;
     * anything else -> :func:`xla_attention` (plain torch ops on either
-      device, as JAX leaves those shapes to XLA).
+      device, as JAX leaves those shapes to XLA). Every biased call goes
+      there, as in JAX: the UNet's materialized ``attn_biases`` route is
+      that plain route by design, not a fallback.
 
     Where a gradient is recorded through q, k or v (grad mode on and one
     of them requires grad) the two kernel routes take their
@@ -190,6 +202,20 @@ def attention(q, k, v, *, bias=None):
         return flash_attention_diff(q, k, v) if grad \
             else flash_attention_tpv(q, k, v)
     return xla_attention(q, k, v, bias=bias)
+
+
+def sliced_attention(q, k, v, *, slice_size: int = 1024, bias=None):
+    """Query-chunked :func:`xla_attention`: the score matrix is built
+    ``slice_size`` query rows at a time, the bias sliced along its query
+    axis (the JAX ``sliced_attention``, the reference's low-VRAM sliced
+    attention). Plain torch ops; no kernel."""
+    nq = q.shape[1]
+    outs = []
+    for s in range(0, nq, slice_size):
+        e = min(s + slice_size, nq)
+        b_slice = None if bias is None else bias[..., s:e, :]
+        outs.append(xla_attention(q[:, s:e], k, v, bias=b_slice))
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -553,3 +579,77 @@ def strip_attention(q, k, v, *, h: int, w_strip: int, n_tiles: int,
                                    n_tiles=n_tiles, mode=mode)
     return strip_attention_plain(q, k, v, h=h, w_strip=w_strip,
                                  n_tiles=n_tiles, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# banded multi-frame attention (kernel #5)
+# ---------------------------------------------------------------------------
+
+def banded_strip_bias(h: int, w: int, n_frames: int, *, radius: int = 8,
+                      weight: float = 0.0, sigma: float = 1.6,
+                      base: float = -1000.0, dtype=torch.float32,
+                      device=None):
+    """Materialized banded cross-frame bias [h * w, n_frames * h * w]:
+    query (y, x) against key (y', x') of any frame gets
+    ``weight * exp(-dist / sigma)`` inside the ``|dy|, |dx| <= radius``
+    band and ``base`` outside (the reference's Gaussian-decay band,
+    built vectorised as the JAX ``banded_strip_bias``)."""
+    ys = torch.arange(h, device=device)
+    xs = torch.arange(w, device=device)
+    by = ys[:, None] - ys[None, :]                       # [h, h]
+    bx = xs[:, None] - xs[None, :]                       # [w, w]
+    dist = torch.sqrt((by[:, None, :, None] ** 2
+                       + bx[None, :, None, :] ** 2).float())  # [h, w, h, w]
+    val = weight * torch.exp(-dist / sigma)
+    in_band = (by.abs()[:, None, :, None] <= radius) & \
+        (bx.abs()[None, :, None, :] <= radius)
+    bias = torch.where(in_band, val, base).reshape(h * w, h * w)
+    return bias.repeat(1, n_frames).to(dtype)
+
+
+def _banded_frames(q, k, h: int, w: int) -> int:
+    nq, nk = q.shape[1], k.shape[1]
+    if nq != h * w or nk % (h * w):
+        raise ValueError(f"banded attention takes one {h}x{w} frame of "
+                         f"queries ({h * w} tokens) against whole frames of "
+                         f"keys, got Nq {nq}, Nk {nk}")
+    return nk // (h * w)
+
+
+def flash_attention_banded_plain(q, k, v, *, h: int, w: int,
+                                 radius: int = 8, weight: float = 0.0,
+                                 sigma: float = 1.6, base: float = -1000.0):
+    """Plain version of :func:`flash_attention_banded`:
+    :func:`xla_attention` with the materialized :func:`banded_strip_bias`
+    (the function the JAX package's test holds its kernel to)."""
+    bias = banded_strip_bias(h, w, _banded_frames(q, k, h, w),
+                             radius=radius, weight=weight, sigma=sigma,
+                             base=base, device=q.device)
+    return xla_attention(q, k, v, bias=bias[None, None])
+
+
+def flash_attention_banded(q, k, v, *, h: int, w: int, radius: int = 8,
+                           weight: float = 0.0, sigma: float = 1.6,
+                           base: float = -1000.0):
+    """Multi-frame attention with the banded strip bias computed in the
+    kernel (kernel #5, ``attn_mma_kernel<DP, MODE_BANDED>``): q [B, h*w,
+    H, D] is one frame's tokens, k/v [B, n*h*w, H, D] the tokens of n
+    frames joined along the token axis; key j sits at frame-local
+    position j % (h*w). A block-uniform test adds ``base`` to a key tile
+    whose rows all lie outside the band of the block's query rows; the
+    other tiles evaluate the bias per element. bf16 on the card, d a
+    multiple of 8 up to 160. No backward (neither has the JAX kernel)."""
+    if q.device.type != "cuda":
+        return flash_attention_banded_plain(q, k, v, h=h, w=w, radius=radius,
+                                            weight=weight, sigma=sigma,
+                                            base=base)
+    _banded_frames(q, k, h, w)
+    _cuda.refuse_grad("flash_attention_banded", q, k, v)
+    out = _launch("sdaof_attention_banded", q, k, v, int(h), int(w),
+                  int(radius), float(weight) * _LOG2E, float(base) * _LOG2E,
+                  1.0 / float(sigma), max_d=160)
+    flash_attention_banded.launches += 1
+    return out
+
+
+flash_attention_banded.launches = 0

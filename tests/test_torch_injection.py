@@ -263,10 +263,10 @@ def test_unet_refuses_what_is_not_ported(unet_pair):
     t = torch.ones(2, dtype=torch.int32)
     ctx = torch.zeros((2, 7, 64))
     for kw, item in (({"control": ()}, "item 6"),
-                     ({"attn_biases": {}}, "item 2"),
                      ({"sp": object()}, "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             TU.unet_apply(tp, tu, x, t, ctx, **kw)
-    with pytest.raises(ValueError):
-        TU.unet_apply(tp, tu, x[:1], t[:1], None, ref_kv=(None,) * 11,
-                      context_pair=(ctx[:1], ctx[1:]))
+    for kw in ({"ref_kv": (None,) * 11}, {"attn_biases": {}}):
+        with pytest.raises(ValueError, match="context_pair"):
+            TU.unet_apply(tp, tu, x[:1], t[:1], None,
+                          context_pair=(ctx[:1], ctx[1:]), **kw)

@@ -13,6 +13,9 @@ past a 32-row tile; for the keymask kernel n_own = Nk, n_own not a
 multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
 ragged N, 3 tiles, both modes and key tiles outside the band; both at
 SD-1.5's widest head (d = 160) and at a d padded up to it; for the
+banded kernel the three UNet levels' frame geometries at weight 0 and
+0.7, frames whose h * w is not a multiple of the 64-key tile (tiles
+straddling a frame boundary) and base = -inf; for the
 forward with statistics and the two backward kernels (#7-#9) ragged
 query and key tiles, d from 16 to 128, and the fused-QKV slices under
 autograd. Every wrapper whose kernel has no backward refuses inputs
@@ -151,6 +154,25 @@ def test_flash_attention_mfr_kernel(gen, b, hh, w_tile, n_tiles, heads, d,
     assert TA.flash_attention_mfr.launches == n0 + 1
 
 
+@pytest.mark.parametrize("weight", [0.0, 0.7])
+@pytest.mark.parametrize("b,hh,ww,n,heads,d,base", [
+    (1, 64, 96, 2, 1, 40, -1000.0),     # SD-1.5's L0 frame at 512x768
+    (1, 32, 48, 2, 2, 80, -1000.0),     # L1
+    (2, 16, 24, 2, 2, 160, -1000.0),    # L2, the widest head
+    (1, 3, 5, 3, 2, 40, -1000.0),       # h*w = 15: tiles span frames
+    (2, 9, 11, 2, 1, 24, -30.0),        # h*w = 99: a tile straddles
+    (1, 64, 96, 2, 1, 40, -float("inf"))])  # first tiles out of band
+def test_flash_attention_banded_kernel(gen, weight, b, hh, ww, n, heads, d,
+                                       base):
+    q = _randn(gen, b, hh * ww, heads, d)
+    k, v = (_randn(gen, b, n * hh * ww, heads, d) for _ in range(2))
+    kw = dict(h=hh, w=ww, weight=weight, base=base)
+    n0 = TA.flash_attention_banded.launches
+    _check(TA.flash_attention_banded(q, k, v, **kw),
+           TA.flash_attention_banded_plain(q, k, v, **kw))
+    assert TA.flash_attention_banded.launches == n0 + 1
+
+
 @pytest.mark.parametrize("d", [40, 80, 160])
 def test_routers_launch_the_kernels_past_the_gate(gen, d):
     """At Nq >= 1536 the injection and strip routers launch their kernels
@@ -190,6 +212,13 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     q = _randn(gen, 1, 64, 2, 40)            # 64 tokens != 4 * 2 * 10
     with pytest.raises(ValueError):
         TA.flash_attention_mfr(q, q, q, h=4, w_tile=10, n_tiles=2)
+    with pytest.raises(TypeError):
+        TA.flash_attention_banded(q.float(), q.float(), q.float(), h=8, w=8)
+    with pytest.raises(ValueError):          # 64 tokens, not one 4x8 frame
+        TA.flash_attention_banded(q, q, q, h=4, w=8)
+    q = _randn(gen, 1, 32, 2, 168)           # d > 160
+    with pytest.raises(ValueError):
+        TA.flash_attention_banded(q, q, q, h=4, w=8)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +302,7 @@ def test_wrappers_without_backward_refuse_a_gradient(gen):
                                                 n_uncond=1),
              lambda: TA.flash_attention_mfr(q, q, q, h=16, w_tile=48,
                                             n_tiles=2),
+             lambda: TA.flash_attention_banded(q, q, q, h=32, w=48),
              lambda: TA.flash_fwd_stats(q, q, q),
              lambda: TA.flash_bwd_dq(q, q, q, q, *stats),
              lambda: TF.linear_ln_fused(x, _randn(gen, 960, 320),
