@@ -5,13 +5,19 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
+or, for the kernel table alone (phases 1-3), of the port in this checkout
+or in another tree of the repository (an earlier commit unpacked with
+``git archive``), which prints no result line:
+
+    python3 chip_smoke.py --kernels [TREE]
+
 Phases (any failure exits nonzero; nothing falls back to the CPU):
  1. print the card (name, power limit) and the f32 matmul/conv precision;
  2. build the CUDA kernels from ``sd_animation_optical_flow_tpu_torch/csrc``;
  3. hold each kernel against its plain PyTorch version at the SD-1.5
     512x768 main path's shapes in bf16 (the training kernels at the
     training step's), and time kernel, plain version and one PyTorch
-    library call for the same function;
+    library call for the same function, each in two ways (``cuda_ms``);
  4. one UNet evaluation at full SD-1.5 width on the card (bf16, kernels)
     against the same weights and inputs on the CPU in f32 (plain
     versions);
@@ -44,11 +50,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import torch
@@ -57,6 +65,10 @@ import torch
 # the larger of bytes / memory rate and operations / bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# softmax's floor beside the bound: one exp2 per score on the special-
+# function units, 16 a clock per SM: 132 x 16 x ~1.83 GHz (the clock of
+# the bf16 figure)
+PEAK_EXP2_PER_S = 3.9e12
 
 H, W = 512, 768                 # image size of the main path
 STRENGTH, STEPS, CFG = 0.4, 50, 7.0
@@ -74,13 +86,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call over ``iters`` back-to-back calls (CUDA events)."""
+def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = True) -> float:
+    """Mean ms per call over ``iters`` back-to-back calls (CUDA events).
+    ``queued``: a spin kernel of ~5 ms ahead of the start event holds the
+    card while the host queues the calls, so a call shorter than its
+    host-side launch (the cross-attention rows, ~0.03 ms) is timed on the
+    device. Unqueued, such a call reads the host's launch rate; the
+    kernel rows give both readings."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -132,10 +151,14 @@ def check_kernels():
     rows = []
 
     def record(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
-               tol, source, replaces, iters, note=""):
+               tol, source, replaces, iters, note="", exps=None):
         """Hold each output of ``kernel_fn`` (a tensor or a tuple) to the
         same output of ``plain_fn``: max |err| <= tol * max |plain| per
-        output; the row reports the output with the largest err / limit."""
+        output; the row reports the output with the largest err / limit.
+        ``exps``: the exponentials the function needs (attention: one per
+        score), for the exp floor in the log line. Kernel and library are
+        timed queued (the row's ``ms``, ``library_ms``) and unqueued
+        (``ms_unqueued``, ``library_ms_unqueued``)."""
         outs = kernel_fn()
         torch.cuda.synchronize()
         refs = plain_fn()
@@ -153,26 +176,37 @@ def check_kernels():
         err, scale, rms = worst
         del outs, refs
         ms = cuda_ms(kernel_fn, iters)
+        ms_unq = cuda_ms(kernel_fn, iters, queued=False)
         plain_ms = cuda_ms(plain_fn, max(2, iters // 4))
         lib_ms = cuda_ms(library_fn, iters) if library_fn else None
+        lib_unq = cuda_ms(library_fn, iters, queued=False) \
+            if library_fn else None
         bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
                              flops / PEAK_BF16_FLOPS)
+        exp_ms = None if exps is None else 1e3 * exps / PEAK_EXP2_PER_S
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": err,
-               "tol": tol * scale, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms,
+               "tol": tol * scale, "ms": ms, "ms_unqueued": ms_unq,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S
                > flops / PEAK_BF16_FLOPS else "operations",
-               "library_ms": lib_ms, "ok": ok}
+               "library_ms": lib_ms, "library_ms_unqueued": lib_unq,
+               "ok": ok}
         log(f"[kernel] {name}: max|err| {err:.3e} (tol {tol * scale:.3e} ="
             f" {tol:g} * max|plain| {scale:.3e}; rms(plain) {rms:.3e}; worst "
             f"output) "
             f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain "
             f"{plain_ms:.3f} ms  library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}  bound "
-            f"{bound_ms:.4f} ms ({row['bound_by']}){note}")
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}"
+            f"{'' if lib_ms is None else f' (kernel / library {ms / lib_ms:.2f})'}"
+            f"  bound {bound_ms:.4f} ms ({row['bound_by']})"
+            f"{'' if exp_ms is None else f'  exp floor {exp_ms:.4f} ms'}"
+            f"  unqueued: kernel {ms_unq:.3f} ms"
+            f"{'' if lib_unq is None else f'  library {lib_unq:.3f} ms (kernel / library {ms_unq / lib_unq:.2f})'}"
+            f"{note}")
         rows.append(row)
 
+    sm90_src = "sd_animation_optical_flow_tpu_torch/csrc/attention_sm90.cu"
     tpv_src = "sd_animation_optical_flow_tpu_torch/csrc/attention.cu"
     tpv_rep = "sd_animation_optical_flow_tpu/ops/attention.py:135"
     # every tolerance is relative to the largest output of the plain
@@ -192,7 +226,7 @@ def check_kernels():
                lambda: A.flash_attention_tpv(q, k, v),
                lambda: A.xla_attention(q, k, v),
                lambda: _sdpa(qt, kt, vt), flops, nbytes, attn_tol,
-               tpv_src, tpv_rep, iters=10)
+               sm90_src, tpv_rep, iters=10, exps=b * h * nq * nk)
 
     (q, k, v), flops, nbytes = _attn_case(gen, 1, 6144, 6144, 1, 512,
                                           True)
@@ -200,7 +234,8 @@ def check_kernels():
     record("flash_attention [VAE mid]", lambda: A.flash_attention(q, k, v),
            lambda: A.xla_attention(q, k, v), lambda: _sdpa(qt, kt, vt),
            flops, nbytes, attn_tol, tpv_src,
-           "sd_animation_optical_flow_tpu/ops/attention.py:62", iters=5)
+           "sd_animation_optical_flow_tpu/ops/attention.py:62", iters=5,
+           exps=6144 * 6144)
 
     # kernel #6 at the injected inpaint's shapes: q sliced out of the fused
     # QKV projection, k/v the [own | reference] rows the UNet builds
@@ -228,7 +263,8 @@ def check_kernels():
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, attn_mask=allowed),
                flops, nbytes, attn_tol, tpv_src,
-               "sd_animation_optical_flow_tpu/ops/attention.py:288", iters=10)
+               "sd_animation_optical_flow_tpu/ops/attention.py:288", iters=10,
+               exps=h * nq * keys)
 
     # kernel #10 at the strips' shapes (2 tiles of a 512x768 frame: latent
     # 64 x 192 at L0, 32 x 96 at L1; L2 (d 160) reaches the gate with 4
@@ -252,7 +288,7 @@ def check_kernels():
                    qt, kt, vt, attn_mask=bias16),
                flops, nbytes, attn_tol, tpv_src,
                "sd_animation_optical_flow_tpu/ops/attention.py:1078",
-               iters=5)
+               iters=5, exps=b * h * n * n)
 
     check_banded_kernel(gen, record, rows, attn_tol, tpv_src)
 
@@ -358,7 +394,8 @@ def check_banded_kernel(gen, record, rows, tol, src):
                    qt, kt, vt, attn_mask=bias16),
                flops, nbytes, tol, src,
                "sd_animation_optical_flow_tpu/ops/attention.py:178",
-               iters=5, note=f"; in-band pairs only {band_ms:.4f} ms")
+               iters=5, note=f"; in-band pairs only {band_ms:.4f} ms",
+               exps=b * h * nq * nk)
         rows[-1]["drive_launches"] = drive
         del q, k, v, qt, kt, vt, bias16
 
@@ -394,7 +431,7 @@ def check_training_kernels(gen, record, tol):
     (autograd of its output with the same dO) for the pair #8 + #9,
     reported once, on the #8 row. ``record`` adds the rows."""
     from sd_animation_optical_flow_tpu_torch.ops import attention as A
-    src = "sd_animation_optical_flow_tpu_torch/csrc/attention.cu"
+    src = "sd_animation_optical_flow_tpu_torch/csrc/attention_sm90.cu"
     bwd_src = "sd_animation_optical_flow_tpu_torch/csrc/attention_bwd.cu"
     rep = "sd_animation_optical_flow_tpu/ops/attention.py:"
     for label, (b, n, h, d) in {"self L0": (2, 6144, 8, 40),
@@ -416,7 +453,7 @@ def check_training_kernels(gen, record, tol):
                lambda: _stats_by_head(q, k, v),
                lambda: _sdpa(qt.detach(), kt.detach(), vt.detach()),
                4.0 * flop, qkv_bytes + 2.0 * b * n * h * d + stat_bytes,
-               tol, src, rep + "600", iters=10)
+               tol, src, rep + "600", iters=10, exps=b * h * n * n)
         record(f"flash_bwd_dkv [{label}]",
                lambda: A.flash_bwd_dkv(q, k, v, do, lse, dvec),
                lambda: _bwd_by_head(A._bwd_dkv_plain, q, k, v, do, lse,
@@ -425,14 +462,14 @@ def check_training_kernels(gen, record, tol):
                                            retain_graph=True),
                8.0 * flop, qkv_bytes + 2.0 * b * n * h * d
                + 2 * stat_bytes + 2 * 2.0 * b * n * h * d,
-               tol, bwd_src, rep + "631", iters=10)
+               tol, bwd_src, rep + "631", iters=10, exps=b * h * n * n)
         record(f"flash_bwd_dq [{label}]",
                lambda: A.flash_bwd_dq(q, k, v, do, lse, dvec),
                lambda: _bwd_by_head(A._bwd_dq_plain, q, k, v, do, lse,
                                     dvec),
                None, 6.0 * flop, qkv_bytes + 2.0 * b * n * h * d
                + 2 * stat_bytes + 2.0 * b * n * h * d,
-               tol, bwd_src, rep + "673", iters=10)
+               tol, bwd_src, rep + "673", iters=10, exps=b * h * n * n)
         del sdpa_out
 
 
@@ -928,9 +965,16 @@ def profile_frame(run, label, top: int = 8):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", nargs="?", type=Path, const=Path(__file__).parent,
+                    metavar="TREE", help="only the kernel table, of the port in TREE "
+                    "(default: this checkout); no result line")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernels:
+        sys.path.insert(0, str(args.kernels.resolve()))
     try:
         from sd_animation_optical_flow_tpu_torch import config as C
         from sd_animation_optical_flow_tpu_torch.ops import _cuda
@@ -940,6 +984,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
         return 2
+    if args.kernels:
+        log(f"[tree] the port in {Path(A.__file__).resolve().parents[1]}")
     failures = []
     card = card_line()
     log(f"[card] {card}")
@@ -951,18 +997,27 @@ def main() -> int:
     t0 = time.time()
     so = _cuda.build()
     _cuda.library()
-    log(f"[build] {so.name} in {time.time() - t0:.1f} s: attn_mma_kernel "
-        "(plain, keymask, MFR, stats and banded modes), attn_mma_wide_kernel "
-        "(csrc/attention.cu); attn_bwd_dkv_kernel, attn_bwd_dq_kernel "
-        "(csrc/attention_bwd.cu); linear_ln_kernel, geglu_kernel "
-        "(csrc/ffn.cu)")
+    log(f"[build] {so.name} in {time.time() - t0:.1f} s: "
+        "attention_sm90_kernel (#1 and #7: three wgmma consumer "
+        "warpgroups, cp.async K/V ring; "
+        "csrc/attention_sm90.cu); attn_mma_kernel (keymask, MFR and banded "
+        "modes), attn_mma_wide_kernel (csrc/attention.cu); "
+        "attn_bwd_dkv_kernel, attn_bwd_dq_kernel (csrc/attention_bwd.cu); "
+        "linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
     ptxas = so.with_suffix(".log").read_text()
     for line in ptxas.splitlines():
-        if "spill" in line and " 0 bytes spill stores" not in line:
+        # spills, wgmma pipelines that ptxas had to serialize, and a
+        # register hand-over it could not honour
+        if "spill" in line and " 0 bytes spill stores" not in line \
+                or "wgmma" in line.lower() or "setmaxnreg" in line:
             log(f"[ptxas] {line.strip()}")
 
     rows = check_kernels()
     failures += [r["name"] for r in rows if not r["ok"]]
+    if args.kernels:
+        for f in failures:
+            print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     torch.cuda.empty_cache()

@@ -1,26 +1,21 @@
-// Flash-attention forward kernels for Hopper (sm_90a), plain C interface
-// for ctypes (ops/_cuda.py builds and loads this file).
+// Flash-attention forward kernels of the older mma.sync design (sm_90a),
+// plain C interface for ctypes (ops/_cuda.py builds and loads this file).
 //
-// Computes out = softmax(q k^T / sqrt(d)) v for bf16 q [B, Nq, H, D] and
-// k/v [B, Nk, H, D] (D a multiple of 8, up to 512; any strides along B,
-// N, H that are multiples of 8; unit stride along D; 16-byte tile loads),
-// writing a contiguous [B, Nq, H, D] output. Softmax in f32 with a
+// Computes out = softmax(q k^T / sqrt(d) + bias) v for bf16 q [B, Nq, H, D]
+// and k/v [B, Nk, H, D] (D a multiple of 8, up to 512; any strides along
+// B, N, H that are multiples of 8; unit stride along D; 16-byte tile
+// loads), writing a contiguous [B, Nq, H, D] output. Softmax in f32 with a
 // TRACKED running max (online softmax), so the result does not rely on
 // bounded logits. One block per (b*h, query tile), a loop over key tiles
 // inside the block in place of the TPU's sequential grid axis; the ragged
-// last key tile (Nk = 231 for the 3x77 prompt) is masked to -inf.
+// last key tile is masked to -inf.
 //
-// Replaces two Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
-// attention.py (the Python wrappers keep their names and counters):
+// The plain forward (d <= 128) and the forward with statistics run on the
+// Hopper kernel of csrc/attention_sm90.cu (sdaof_attention routes there);
+// this file keeps the masked and biased modes and the wide-head kernel.
+// It replaces these Pallas TPU kernels of sd_animation_optical_flow_tpu/
+// ops/attention.py (the Python wrappers keep their names and counters):
 //
-//   _flash_kernel_tpv (flash_attention_tpv: UNet self-attention at >= 1536
-//     tokens, d = 40 / 80, and the short-K cross-attention)
-//     -> attn_mma_kernel: a warp per 16 query rows; q k^T and p v both on
-//     the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d
-//     zero-padded to a multiple of 16 in shared memory. The score tile's
-//     accumulator fragments are, rounded to bf16, the A fragments of the
-//     p v product, so p never leaves registers. The TPU kernel's
-//     transposed PV only filled the 128-lane MXU at d = 40; not needed here.
 //   _flash_kernel (flash_attention: the VAE mid-block attention, one
 //     head, d = 512)
 //     -> attn_mma_wide_kernel: an output row of 512 f32 does not fit a
@@ -30,6 +25,12 @@
 //     columns of the p v product. Tiles take ~180 KB of dynamic shared
 //     memory (opted in above 48 KB).
 //
+// attn_mma_kernel<DP, MODE>: a warp per 16 query rows; q k^T and p v both
+// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d
+// zero-padded to a multiple of 16 in shared memory. The score tile's
+// accumulator fragments are, rounded to bf16, the A fragments of the p v
+// product, so p never leaves registers. Its modes:
+//
 //   _flash_keymask_kernel_tpv (flash_attention_keymask: the CFG K/V
 //     injection, uncond rows see their own keys only)
 //     -> attn_mma_kernel<DP, MODE_KEYMASK>: batch rows b < n_uncond run
@@ -37,13 +38,6 @@
 //     any ragged tile), so the uncond half never reads a key past n_own;
 //     the TPU kernel masks the same scores to -1e30 and still streams
 //     them. The cond rows run all Nk.
-//   _flash_kernel_tpv_stats (_flash_fwd_stats: the forward of
-//     flash_attention_diff under a gradient, training's self-attention)
-//     -> attn_mma_kernel<DP, MODE_STATS>: mode 0 that also writes each
-//     query row's base-2 log-sum-exp m + log2(l) (f32 [B*H, Nq]) for the
-//     backward (csrc/attention_bwd.cu). The TPU kernel is max-free and
-//     returns the denominator l itself; with a tracked max the LSE is the
-//     statistic that stays finite (exp2(lse) = l at the TPU's zero max).
 //   _flash_mfr_kernel (flash_attention_mfr: MFR strip self-attention)
 //     -> attn_mma_kernel<DP, MODE_MFR>: the band bias weight * exp(-dist
 //     / sigma) (Chebyshev radius, `target` / `mutual` tile rule) is
@@ -51,7 +45,7 @@
 //     tile = (i % w_strip) / w_tile, x = (i % w_strip) % w_tile) and added
 //     in the log2 domain; no coordinate array in device memory. Only key
 //     tiles whose rows lie within the radius of the block's query rows
-//     evaluate the bias (a block-uniform test), the rest run as mode 0.
+//     evaluate the bias (a block-uniform test), the rest run unbiased.
 //   _flash_banded_kernel (flash_attention_banded: one frame's queries
 //     against n frames' keys joined along the token axis, banded
 //     cross-frame bias)
@@ -73,10 +67,11 @@
 // exp2(-inf - -inf) = NaN.
 //
 // What bounds them on this card: at SD shapes attention is compute-bound
-// (4*N^2*D operations on ~4*N*D*2 bytes). These kernels use mma.sync
-// without pipelining the tile loads (no cp.async / TMA, no wgmma), so
-// they sit several times above the tensor-core bound; wgmma + TMA tiling
-// is the next step.
+// (4*N^2*D operations on ~4*N*D*2 bytes, and one exp2 per score on the
+// special-function units). These kernels use mma.sync without pipelining
+// the tile loads (no cp.async ring, no wgmma), so they sit several times
+// above those bounds; attention_sm90.cu's design (sm90.cuh) is the next
+// step for the masked and biased modes.
 
 #include <math.h>
 
@@ -89,7 +84,6 @@ struct AttnArgs {
   const void* k;
   const void* v;
   void* o;
-  float* lse;  // MODE_STATS: [B*H, Nq] base-2 log-sum-exp of the scores
   int B, H, Nq, Nk;
   long long qsb, qsn, qsh;
   long long ksb, ksn, ksh;
@@ -107,13 +101,12 @@ struct AttnArgs {
   float base_log2;
 };
 
-enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2, MODE_STATS = 3, MODE_BANDED = 4 };
+enum { MODE_KEYMASK = 1, MODE_MFR = 2, MODE_BANDED = 4 };
 
 constexpr float MAX_FLOOR = -1e30f;  // the running max's start
 
 // ---------------------------------------------------------------------------
-// attn_mma_kernel: bf16, D up to 128 (the tpv route) or 160 (the keymask,
-// MFR and banded routes)
+// attn_mma_kernel: bf16, D up to 160 (the keymask, MFR and banded routes)
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_WARPS = 4;
@@ -317,11 +310,6 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
   }
   const int row0 = q0 + r0 + g, row1 = row0 + 8;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  if (MODE == MODE_STATS && t == 0) {
-    float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.Nq;
-    if (row0 < a.Nq) lse[row0] = m0 + log2f(l0);
-    if (row1 < a.Nq) lse[row1] = m1 + log2f(l1);
-  }
   bf16* out = static_cast<bf16*>(a.o);
 #pragma unroll
   for (int n = 0; n < DN; ++n)
@@ -513,14 +501,9 @@ cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
 #undef SDAOF_MMA_CASE
     case 9:
     case 10:
-      // the keymask, MFR and banded routes also take SD-1.5's 160-wide
-      // heads of the third UNet level (the plain route sends d > 128 to
-      // the wide kernel)
-      if constexpr (MODE == MODE_KEYMASK || MODE == MODE_MFR || MODE == MODE_BANDED) {
-        attn_mma_kernel<160, MODE><<<grid, threads, 0, st>>>(a, D);
-        return cudaGetLastError();
-      }
-      return cudaErrorInvalidValue;
+      // SD-1.5's 160-wide heads of the third UNet level
+      attn_mma_kernel<160, MODE><<<grid, threads, 0, st>>>(a, D);
+      return cudaGetLastError();
     default:
       return cudaErrorInvalidValue;
   }
@@ -588,9 +571,17 @@ AttnArgs make_args(const void* q, const void* k, const void* v, void* o, int B, 
 
 }  // namespace
 
-// bf16 only. wide = 0: d <= 128 takes the attn_mma_kernel, wide = 1 (or
-// d > 128): the attn_mma_wide_kernel. Refuses unaligned inputs (see
-// aligned()). Returns a cudaError_t code (0 = ok).
+// csrc/attention_sm90.cu
+cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, void* o,
+                                  float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
+                                  long long qsn, long long qsh, long long ksb, long long ksn,
+                                  long long ksh, long long vsb, long long vsn, long long vsh,
+                                  float scale_log2, int device, cudaStream_t st);
+
+// bf16 only. wide = 0 and d <= 128: attention_sm90_kernel
+// (csrc/attention_sm90.cu); wide = 1 or d > 128: attn_mma_wide_kernel.
+// Refuses unaligned inputs (see aligned()). Returns a cudaError_t code
+// (0 = ok).
 extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int Nq, int Nk, int D, long long qsb, long long qsn,
                                long long qsh, long long ksb, long long ksn, long long ksh,
@@ -603,27 +594,10 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
                                vsh, scale_log2);
   if (!aligned(a, D)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide && D <= 128) return launch_mma<MODE_PLAIN>(a, D, st);
+  if (!wide && D <= 128)
+    return launch_attention_sm90(q, k, v, o, nullptr, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn,
+                                 ksh, vsb, vsn, vsh, scale_log2, device, st);
   return launch_mma_wide(a, D, st);
-}
-
-// Attention with statistics (bf16, D a multiple of 8 up to 128): out as
-// sdaof_attention with wide = 0, and lse [B*H, Nq] f32, each query row's
-// base-2 log-sum-exp of the scores scaled by scale_log2.
-extern "C" int sdaof_attention_fwd_stats(const void* q, const void* k, const void* v, void* o,
-                                         float* lse, int B, int H, int Nq, int Nk, int D,
-                                         long long qsb, long long qsn, long long qsh,
-                                         long long ksb, long long ksn, long long ksh,
-                                         long long vsb, long long vsn, long long vsh,
-                                         float scale_log2, int device, void* stream) {
-  if (D < 1 || D > 128 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
-                         scale_log2);
-  a.lse = lse;
-  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
-  return launch_mma<MODE_STATS>(a, D, static_cast<cudaStream_t>(stream));
 }
 
 // The CFG K/V-injection attention (bf16, D a multiple of 8 up to 160):

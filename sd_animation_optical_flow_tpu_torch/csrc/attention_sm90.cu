@@ -1,0 +1,565 @@
+// Flash-attention forward for Hopper (sm_90a): wgmma, a cp.async K/V
+// ring fed by a producer warpgroup, and the softmax of one key tile
+// overlapped with the p v product of the one before. Plain C interface
+// for ctypes (ops/_cuda.py builds and loads this file).
+//
+// attention_sm90_kernel computes out = softmax(q k^T * scale) v for bf16
+// q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a multiple of 8 up to 128; any
+// strides along B, N, H that are multiples of 8 elements; unit stride
+// along D), writing a contiguous [B, Nq, H, D] out, and, where lse is
+// given, each query row's base-2 log-sum-exp m + log2(l) of the scaled
+// scores (f32 [B*H, Nq]) for the backward (csrc/attention_bwd.cu). It
+// replaces two Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
+// attention.py, whose Python wrappers keep their names and counters:
+//
+//   _flash_kernel_tpv (flash_attention_tpv: the UNet self-attention at
+//     >= 1536 tokens, d = 40 / 80, and the short-K prompt
+//     cross-attention; sdaof_attention with wide = 0, d <= 128)
+//   _flash_kernel_tpv_stats (_flash_fwd_stats: the forward of
+//     flash_attention_diff under a gradient; sdaof_attention_fwd_stats).
+//     The TPU kernel is max-free and returns the denominator l; with a
+//     tracked max the LSE is the statistic that stays finite.
+//
+// What bounds it on the H100: at SD's self-attention (self L0: 2 x 8
+// heads, 6144 tokens, d = 40) the tensor-core work takes 0.098 ms at the
+// bf16 peak, but softmax needs one exp2 per (query, key) pair, and the
+// special-function units give 16 a clock per SM: 6.0e8 exponentials take
+// 0.155 ms at 3.9e12 / s. At d = 40 the exponentials, not the matrix
+// products, are the floor, so the design overlaps the two:
+//
+// * Persistent blocks, one per SM, of NC = 3 consumer warpgroups and a
+//   producer warpgroup, walk the work units (BQ = 192 query rows of one
+//   batch row and head). The producer loads each unit's Q into one of
+//   QSLOTS slots and streams the K/V tiles of BK keys (128 for d <= 48,
+//   else 64) into a ring of STAGES shared-memory stages with 16-byte
+//   cp.async; each load is a cp.async group whose "full" mbarrier the
+//   producer arrives on (after a proxy fence) once it has landed, up to
+//   three groups in flight, and the consumers' release arrives on the
+//   stage's "empty" one. Each consumer owns 64 of the unit's rows. The
+//   next unit's Q and first tiles load while this unit computes and
+//   stores, which is what the short-K cross-attention (2 to 4 key tiles
+//   a unit) needs: there a unit's latency, not its math, sets the time,
+//   so the units are few and wide. 192 rows make the UNet's 1536-token
+//   level 128 units, one wave on the H100's 132 SMs (128 rows made 192
+//   units, two on 60 SMs), and its 6144-token level 4 units a block
+//   instead of 6. 512 threads start with 128 registers each; the
+//   producer drops to 56 (setmaxnreg) and the consumers take 152: a
+//   consumer holds s (BK / 2 f32), p (BK / 4 bf16 pairs) and o (DP / 2
+//   f32), 120 of them at d = 48, BK = 128, and at 128 ptxas spills and
+//   serialises the wgmma.
+// * q k^T: wgmma m64nBKk16, A = Q and B = K both from shared memory,
+//   K-major (K's natural [key, d] rows), DP / 16 k-steps. d is padded to
+//   DP, a multiple of 16: the padded 16-byte chunks of every tile are
+//   zeroed once at the start and never written by a load, which reads
+//   only chunks < D / 8, so the neighbouring head's or tensor's columns
+//   of a fused-QKV slice (columns D.. of the row) are never read.
+// * softmax in f32 on the accumulator in registers: running max from
+//   -1e30 (the TPU kernels' floor; a fully masked first tile cannot give
+//   exp2(-inf - -inf)), p = exp2(s * scale_log2 - m) as one FMA and one
+//   ex2; the ragged last key tile (Nk = 231 for the 3 x 77 prompt) is
+//   masked only on that tile, a block-uniform branch. Its rows past Nk
+//   are zero-filled by the load (cp.async with source size 0), so v is 0
+//   there and p is exactly 0.
+// * p v: wgmma m64nDPk16 with A = p from registers (the score
+//   accumulator packed to bf16 pairs is the A fragment: p never touches
+//   shared memory) and B = V from shared memory, MN-major (the
+//   descriptor's transpose bit).
+// * Overlap: tile t's q k^T and tile t-1's p v are issued together;
+//   the warpgroup waits for q k^T only and computes tile t's softmax while
+//   p v runs on the tensor cores; the consumer warpgroups interleave on
+//   the SM, so one's exponentials also overlap the others' products.
+//   The producer runs up to STAGES tiles and QSLOTS - 1 units' Q ahead.
+//   The consumers take turns, in a ring, to issue their products
+//   (FlashAttention-3's ping-pong, one named barrier each), so one's
+//   softmax runs while the others' products do, even where all wait on
+//   the same tiles.
+// * Epilogue: O / l to bf16 staged through the warpgroup's own Q rows of
+//   shared memory, then written as 16-byte row chunks; the Q slot then
+//   goes back to the producer (its "empty" mbarrier).
+//
+// Shared memory uses the no-swizzle core-matrix layout of sm90.cuh
+// (tile_offset): one layout serves as the K-major operand (Q, K) and the
+// MN-major one (V), and the 16-byte loads store without bank conflicts.
+
+#include <math.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+struct Sm90Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  float* lse;  // may be null
+  int H, Nq, Nk, D;
+  long long qsb, qsn, qsh;
+  long long ksb, ksn, ksh;
+  long long vsb, vsn, vsh;
+  float scale_log2;  // softmax scale * log2(e): scores live in the log2 domain
+};
+
+constexpr int NC = 3;                   // consumer warpgroups
+constexpr int BQ = 64 * NC;             // query rows per work unit
+constexpr int WG_THREADS = 128;         // a warpgroup
+constexpr int PRODUCER = WG_THREADS;    // the producer warpgroup
+constexpr int THREADS = NC * WG_THREADS + PRODUCER;
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 152;  // a thread, after the hand-over
+static_assert(PRODUCER_REGS * PRODUCER + CONSUMER_REGS * NC * WG_THREADS <= 65536, "registers");
+constexpr int STAGES = 4;               // K/V ring depth
+constexpr int QSLOTS = 2;               // Q slots: the units loaded ahead + 1
+constexpr int SCHED_BAR = 1 + NC;       // named barriers of the turns (1 .. NC: the epilogues)
+constexpr float MAX_FLOOR = -1e30f;     // the running max's start
+
+// sm90_probe.py times copies of this kernel built with parts of the work
+// left out, the bits of SM90_SKIP (0, nothing left out, in the port)
+#ifndef SM90_SKIP
+#define SM90_SKIP 0
+#endif
+constexpr int SKIP_EXP = 1, SKIP_LOADS = 2, SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16,
+              SKIP_TURNS = 32;
+__host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) != 0; }
+
+template <int DP>  // head dim padded to a multiple of 16
+struct Tiles {
+  static constexpr int BK = DP <= 48 ? 128 : 64;  // keys per tile
+  static constexpr uint32_t Q_BYTES = BQ * DP * 2;   // one Q slot
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;  // one of K, V
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr uint32_t RING = QSLOTS * Q_BYTES;
+  static constexpr uint32_t FULL = RING + STAGES * STAGE_BYTES;  // mbarriers
+  static constexpr uint32_t EMPTY = FULL + 8 * STAGES;
+  static constexpr uint32_t QFULL = EMPTY + 8 * STAGES;
+  static constexpr uint32_t QEMPTY = QFULL + 8 * QSLOTS;
+  static constexpr uint32_t SMEM = QEMPTY + 8 * QSLOTS;
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// work unit u of a block: BQ query rows of one (batch, head)
+struct Unit {
+  int bh, q0;
+  __device__ Unit(int u, int nqt) : bh(u / nqt), q0((u % nqt) * BQ) {}
+};
+
+// zero 16-byte chunks [ch, DP / 8) of a tile of `rows` rows (contiguous
+// in the chunk-major layout)
+__device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp8) {
+  for (uint32_t off = ch * rows * 16 + threadIdx.x * 16; off < static_cast<uint32_t>(dp8 * rows * 16);
+       off += THREADS * 16)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(tile + off), "r"(0) : "memory");
+}
+
+// the producer warpgroup: per work unit its Q into one of QSLOTS slots, then
+// its K/V tiles through the ring; it runs ahead of the consumers by up to
+// STAGES tiles and QSLOTS - 1 units' Q, so the next units' loads overlap this
+// unit's math and epilogue
+template <int DP>
+__device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, int nt, uint32_t sm,
+                                        int tid) {
+  using T = Tiles<DP>;
+  constexpr int BK = T::BK;
+  constexpr int NE = (BK * DP / 8 + PRODUCER - 1) / PRODUCER;  // copies per tile
+  const int ch = a.D / 8, rq = 8 * ch;  // 16-byte chunks of a row, of a row group
+  // a thread's copies of a K/V tile are elements e = tid + i * PRODUCER:
+  // row group e / rq, w = e % rq, row 8 (e / rq) + w % 8, chunk w / 8, so
+  // 8 neighbouring threads store the 8 rows of one core matrix (no bank
+  // conflicts) and a warp reads 4 neighbouring chunks of each of 8 rows;
+  // (e / rq, e % rq) step by (PRODUCER / rq, PRODUCER % rq) with a carry,
+  // in a loop left rolled: unrolled, its addresses spill at 56 registers
+  const int g0 = tid / rq, w0 = tid % rq, dg = PRODUCER / rq, dw = PRODUCER % rq;
+  int tl = 0;  // tiles loaded so far
+  // Each Q or K/V load is one cp.async group with its "full" barrier,
+  // signalled once it has landed: wait for it, fence (cp.async writes
+  // through the generic proxy, wgmma reads through the async one), then
+  // arrive; the consumers' waits stay free of fences. Up to three groups
+  // stay in flight (p0, p1: the older two, not yet signalled); before
+  // blocking on a slot the consumers still hold, every group in flight is
+  // signalled, so the consumers never wait on loads the producer sits on.
+  uint32_t p0 = 0, p1 = 0;
+  auto signal = [&](uint32_t bar) {
+    cp_async_commit();
+    if (p0) {
+      cp_async_wait<2>();
+      fence_proxy_async();  // copies before wgmma
+      mbar_arrive(p0);
+    }
+    p0 = p1;
+    p1 = bar;
+  };
+  auto acquire = [&](uint32_t bar, uint32_t parity) {
+    if (mbar_test(bar, parity)) return;
+    cp_async_wait<0>();
+    fence_proxy_async();  // copies before wgmma
+    if (p0) mbar_arrive(p0);
+    if (p1) mbar_arrive(p1);
+    p0 = p1 = 0;
+    mbar_wait(bar, parity);
+  };
+  for (int li = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x) {
+    const Unit un(u, nqt);
+    const int b = un.bh / a.H, h = un.bh % a.H, slot = li % QSLOTS;
+    const bf16* q = a.q + b * a.qsb + h * a.qsh;
+    const bf16* k = a.k + b * a.ksb + h * a.ksh;
+    const bf16* v = a.v + b * a.vsb + h * a.vsh;
+    if (li >= QSLOTS) acquire(sm + T::QEMPTY + 8 * slot, ((li / QSLOTS) - 1) & 1);
+    const uint32_t qs = sm + slot * T::Q_BYTES;
+    for (int e = tid; e < BQ * ch; e += PRODUCER) {
+      const int gq = e / (8 * ch), w = e - gq * 8 * ch;
+      const int r = gq * 8 + (w & 7), c = w >> 3;
+      const bool ok = un.q0 + r < a.Nq;
+      cp_async16(qs + tile_offset(r, c, BQ), ok ? q + (un.q0 + r) * a.qsn + c * 8 : q, ok ? 16 : 0);
+    }
+    signal(sm + T::QFULL + 8 * slot);
+    for (int t = 0; t < nt; ++t, ++tl) {
+      const int s = tl % STAGES;
+      if (tl >= STAGES) acquire(sm + T::EMPTY + 8 * s, ((tl / STAGES) - 1) & 1);
+      const uint32_t ks = sm + T::RING + s * T::STAGE_BYTES, vs = ks + T::KV_BYTES;
+      const int nvalid = a.Nk - t * BK;
+      const bf16* kt = k + static_cast<long long>(t) * BK * a.ksn;
+      const bf16* vt = v + static_cast<long long>(t) * BK * a.vsn;
+      int gq = g0, w = w0;
+#pragma unroll 1
+      for (int i = 0; i < NE; ++i) {
+        if (gq < BK / 8 && !(skip(SKIP_LOADS) && t >= STAGES)) {
+          const int r = gq * 8 + (w & 7), c = w >> 3;
+          const bool ok = r < nvalid;
+          const uint32_t off = tile_offset(r, c, BK);
+          cp_async16(ks + off, ok ? kt + r * a.ksn + c * 8 : k, ok ? 16 : 0);
+          cp_async16(vs + off, ok ? vt + r * a.vsn + c * 8 : v, ok ? 16 : 0);
+        }
+        gq += dg;
+        w += dw;
+        if (w >= rq) {
+          w -= rq;
+          ++gq;
+        }
+      }
+      signal(sm + T::FULL + 8 * s);
+    }
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();  // copies before wgmma
+  if (p0) mbar_arrive(p0);
+  if (p1) mbar_arrive(p1);
+}
+
+// tile t's scores (in s) -> unnormalised probabilities in place; updates
+// the running max and sums of this thread's rows g, g + 8, returns the
+// rescale factors of the earlier tiles' output
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int nvalid, float scale_log2,
+                                             int tq, float& m0, float& m1, float& l0, float& l1,
+                                             float& al0, float& al1) {
+  if (skip(SKIP_SOFTMAX)) {
+    al0 = al1 = 1.f;
+    return;
+  }
+  const auto ex = [](float x) { return skip(SKIP_EXP) ? x : fast_exp2(x); };
+  if (nvalid < BK) {  // the ragged last tile: its column blocks past nvalid
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      if (8 * j + 8 > nvalid)  // block-uniform
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * j + 2 * tq + c >= nvalid) s[4 * j + c] = s[4 * j + 2 + c] = -INFINITY;
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  // scale_log2 > 0, so the max of the scaled scores is the scaled max;
+  // key 0 of every tile is real, so mx is finite
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  al0 = fast_exp2(m0 - mn0);
+  al1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    s[4 * j] = ex(fmaf(s[4 * j], scale_log2, -mn0));
+    s[4 * j + 1] = ex(fmaf(s[4 * j + 1], scale_log2, -mn0));
+    s[4 * j + 2] = ex(fmaf(s[4 * j + 2], scale_log2, -mn1));
+    s[4 * j + 3] = ex(fmaf(s[4 * j + 3], scale_log2, -mn1));
+    r0 += s[4 * j] + s[4 * j + 1];
+    r1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * al0 + r0;
+  l1 = l1 * al1 + r1;
+}
+
+// probabilities (f32 accumulator layout) -> the bf16 A fragments of p v
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    p[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    p[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    p[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    p[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+  }
+}
+
+// a consumer warpgroup on work unit `un` (its li-th; `last`: the block's
+// last): query rows [q0 + 64 wg, q0 + 64 wg + 64); the unit's tiles are
+// the ring's T0 .. T0 + nt - 1
+template <int DP>
+__device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int li, bool last,
+                                        int T0, int nt, uint32_t sm, int wg, int tid) {
+  using T = Tiles<DP>;
+  constexpr int BK = T::BK;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int slot = li % QSLOTS;
+  const uint32_t qs = sm + slot * T::Q_BYTES, qa = qs + tile_offset(64 * wg, 0, BQ);
+  auto stage = [&](int t) { return sm + T::RING + ((T0 + t) % STAGES) * T::STAGE_BYTES; };
+  auto qk = [&](float(&s)[BK / 2], uint32_t ks) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BK>::ss(s, gmma_desc(qa + kk * 2 * BQ * 16, BQ * 16, 128),
+                    gmma_desc(ks + kk * 2 * BK * 16, BK * 16, 128), kk > 0);
+  };
+  auto pv = [&](float(&o)[DP / 2], const uint32_t(&p)[BK / 16][4], uint32_t vs) {
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+      if (!skip(SKIP_PV)) Wgmma<DP>::rs_bt(o, p[j], gmma_desc(vs + j * 256, 128, BK * 16));
+  };
+  auto wait_full = [&](int t) {
+    mbar_wait(sm + T::FULL + 8 * ((T0 + t) % STAGES), ((T0 + t) / STAGES) & 1);
+  };
+  auto release = [&](int t) {
+    if (lane == 0) mbar_arrive(sm + T::EMPTY + 8 * ((T0 + t) % STAGES));
+  };
+  // ping-pong: wait for this warpgroup's turn to issue, then hand the
+  // turn to the next in the ring (the last consumer opens, at the
+  // kernel's start, and skips its very last hand-over, so every arrival
+  // meets a wait)
+  auto turn = [&]() {
+    if (!skip(SKIP_TURNS)) named_bar_sync(SCHED_BAR + wg, 2 * WG_THREADS);
+  };
+  auto pass = [&](bool final_batch) {
+    if (!skip(SKIP_TURNS) && !(final_batch && last && wg == NC - 1))
+      named_bar_arrive(SCHED_BAR + (wg + 1) % NC, 2 * WG_THREADS);
+  };
+
+  float s[BK / 2], o[DP / 2];
+  uint32_t p[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m0 = MAX_FLOOR, m1 = MAX_FLOOR, l0 = 0.f, l1 = 0.f, al0, al1;
+
+  mbar_wait(sm + T::QFULL + 8 * slot, (li / QSLOTS) & 1);
+  wait_full(0);
+  turn();
+  wgmma_fence();
+  qk(s, stage(0));
+  wgmma_commit();
+  pass(false);
+  wgmma_wait<0>();
+  fence_operands(s);
+  softmax_tile<BK>(s, min(BK, a.Nk), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
+  pack_p<BK>(p, s);
+  for (int t = 1; t < nt; ++t) {
+    wait_full(t);
+    fence_operands(o);
+    fence_operands(p);
+    turn();
+    wgmma_fence();
+    qk(s, stage(t));
+    wgmma_commit();
+    pv(o, p, stage(t - 1) + T::KV_BYTES);
+    wgmma_commit();
+    pass(false);
+    wgmma_wait<1>();  // q k^T of tile t done, p v of tile t - 1 running
+    fence_operands(s);
+    softmax_tile<BK>(s, min(BK, a.Nk - t * BK), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
+    wgmma_wait<0>();
+    fence_operands(o);
+    fence_operands(p);
+    release(t - 1);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= al0;
+      o[4 * j + 1] *= al0;
+      o[4 * j + 2] *= al1;
+      o[4 * j + 3] *= al1;
+    }
+    pack_p<BK>(p, s);
+  }
+  fence_operands(o);
+  fence_operands(p);
+  turn();
+  wgmma_fence();
+  pv(o, p, stage(nt - 1) + T::KV_BYTES);
+  wgmma_commit();
+  pass(true);
+  wgmma_wait<0>();
+  fence_operands(o);
+  release(nt - 1);
+
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const int r0 = 64 * wg + 16 * warp + g;  // unit-local rows r0, r0 + 8
+  if (a.lse != nullptr && tq == 0) {
+    float* lse = a.lse + static_cast<long long>(un.bh) * a.Nq + un.q0;
+    if (un.q0 + r0 < a.Nq) lse[r0] = m0 + log2f(l0);
+    if (un.q0 + r0 + 8 < a.Nq) lse[r0 + 8] = m1 + log2f(l1);
+  }
+  // stage O / l in bf16 over this warpgroup's own Q rows (its last q k^T
+  // has completed; the padded chunks stay zero), then write 16-byte
+  // chunks of whole rows and hand the Q slot back to the producer
+  const int ch = a.D / 8, b = un.bh / a.H, h = un.bh % a.H;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    if (j >= ch) break;
+    const uint32_t at = qs + tile_offset(r0, j, BQ) + 4 * tq;
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0))
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + 128),
+                 "r"(pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1))
+                 : "memory");
+  }
+  named_bar_sync(1 + wg, WG_THREADS);
+  const int c = tid % ch, rstep = WG_THREADS / ch;  // a thread's chunk; rows a pass
+  if (tid < rstep * ch && !skip(SKIP_STORES))
+    for (int r = tid / ch; r < 64; r += rstep) {
+      const int row = un.q0 + 64 * wg + r;
+      if (row >= a.Nq) break;
+      uint4 val;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                   : "r"(qs + tile_offset(64 * wg + r, c, BQ))
+                   : "memory");
+      *reinterpret_cast<uint4*>(a.o + ((static_cast<long long>(b) * a.Nq + row) * a.H + h) * a.D +
+                                c * 8) = val;
+    }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(sm + T::QEMPTY + 8 * slot);
+}
+
+// persistent: block i takes work units i, i + gridDim.x, ... of the
+// B * H * ceil(Nq / BQ) units (neighbouring blocks share a head's K/V in
+// L2)
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, int B) {
+  using T = Tiles<DP>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sm = smem_u32(smem);
+  const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
+  const int nqt = (a.Nq + BQ - 1) / BQ, units = B * a.H * nqt;
+  const int nt = (a.Nk + T::BK - 1) / T::BK;
+
+  // zero the padded chunks once (no load writes them), then the barriers
+  const int ch = a.D / 8;
+  for (int s = 0; s < QSLOTS; ++s) zero_pad(sm + s * T::Q_BYTES, BQ, ch, DP / 8);
+  for (int s = 0; s < STAGES; ++s) {
+    zero_pad(sm + T::RING + s * T::STAGE_BYTES, T::BK, ch, DP / 8);
+    zero_pad(sm + T::RING + s * T::STAGE_BYTES + T::KV_BYTES, T::BK, ch, DP / 8);
+  }
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm + T::FULL + 8 * s, PRODUCER);  // one arrival a producer thread
+      mbar_init(sm + T::EMPTY + 8 * s, 4 * NC);   // one release a consumer warp
+    }
+    for (int s = 0; s < QSLOTS; ++s) {
+      mbar_init(sm + T::QFULL + 8 * s, PRODUCER);
+      mbar_init(sm + T::QEMPTY + 8 * s, 4 * NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // one branch a role to the kernel's end, so ptxas can hold each to its
+  // setmaxnreg count
+  if (wg == NC) {  // the producer, after the consumers' warpgroups
+    setmaxnreg_dec<PRODUCER_REGS>();
+    produce<DP>(a, units, nqt, nt, sm, tid);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    if (!skip(SKIP_TURNS) && wg == NC - 1)
+      named_bar_arrive(SCHED_BAR, 2 * WG_THREADS);  // consumer 0 first
+    for (int li = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x)
+      consume<DP>(a, Unit(u, nqt), li, u + gridDim.x >= units, li * nt, nt, sm, wg, tid);
+  }
+}
+
+template <int DP>
+cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
+  // the opt-in above 48 KB and the SM count, once per card
+  static unsigned opted = 0;
+  static int sms[32];
+  if (device >= 32 || !(opted >> device & 1u)) {
+    cudaError_t err =
+        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<DP>::SMEM);
+    int n = 0;
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (device >= 32) return cudaErrorInvalidDevice;
+    sms[device] = n;
+    opted |= 1u << device;
+  }
+  const long long units = static_cast<long long>(B) * a.H * ((a.Nq + BQ - 1) / BQ);
+  if (units >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
+  attention_sm90_kernel<DP><<<grid, THREADS, Tiles<DP>::SMEM, st>>>(a, B);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch attention_sm90_kernel (bf16, D a multiple of 8 up to 128, 16-byte
+// aligned bases, strides multiples of 8 elements); lse may be null. Used
+// by sdaof_attention (csrc/attention.cu) and sdaof_attention_fwd_stats.
+cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, void* o,
+                                  float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
+                                  long long qsn, long long qsh, long long ksb, long long ksn,
+                                  long long ksh, long long vsb, long long vsn, long long vsh,
+                                  float scale_log2, int device, cudaStream_t st) {
+  if (D < 8 || D > 128 || D % 8 || B < 1 || H < 1 || Nq < 1 || Nk < 1)
+    return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if ((ptrs & 15) || ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & 7))
+    return cudaErrorMisalignedAddress;
+  const Sm90Args a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Nq, Nk, D,
+                      qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, scale_log2};
+  switch ((D + 15) / 16) {
+    case 1: return launch_dp<16>(a, B, device, st);
+    case 2: return launch_dp<32>(a, B, device, st);
+    case 3: return launch_dp<48>(a, B, device, st);
+    case 4: return launch_dp<64>(a, B, device, st);
+    case 5: return launch_dp<80>(a, B, device, st);
+    case 6: return launch_dp<96>(a, B, device, st);
+    case 7: return launch_dp<112>(a, B, device, st);
+    default: return launch_dp<128>(a, B, device, st);
+  }
+}
+
+// Attention with statistics (bf16, D a multiple of 8 up to 128): out as
+// sdaof_attention with wide = 0, and lse [B*H, Nq] f32, each query row's
+// base-2 log-sum-exp of the scores scaled by scale_log2.
+extern "C" int sdaof_attention_fwd_stats(const void* q, const void* k, const void* v, void* o,
+                                         float* lse, int B, int H, int Nq, int Nk, int D,
+                                         long long qsb, long long qsn, long long qsh,
+                                         long long ksb, long long ksn, long long ksh,
+                                         long long vsb, long long vsn, long long vsh,
+                                         float scale_log2, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_attention_sm90(q, k, v, o, lse, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
+                               vsb, vsn, vsh, scale_log2, device, static_cast<cudaStream_t>(stream));
+}

@@ -5,13 +5,22 @@ Counterpart of ``sd_animation_optical_flow_tpu/ops/attention.py``. Shapes
 keep the JAX package's layout: q [B, Nq, H, D], k/v [B, Nk, H, D] ->
 out [B, Nq, H, D].
 
-Kernels (``csrc/attention.cu``, ``csrc/attention_bwd.cu``), each with its
-plain version beside it:
+Kernels (``csrc/attention_sm90.cu``, ``csrc/attention.cu``,
+``csrc/attention_bwd.cu``), each with its plain version beside it:
 
 * :func:`flash_attention_tpv` replaces the TPU's ``_flash_kernel_tpv``
   (launched there by ``flash_attention_tpv`` / ``shortk_attention`` /
   ``flash_attention_diff``): UNet self-attention at >= 1536 tokens and the
-  short-K prompt cross-attention.
+  short-K prompt cross-attention. Its kernel, ``attention_sm90_kernel``,
+  is designed for Hopper: ``wgmma`` products in three consumer
+  warpgroups (192 query rows a work unit, so the UNet's 1536-token level
+  fills one wave of the card), a producer warpgroup that streams K/V
+  through a ``cp.async`` ring of shared-memory stages and hands its
+  registers to the consumers (``setmaxnreg``), and each key tile's
+  softmax overlapped with the previous tile's PV product.
+  At d = 40 one exp2 per score on the special-function units (0.155 ms at
+  self L0) bounds it more than the tensor cores do (0.098 ms), which is
+  why the overlap matters.
 * :func:`flash_attention` replaces the TPU's ``_flash_kernel`` (launched
   by ``flash_attention``): wide heads, the VAE mid-block attention
   (d = 512).
@@ -33,7 +42,8 @@ plain version beside it:
   token's frame coordinates from its index in registers), and its
   running max starts at a finite floor, as the TPU kernel's does, so a
   ``base`` of -inf gives no NaN.
-* :func:`flash_fwd_stats` (``_flash_kernel_tpv_stats``),
+* :func:`flash_fwd_stats` (``_flash_kernel_tpv_stats``, the same
+  ``attention_sm90_kernel`` writing the LSE too),
   :func:`flash_bwd_dkv` (``_flash_bwd_dkv_kernel``) and
   :func:`flash_bwd_dq` (``_flash_bwd_dq_kernel``, ``csrc/attention_bwd.cu``)
   are the forward with statistics and the two backward kernels of
@@ -128,14 +138,18 @@ def _aligned(t):
 
 
 def flash_attention_tpv(q, k, v):
-    """Online-softmax attention (kernel #1, ``attn_mma_kernel``: a warp
-    per 16 query rows, both products on the tensor cores, K/V tiles
-    through shared memory, the ragged last K tile masked). bf16 with d
-    a multiple of 8 (d <= 128; wider heads take kernel #2's design). Any
-    strides along B/N/H that keep 16-byte rows, so the q/k/v column
-    slices of a fused QKV projection go in without a copy. No backward:
-    under a recorded gradient use :func:`flash_attention_diff` or
-    :func:`shortk_attention`, whose forwards launch this kernel."""
+    """Online-softmax attention (kernel #1, ``attention_sm90_kernel`` in
+    ``csrc/attention_sm90.cu``, replacing the TPU's ``_flash_kernel_tpv``:
+    192 query rows a work unit in three consumer warpgroups, q k^T and p v with
+    ``wgmma``, K/V tiles streamed by a producer warpgroup through a ring
+    of shared-memory stages, tile t's softmax overlapped with tile t-1's
+    p v, the ragged last K tile masked). Bound at d = 40 by the exp2 per
+    score more than by the tensor cores. bf16 with d a multiple of 8
+    (d <= 128; wider heads take kernel #2's design). Any strides along
+    B/N/H that keep 16-byte rows, so the q/k/v column slices of a fused
+    QKV projection go in without a copy; no column past d is read. No
+    backward: under a recorded gradient use :func:`flash_attention_diff`
+    or :func:`shortk_attention`, whose forwards launch this kernel."""
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
     _cuda.refuse_grad("flash_attention_tpv", q, k, v)
@@ -290,10 +304,13 @@ def flash_bwd_plain(q, k, v, out, lse, do):
 
 def flash_fwd_stats(q, k, v):
     """Attention that also returns the statistics its backward needs:
-    (out [B, Nq, H, D], lse [B * H, Nq] f32). Kernel #7,
-    ``attn_mma_kernel<DP, MODE_STATS>``: kernel #1 that writes each query
-    row's ``m + log2(l)`` beside ``out``. bf16 on the card, d a multiple
-    of 8 up to 128; q/k/v strided as for :func:`flash_attention_tpv`."""
+    (out [B, Nq, H, D], lse [B * H, Nq] f32). Kernel #7, replacing the
+    TPU's ``_flash_kernel_tpv_stats``: kernel #1's
+    ``attention_sm90_kernel`` that also writes each query row's
+    ``m + log2(l)`` of the f32-scaled scores beside ``out`` (the backward
+    kernels recompute P in f32 from it). Bounds and design as #1's. bf16
+    on the card, d a multiple of 8 up to 128; q/k/v strided as for
+    :func:`flash_attention_tpv`."""
     if q.device.type != "cuda":
         return flash_fwd_stats_plain(q, k, v)
     _cuda.refuse_grad("flash_fwd_stats", q, k, v)

@@ -7,9 +7,12 @@ the JAX package instead). On a machine with a card, and without JAX:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
 Shapes are small but cover the kernels' edges: ragged query and key
-tiles, head dims that are not a multiple of 16 (zero-padded tiles) or
-above 128 (the wide kernel), strided and misaligned q/k/v views, rows
-past a 32-row tile; for the keymask kernel n_own = Nk, n_own not a
+tiles (for the Hopper forward of #1 and #7: Nq off its 192-row units,
+Nk = 1, below a key tile, a tile exactly and one key either side, 231),
+head dims from 8 to 128 that are not all a multiple of 16 (zero-padded
+tiles) or above 128 (the wide kernel), strided and misaligned q/k/v
+views, a single-head view whose neighbouring columns are NaN (no read
+past D), rows past a 32-row tile; for the keymask kernel n_own = Nk, n_own not a
 multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
 ragged N, 3 tiles, both modes and key tiles outside the band; both at
 SD-1.5's widest head (d = 160) and at a d padded up to it; for the
@@ -53,9 +56,20 @@ def _check(out, ref):
     assert (out.float() - ref.float()).abs().max().item() <= TOL * scale
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d", [
-    (2, 300, 231, 3, 40), (1, 130, 257, 2, 80), (1, 77, 64, 2, 128),
-    (1, 50, 90, 2, 24), (1, 33, 40, 1, 512)])
+# the Hopper kernel's edges: Nq below, one past and not a multiple of its
+# 192 query rows (and exactly two units), Nk = 1, below one key tile (128
+# keys for d <= 48, 64 above), one tile exactly and one key either side,
+# the 3 x 77 prompt (231), and d from 8 to 128 (d padded to a multiple
+# of 16 in shared memory)
+TPV_CASES = [(2, 300, 231, 3, 40), (1, 130, 257, 2, 80), (1, 77, 64, 2, 128),
+             (1, 50, 90, 2, 24), (1, 200, 1, 2, 8), (2, 129, 128, 2, 16),
+             (1, 257, 127, 1, 64), (1, 140, 129, 2, 40), (1, 100, 63, 2, 80),
+             (1, 70, 65, 1, 128), (2, 64, 231, 2, 40), (1, 131, 231, 2, 80),
+             (1, 90, 129, 2, 80), (1, 193, 127, 2, 40), (1, 384, 64, 1, 64),
+             (2, 400, 231, 2, 80)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", TPV_CASES + [(1, 33, 40, 1, 512)])
 def test_flash_attention_tpv_kernel(gen, b, nq, nk, h, d):
     q = _randn(gen, b, nq, h, d)
     k = _randn(gen, b, nk, h, d)
@@ -73,6 +87,27 @@ def test_flash_attention_tpv_strided_qkv(gen, offset):
     qkv = _randn(gen, 2, 200, offset + 3 * 320)[..., offset:]
     q, k, v = (t.reshape(2, 200, 8, 40) for t in qkv.chunk(3, dim=-1))
     _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(q, k, v))
+
+
+@pytest.mark.parametrize("fwd", ["tpv", "stats"])
+def test_attention_reads_no_column_past_d(gen, fwd):
+    """A single-head q/k/v view [..., :40] of [B, N, 80] tensors whose
+    columns 40-79 are NaN (the next head of a fused projection): the
+    kernels read no column past D, so out (and lse) stay finite and match
+    the plain version on the clean columns."""
+    def view(n):
+        t = _randn(gen, 2, n, 80)
+        t[..., 40:] = float("nan")
+        return t[..., :40].unsqueeze(2)
+    q, k, v = view(200), view(231), view(231)
+    clean = [t.contiguous() for t in (q, k, v)]
+    if fwd == "tpv":
+        _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(*clean))
+    else:
+        out, lse = TA.flash_fwd_stats(q, k, v)
+        ref_out, ref_lse = TA.flash_fwd_stats_plain(*clean)
+        _check(out, ref_out)
+        _check(lse, ref_lse)
 
 
 @pytest.mark.parametrize("d", [512, 160])
@@ -226,10 +261,14 @@ def test_kernels_refuse_what_they_do_not_take(gen):
 # ---------------------------------------------------------------------------
 
 BWD_CASES = [(2, 300, 231, 3, 40), (1, 130, 257, 2, 80), (1, 77, 64, 2, 128),
-             (1, 50, 90, 2, 24), (2, 64, 64, 1, 16)]
+             (1, 50, 90, 2, 24), (2, 64, 64, 1, 16), (2, 129, 129, 2, 40),
+             (1, 257, 127, 1, 64), (1, 100, 63, 2, 80), (1, 70, 65, 1, 128),
+             (1, 193, 127, 2, 40)]
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d", BWD_CASES)
+# Nk = 1 for the forward only: there dK = dQ = 0 exactly, and the plain
+# backward's rounding noise is no scale to hold a kernel to
+@pytest.mark.parametrize("b,nq,nk,h,d", BWD_CASES + [(1, 200, 1, 2, 8)])
 def test_flash_fwd_stats_kernel(gen, b, nq, nk, h, d):
     q = _randn(gen, b, nq, h, d)
     k = _randn(gen, b, nk, h, d)
