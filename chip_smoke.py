@@ -53,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -228,14 +229,21 @@ def check_kernels():
                lambda: _sdpa(qt, kt, vt), flops, nbytes, attn_tol,
                sm90_src, tpv_rep, iters=10, exps=b * h * nq * nk)
 
-    (q, k, v), flops, nbytes = _attn_case(gen, 1, 6144, 6144, 1, 512,
-                                          True)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    record("flash_attention [VAE mid]", lambda: A.flash_attention(q, k, v),
-           lambda: A.xla_attention(q, k, v), lambda: _sdpa(qt, kt, vt),
-           flops, nbytes, attn_tol, tpv_src,
-           "sd_animation_optical_flow_tpu/ops/attention.py:62", iters=5,
-           exps=6144 * 6144)
+    # kernel #2: the VAE mid-block attention of one frame and of the
+    # 2-frame VAE, and the UNet's 160-wide L2 heads at a 1024x1536 frame
+    # (32 x 48 latent tokens), which attention() routes to it
+    wide_src = "sd_animation_optical_flow_tpu_torch/csrc/attention_wide_sm90.cu"
+    for label, (b, n, h, d) in {"VAE mid": (1, 6144, 1, 512),
+                                "VAE mid 2 frames": (2, 6144, 1, 512),
+                                "L2 1024x1536": (2, 1536, 8, 160)}.items():
+        (q, k, v), flops, nbytes = _attn_case(gen, b, n, n, h, d, True)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        record(f"flash_attention [{label}]",
+               lambda: A.flash_attention(q, k, v),
+               lambda: A.xla_attention(q, k, v), lambda: _sdpa(qt, kt, vt),
+               flops, nbytes, attn_tol, wide_src,
+               "sd_animation_optical_flow_tpu/ops/attention.py:62", iters=10,
+               exps=b * h * n * n)
 
     # kernel #6 at the injected inpaint's shapes: q sliced out of the fused
     # QKV projection, k/v the [own | reference] rows the UNet builds
@@ -932,6 +940,42 @@ def run_train_phase(sd, kernels, gen):
     return summary, counts, failures
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<DP>`` of a mangled kernel (a length-prefixed name ending in
+    ``_kernel``, its first template argument an int), else the input."""
+    for m in re.finditer(r"(?=(\d+)([a-z]))", mangled):
+        at = m.start(2)
+        name = mangled[at:at + int(m.group(1))]
+        if name.endswith("_kernel"):
+            t = re.match(r"ILi(\d+)E", mangled[at + len(name):])
+            return name + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def ptxas_report(text: str, named=("attention_sm90_kernel",
+                                     "attention_wide_sm90_kernel")):
+    """Lines of the ptxas report (``nvcc -Xptxas -v``) worth printing:
+    registers and spills of every instantiation of the ``named`` kernels
+    (wgmma kernels whose registers setmaxnreg hands over), and anywhere
+    spills, wgmma pipelines that ptxas had to serialize, or a register
+    hand-over it could not honour."""
+    lines, fn = [], ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            short = _kernel_name(fn)
+            continue
+        mine = any(n in fn for n in named)
+        if "spill" in line and (mine or " 0 bytes spill stores" not in line):
+            lines.append(f"{short}: {line.strip()}")
+        elif mine and "Used" in line and "registers" in line:
+            lines.append(f"{short}: {line.split(':', 1)[-1].strip()}")
+        elif "wgmma" in line.lower() or "setmaxnreg" in line:
+            lines.append(line.strip())
+    return lines
+
+
 def profile_frame(run, label, top: int = 8):
     """One frame under torch.profiler: device busy time (sum of kernel
     times on the one stream) against the profiled frame's wall time, and
@@ -997,20 +1041,23 @@ def main() -> int:
     t0 = time.time()
     so = _cuda.build()
     _cuda.library()
-    log(f"[build] {so.name} in {time.time() - t0:.1f} s: "
-        "attention_sm90_kernel (#1 and #7: three wgmma consumer "
-        "warpgroups, cp.async K/V ring; "
-        "csrc/attention_sm90.cu); attn_mma_kernel (keymask, MFR and banded "
-        "modes), attn_mma_wide_kernel (csrc/attention.cu); "
-        "attn_bwd_dkv_kernel, attn_bwd_dq_kernel (csrc/attention_bwd.cu); "
-        "linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
-    ptxas = so.with_suffix(".log").read_text()
-    for line in ptxas.splitlines():
-        # spills, wgmma pipelines that ptxas had to serialize, and a
-        # register hand-over it could not honour
-        if "spill" in line and " 0 bytes spill stores" not in line \
-                or "wgmma" in line.lower() or "setmaxnreg" in line:
-            log(f"[ptxas] {line.strip()}")
+    sources = ", ".join(sorted(p.name for p in _cuda.CSRC.glob("*.cu")))
+    if _cuda.CSRC.resolve() != (Path(__file__).resolve().parent
+                                / "sd_animation_optical_flow_tpu_torch" / "csrc"):
+        log(f"[build] {so.name} in {time.time() - t0:.1f} s from the tree's "
+            f"sources: {sources}")
+    else:
+        log(f"[build] {so.name} in {time.time() - t0:.1f} s: "
+            "attention_sm90_kernel (#1 and #7: three wgmma consumer "
+            "warpgroups, cp.async K/V ring; csrc/attention_sm90.cu); "
+            "attention_wide_sm90_kernel (#2: two wgmma consumer warpgroups "
+            "on the two d-halves, TMA K/V ring multicast across a cluster; "
+            "csrc/attention_wide_sm90.cu); attn_mma_kernel (keymask, MFR and "
+            "banded modes; csrc/attention.cu); "
+            "attn_bwd_dkv_kernel, attn_bwd_dq_kernel (csrc/attention_bwd.cu); "
+            "linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
+    for line in ptxas_report(so.with_suffix(".log").read_text()):
+        log(f"[ptxas] {line}")
 
     rows = check_kernels()
     failures += [r["name"] for r in rows if not r["ok"]]

@@ -2,7 +2,7 @@
 // plain C interface for ctypes (ops/_cuda.py builds and loads this file).
 //
 // Computes out = softmax(q k^T / sqrt(d) + bias) v for bf16 q [B, Nq, H, D]
-// and k/v [B, Nk, H, D] (D a multiple of 8, up to 512; any strides along
+// and k/v [B, Nk, H, D] (D a multiple of 8, up to 160; any strides along
 // B, N, H that are multiples of 8; unit stride along D; 16-byte tile
 // loads), writing a contiguous [B, Nq, H, D] output. Softmax in f32 with a
 // TRACKED running max (online softmax), so the result does not rely on
@@ -10,20 +10,12 @@
 // inside the block in place of the TPU's sequential grid axis; the ragged
 // last key tile is masked to -inf.
 //
-// The plain forward (d <= 128) and the forward with statistics run on the
-// Hopper kernel of csrc/attention_sm90.cu (sdaof_attention routes there);
-// this file keeps the masked and biased modes and the wide-head kernel.
-// It replaces these Pallas TPU kernels of sd_animation_optical_flow_tpu/
-// ops/attention.py (the Python wrappers keep their names and counters):
-//
-//   _flash_kernel (flash_attention: the VAE mid-block attention, one
-//     head, d = 512)
-//     -> attn_mma_wide_kernel: an output row of 512 f32 does not fit a
-//     warp's registers next to its scores, so 8 warps share 32 query rows:
-//     each computes the scores of 8 keys of the tile, the softmax
-//     statistics go through shared memory, and each warp owns 64 output
-//     columns of the p v product. Tiles take ~180 KB of dynamic shared
-//     memory (opted in above 48 KB).
+// The plain forward and the forward with statistics run on the Hopper
+// kernels of csrc/attention_sm90.cu (d <= 128) and csrc/
+// attention_wide_sm90.cu (d > 128); sdaof_attention routes there. This
+// file keeps the masked and biased modes. It replaces these Pallas TPU
+// kernels of sd_animation_optical_flow_tpu/ops/attention.py (the Python
+// wrappers keep their names and counters):
 //
 // attn_mma_kernel<DP, MODE>: a warp per 16 query rows; q k^T and p v both
 // on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d
@@ -327,159 +319,8 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
 }
 
 // ---------------------------------------------------------------------------
-// attn_mma_wide_kernel: bf16, D up to 512 (the VAE mid-block route)
-// ---------------------------------------------------------------------------
-
-constexpr int WM_WARPS = 8;
-constexpr int WM_BQ = 32;  // two 16-row m-tiles
-constexpr int WM_BK = 8 * WM_WARPS;  // one 8-key score tile per warp
-constexpr int WM_LDP = WM_BK + 8;  // probability tile row stride
-constexpr int WM_LDS = WM_BK + 4;  // score tile row stride
-
-size_t wide_mma_smem(int DP) {
-  const size_t ld = DP + 8;
-  return sizeof(bf16) * (WM_BQ * ld + 2 * WM_BK * ld + WM_BQ * WM_LDP) +
-         sizeof(float) * (WM_BQ * WM_LDS + 3 * WM_BQ);
-}
-
-template <int NDT>  // 8-wide output column tiles per warp; DP = 64 * NDT
-__global__ void __launch_bounds__(32 * WM_WARPS) attn_mma_wide_kernel(AttnArgs a, int D) {
-  constexpr int DP = 8 * WM_WARPS * NDT;
-  constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* ks = qs + WM_BQ * LD;                 // [BK][LD]
-  bf16* vs = ks + WM_BK * LD;                 // [BK][LD]
-  bf16* ps = vs + WM_BK * LD;                 // [BQ][LDP] probabilities
-  float* ss = reinterpret_cast<float*>(ps + WM_BQ * WM_LDP);  // [BQ][LDS] scores
-  float* row_m = ss + WM_BQ * WM_LDS;
-  float* row_l = row_m + WM_BQ;
-  float* row_a = row_l + WM_BQ;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int q0 = blockIdx.x * WM_BQ;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
-
-  load_rows(qs, LD, q + q0 * a.qsn, a.qsn, WM_BQ, a.Nq - q0, D, DP);
-  if (threadIdx.x < WM_BQ) {
-    row_m[threadIdx.x] = -INFINITY;
-    row_l[threadIdx.x] = 0.f;
-  }
-  float o[2][NDT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NDT; ++n) o[m][n][0] = o[m][n][1] = o[m][n][2] = o[m][n][3] = 0.f;
-
-  for (int k0 = 0; k0 < a.Nk; k0 += WM_BK) {
-    const int nvalid = min(WM_BK, a.Nk - k0);
-    __syncthreads();  // previous tile's p v done
-    load_rows(ks, LD, k + k0 * a.ksn, a.ksn, WM_BK, nvalid, D, DP);
-    load_rows(vs, LD, v + k0 * a.vsn, a.vsn, WM_BK, nvalid, D, DP);
-    __syncthreads();
-
-    // scores of keys [8 * warp, 8 * warp + 8) for both m-tiles
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t kb[2];
-      ldsm_b(kb, ks, LD, warp * 8, kk * 16, lane);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        uint32_t qa[4];
-        ldsm_a(qa, qs, LD, 16 * m, kk * 16, lane);
-        mma_bf16(s[m], qa, kb[0], kb[1]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = 16 * m + g + (i >= 2 ? 8 : 0);
-        const int col = warp * 8 + 2 * t + (i & 1);
-        ss[row * WM_LDS + col] = col < nvalid ? s[m][i] * a.scale_log2 : -INFINITY;
-      }
-    __syncthreads();
-
-    // softmax statistics: a warp per 4 rows, a lane per 2 keys (key 0 of
-    // the tile is always real, so the max is finite)
-    for (int r = warp * (WM_BQ / WM_WARPS); r < (warp + 1) * (WM_BQ / WM_WARPS); ++r) {
-      const float v0 = ss[r * WM_LDS + lane], v1 = ss[r * WM_LDS + lane + 32];
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(v0, v1)));
-      const float p0 = exp2f(v0 - m_new), p1 = exp2f(v1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      ps[r * WM_LDP + lane] = __float2bfloat16(p0);
-      ps[r * WM_LDP + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // p v for this warp's output columns
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const float al0 = row_a[16 * m + g], al1 = row_a[16 * m + g + 8];
-#pragma unroll
-      for (int n = 0; n < NDT; ++n) {
-        o[m][n][0] *= al0;
-        o[m][n][1] *= al0;
-        o[m][n][2] *= al1;
-        o[m][n][3] *= al1;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < WM_BK / 16; ++j) {
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) ldsm_a(pa[m], ps, WM_LDP, 16 * m, 16 * j, lane);
-#pragma unroll
-      for (int n = 0; n < NDT; ++n) {
-        uint32_t vb[2];
-        ldsm_bt(vb, vs, LD, 16 * j, (warp * NDT + n) * 8, lane);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) mma_bf16(o[m][n], pa[m], vb[0], vb[1]);
-      }
-    }
-  }
-
-  bf16* out = static_cast<bf16*>(a.o);
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int r0 = 16 * m + g, r1 = r0 + 8;
-    const float inv0 = 1.f / row_l[r0], inv1 = 1.f / row_l[r1];
-#pragma unroll
-    for (int n = 0; n < NDT; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int d = (warp * NDT + n) * 8 + 2 * t + c;
-        if (d >= D) continue;
-        if (q0 + r0 < a.Nq)
-          out[((static_cast<long long>(b) * a.Nq + q0 + r0) * a.H + h) * D + d] =
-              __float2bfloat16(o[m][n][c] * inv0);
-        if (q0 + r1 < a.Nq)
-          out[((static_cast<long long>(b) * a.Nq + q0 + r1) * a.H + h) * D + d] =
-              __float2bfloat16(o[m][n][2 + c] * inv1);
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-
-cudaError_t opt_in_smem(const void* fn, size_t bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
 
 template <int MODE>
 cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
@@ -506,31 +347,6 @@ cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
       return cudaGetLastError();
     default:
       return cudaErrorInvalidValue;
-  }
-}
-
-template <int NDT>
-cudaError_t launch_mma_wide_n(const AttnArgs& a, int D, cudaStream_t st) {
-  const size_t smem = wide_mma_smem(8 * WM_WARPS * NDT);
-  const cudaError_t err =
-      opt_in_smem(reinterpret_cast<const void*>(attn_mma_wide_kernel<NDT>), smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Nq + WM_BQ - 1) / WM_BQ, a.B * a.H);
-  attn_mma_wide_kernel<NDT><<<grid, 32 * WM_WARPS, smem, st>>>(a, D);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_mma_wide(const AttnArgs& a, int D, cudaStream_t st) {
-  switch ((D + 63) / 64) {
-    case 1: return launch_mma_wide_n<1>(a, D, st);
-    case 2: return launch_mma_wide_n<2>(a, D, st);
-    case 3: return launch_mma_wide_n<3>(a, D, st);
-    case 4: return launch_mma_wide_n<4>(a, D, st);
-    case 5: return launch_mma_wide_n<5>(a, D, st);
-    case 6: return launch_mma_wide_n<6>(a, D, st);
-    case 7: return launch_mma_wide_n<7>(a, D, st);
-    case 8: return launch_mma_wide_n<8>(a, D, st);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -571,33 +387,35 @@ AttnArgs make_args(const void* q, const void* k, const void* v, void* o, int B, 
 
 }  // namespace
 
-// csrc/attention_sm90.cu
+// csrc/attention_sm90.cu, csrc/attention_wide_sm90.cu
 cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                   float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
                                   long long qsn, long long qsh, long long ksb, long long ksn,
                                   long long ksh, long long vsb, long long vsn, long long vsh,
                                   float scale_log2, int device, cudaStream_t st);
+cudaError_t launch_attention_wide_sm90(const void* q, const void* k, const void* v, void* o,
+                                       int B, int H, int Nq, int Nk, int D, long long qsb,
+                                       long long qsn, long long qsh, long long ksb, long long ksn,
+                                       long long ksh, long long vsb, long long vsn, long long vsh,
+                                       float scale_log2, int device, cudaStream_t st);
 
-// bf16 only. wide = 0 and d <= 128: attention_sm90_kernel
-// (csrc/attention_sm90.cu); wide = 1 or d > 128: attn_mma_wide_kernel.
-// Refuses unaligned inputs (see aligned()). Returns a cudaError_t code
-// (0 = ok).
+// bf16 only, D a multiple of 8 up to 512: attention_sm90_kernel for
+// d <= 128 (csrc/attention_sm90.cu), attention_wide_sm90_kernel above
+// (csrc/attention_wide_sm90.cu). Refuses unaligned inputs. Returns a
+// cudaError_t code (0 = ok).
 extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int H, int Nq, int Nk, int D, long long qsb, long long qsn,
                                long long qsh, long long ksb, long long ksn, long long ksh,
                                long long vsb, long long vsn, long long vsh, float scale_log2,
-                               int wide, int device, void* stream) {
-  if (D < 1 || D > 512 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+                               int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn,
-                               vsh, scale_log2);
-  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide && D <= 128)
+  if (D <= 128)
     return launch_attention_sm90(q, k, v, o, nullptr, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn,
                                  ksh, vsb, vsn, vsh, scale_log2, device, st);
-  return launch_mma_wide(a, D, st);
+  return launch_attention_wide_sm90(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
+                                    vsb, vsn, vsh, scale_log2, device, st);
 }
 
 // The CFG K/V-injection attention (bf16, D a multiple of 8 up to 160):

@@ -244,9 +244,7 @@ __device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, i
   if (p1) mbar_arrive(p1);
 }
 
-// tile t's scores (in s) -> unnormalised probabilities in place; updates
-// the running max and sums of this thread's rows g, g + 8, returns the
-// rescale factors of the earlier tiles' output
+// the online softmax of sm90.cuh, with the probe's parts left out
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int nvalid, float scale_log2,
                                              int tq, float& m0, float& m1, float& l0, float& l1,
@@ -255,57 +253,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int nvalid, flo
     al0 = al1 = 1.f;
     return;
   }
-  const auto ex = [](float x) { return skip(SKIP_EXP) ? x : fast_exp2(x); };
-  if (nvalid < BK) {  // the ragged last tile: its column blocks past nvalid
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-      if (8 * j + 8 > nvalid)  // block-uniform
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (8 * j + 2 * tq + c >= nvalid) s[4 * j + c] = s[4 * j + 2 + c] = -INFINITY;
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-  }
-  // scale_log2 > 0, so the max of the scaled scores is the scaled max;
-  // key 0 of every tile is real, so mx is finite
-  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
-  al0 = fast_exp2(m0 - mn0);
-  al1 = fast_exp2(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  float r0 = 0.f, r1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    s[4 * j] = ex(fmaf(s[4 * j], scale_log2, -mn0));
-    s[4 * j + 1] = ex(fmaf(s[4 * j + 1], scale_log2, -mn0));
-    s[4 * j + 2] = ex(fmaf(s[4 * j + 2], scale_log2, -mn1));
-    s[4 * j + 3] = ex(fmaf(s[4 * j + 3], scale_log2, -mn1));
-    r0 += s[4 * j] + s[4 * j + 1];
-    r1 += s[4 * j + 2] + s[4 * j + 3];
-  }
-  l0 = l0 * al0 + r0;
-  l1 = l1 * al1 + r1;
-}
-
-// probabilities (f32 accumulator layout) -> the bf16 A fragments of p v
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[BK / 2]) {
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-    p[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
-    p[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
-    p[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
-    p[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
-  }
+  online_softmax<BK, !skip(SKIP_EXP)>(s, nvalid, scale_log2, tq, m0, m1, l0, l1, al0, al1);
 }
 
 // a consumer warpgroup on work unit `un` (its li-th; `last`: the block's

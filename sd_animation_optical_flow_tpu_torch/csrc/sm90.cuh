@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's kernels: wgmma
 // descriptors and instructions with their fences and waits, mbarriers,
-// cp.async copies and groups, proxy fences, named barriers and register
-// hand-over (setmaxnreg). Header-only, on top of mma.cuh (bf16, pack_bf16, smem_u32);
+// cp.async copies and groups, TMA copies (multicast too), transaction
+// mbarriers and clusters, proxy fences, named barriers and register
+// hand-over (setmaxnreg), and the online softmax of a score tile in
+// registers. Header-only, on top of mma.cuh (bf16, pack_bf16, smem_u32);
 // every helper is __device__ __forceinline__ in an anonymous namespace
 // per translation unit.
 //
@@ -17,6 +19,9 @@
 // one core along M/N and its leading byte offset (LBO) one core along K.
 
 #pragma once
+
+#include <cuda.h>  // CUtensorMap
+#include <math.h>
 
 #include "mma.cuh"
 
@@ -37,6 +42,15 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// 32-byte-swizzle descriptor (layout type 3): a K-major tile of rows of
+// 32 bytes (one k16 step), 8-row atoms of 256 bytes SBO apart (LBO
+// unused); an MN-major tile of 16-column boxes of rows of 32 bytes, LBO
+// between boxes along MN, SBO between 8-row groups along K. Tiles start
+// 256-byte aligned (the swizzle's period), as TMA's SWIZZLE_32B writes them.
+__device__ __forceinline__ uint64_t gmma_desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return gmma_desc(addr, lbo, sbo) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -146,6 +160,62 @@ __device__ __forceinline__ void named_bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// TMA (tensor-map bulk copies), transaction mbarriers, clusters
+// ---------------------------------------------------------------------------
+
+// arrive on a barrier and add `bytes` to the transactions its phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in CTA `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster (warps converged)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// copy the box of a 4-d tensor map at coordinates (x0 .. x3) to shared
+// memory at dst, completing its bytes on barrier bar: in this CTA, or
+// (multicast) at the same offsets in every CTA of the cluster in `mask`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x0, int x1, int x2, int x3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int x0, int x1, int x2,
+                                                      int x3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(bar),
+      "h"(mask)
+      : "memory");
+}
+
 // hand registers between warpgroups (every thread of a warpgroup runs it,
 // on a path of its own to the kernel's end): drop to N a thread, or wait
 // until the block's released registers grant N a thread
@@ -199,6 +269,21 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  // d (+)= A B, A and B from shared memory, both K-major; scale_d = 0
+  // overwrites d
+  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d)
+        : "memory");
+  }
+
   // d += A B, A from registers (the m64k16 bf16 fragment), B from shared
   // memory, MN-major (transposed)
   __device__ static __forceinline__ void rs_bt(float (&d)[16], const uint32_t (&a)[4],
@@ -397,5 +482,144 @@ struct Wgmma<128> {
         : "memory");
   }
 };
+
+template <>
+struct Wgmma<192> {
+  // d += A B, A from registers (the m64k16 bf16 fragment), B from shared
+  // memory, MN-major (transposed)
+  __device__ static __forceinline__ void rs_bt(float (&d)[96], const uint32_t (&a)[4],
+                                               uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d += A B, A from registers (the m64k16 bf16 fragment), B from shared
+  // memory, MN-major (transposed)
+  __device__ static __forceinline__ void rs_bt(float (&d)[128], const uint32_t (&a)[4],
+                                               uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+        : "memory");
+  }
+};
+
+// ---------------------------------------------------------------------------
+// online softmax on a score tile in the accumulator layout
+// ---------------------------------------------------------------------------
+
+// tile t's scores s (BK keys; this thread's rows g, g + 8) -> unnormalised
+// probabilities in place, in the log2 domain with the scale folded in:
+// keys >= nvalid masked (the ragged last tile), the running max m and
+// this thread's share of the sums l updated, al the rescale factors of
+// the earlier tiles' output. EXP = false leaves the ex2 out (a probe
+// build of attention_sm90.cu).
+template <int BK, bool EXP = true>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], int nvalid, float scale_log2,
+                                               int tq, float& m0, float& m1, float& l0, float& l1,
+                                               float& al0, float& al1) {
+  const auto ex = [](float x) { return EXP ? fast_exp2(x) : x; };
+  if (nvalid < BK) {  // the ragged last tile: its column blocks past nvalid
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      if (8 * j + 8 > nvalid)  // block-uniform
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * j + 2 * tq + c >= nvalid) s[4 * j + c] = s[4 * j + 2 + c] = -INFINITY;
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  // scale_log2 > 0, so the max of the scaled scores is the scaled max;
+  // key 0 of every tile is real, so mx is finite
+  const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+  al0 = fast_exp2(m0 - mn0);
+  al1 = fast_exp2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    s[4 * j] = ex(fmaf(s[4 * j], scale_log2, -mn0));
+    s[4 * j + 1] = ex(fmaf(s[4 * j + 1], scale_log2, -mn0));
+    s[4 * j + 2] = ex(fmaf(s[4 * j + 2], scale_log2, -mn1));
+    s[4 * j + 3] = ex(fmaf(s[4 * j + 3], scale_log2, -mn1));
+    r0 += s[4 * j] + s[4 * j + 1];
+    r1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * al0 + r0;
+  l1 = l1 * al1 + r1;
+}
+
+// probabilities (f32 accumulator layout) -> the bf16 A fragments of p v
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    p[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+    p[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    p[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    p[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+  }
+}
 
 }  // namespace

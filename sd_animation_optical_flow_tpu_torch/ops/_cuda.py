@@ -34,9 +34,8 @@ _lib = None
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, o, B, H, Nq, Nk, D, 9 strides, scale_log2, wide, device,
-    # stream
-    "sdaof_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+    # q, k, v, o, B, H, Nq, Nk, D, 9 strides, scale_log2, device, stream
+    "sdaof_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _I, _P],
     # ... scale_log2, n_own, n_uncond, device, stream
     "sdaof_attention_keymask": [_P] * 4 + [_I] * 5 + [_L] * 9
     + [_F, _I, _I, _I, _P],

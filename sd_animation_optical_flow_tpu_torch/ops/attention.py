@@ -5,8 +5,9 @@ Counterpart of ``sd_animation_optical_flow_tpu/ops/attention.py``. Shapes
 keep the JAX package's layout: q [B, Nq, H, D], k/v [B, Nk, H, D] ->
 out [B, Nq, H, D].
 
-Kernels (``csrc/attention_sm90.cu``, ``csrc/attention.cu``,
-``csrc/attention_bwd.cu``), each with its plain version beside it:
+Kernels (``csrc/attention_sm90.cu``, ``csrc/attention_wide_sm90.cu``,
+``csrc/attention.cu``, ``csrc/attention_bwd.cu``), each with its plain
+version beside it:
 
 * :func:`flash_attention_tpv` replaces the TPU's ``_flash_kernel_tpv``
   (launched there by ``flash_attention_tpv`` / ``shortk_attention`` /
@@ -23,7 +24,14 @@ Kernels (``csrc/attention_sm90.cu``, ``csrc/attention.cu``,
   why the overlap matters.
 * :func:`flash_attention` replaces the TPU's ``_flash_kernel`` (launched
   by ``flash_attention``): wide heads, the VAE mid-block attention
-  (d = 512).
+  (d = 512) and the UNet's 160-wide heads at >= 1536 tokens. Its kernel,
+  ``attention_wide_sm90_kernel``, is designed for Hopper: 64 query rows a
+  block, two ``wgmma`` consumer warpgroups that each own half of d (the
+  output of 64 rows at d = 512 does not fit one warpgroup's registers)
+  and sum their partial scores through shared memory, and a producer
+  warpgroup streaming K/V with TMA through a ring of d-half slots, each
+  tile loaded once for a cluster of 2 or 4 blocks (multicast): every
+  block reads all of K/V, and that traffic, not the softmax, is its wall.
 * :func:`flash_attention_keymask` replaces the TPU's
   ``_flash_keymask_kernel_tpv`` (launched by ``flash_attention_keymask``
   via ``attention_injected``): the CFG K/V-injection attention, plain
@@ -153,7 +161,7 @@ def flash_attention_tpv(q, k, v):
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
     _cuda.refuse_grad("flash_attention_tpv", q, k, v)
-    out = _launch("sdaof_attention", q, k, v, 0)
+    out = _launch("sdaof_attention", q, k, v)
     flash_attention_tpv.launches += 1
     return out
 
@@ -163,14 +171,23 @@ flash_attention_tpv.launches = 0
 
 def flash_attention(q, k, v):
     """Online-softmax attention for wide heads (kernel #2,
-    ``attn_mma_wide_kernel``: 8 warps share 32 query rows, the softmax
-    statistics go through shared memory, each warp owns 1/8 of the
-    output columns; bf16, d a multiple of 8 up to 512). No backward, as
+    ``attention_wide_sm90_kernel`` in ``csrc/attention_wide_sm90.cu``,
+    replacing the TPU's ``_flash_kernel``): one block per 64 query rows
+    of a (batch row, head), two consumer warpgroups that each own half of
+    d, compute the partial scores over that half with ``wgmma``, sum them
+    through shared memory and run the same tracked-max softmax, then
+    ``p v`` for their half of the output columns; a producer warpgroup
+    streams K/V in d-half slots through a ring with TMA, each tile
+    multicast to the 2 or 4 blocks of a cluster, and tile t's softmax
+    overlaps tile t-1's ``p v``. bf16, d a multiple of 8 up to
+    512 (d <= 128 runs :func:`flash_attention_tpv`'s kernel, which
+    computes the same function); strided q/k/v as for
+    :func:`flash_attention_tpv`, no column past d read. No backward, as
     the JAX ``flash_attention`` has no VJP."""
     if q.device.type != "cuda":
         return xla_attention(q, k, v)
     _cuda.refuse_grad("flash_attention", q, k, v)
-    out = _launch("sdaof_attention", q, k, v, 1)
+    out = _launch("sdaof_attention", q, k, v)
     flash_attention.launches += 1
     return out
 

@@ -44,7 +44,7 @@ def _leaf(key, a, dtype, device):
     return t.to(device)
 
 
-def params_from_jax(tree, *, dtype=torch.float32, device="cpu", _key=None):
+def params_from_jax(tree, *, dtype=torch.float32, device="cuda", _key=None):
     """Convert a JAX param tree (dicts / lists / tuples of arrays) to the
     port's tree of tensors on ``device``; float leaves cast to ``dtype``."""
     if isinstance(tree, dict):
@@ -71,7 +71,7 @@ def _find(state, has):
 
 
 def train_state_from_jax(params, opt_state, make_opt, *, step: int = 0,
-                         device="cpu") -> TrainState:
+                         device="cuda") -> TrainState:
     """A JAX ``TrainState``'s (params, opt_state, step) -> the port's
     ``TrainState`` with ``make_opt`` (as for ``init_train_state``) holding
     the same optimizer state: the optax ``ScaleByAdamState`` (count, mu,

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper attention forward (kernels #1 / #7,
-``csrc/attention_sm90.cu``) goes, on one NVIDIA card:
+"""Where the time of the Hopper attention forwards goes, on one NVIDIA
+card: kernels #1 / #7 (``csrc/attention_sm90.cu``) or kernel #2
+(``csrc/attention_wide_sm90.cu``):
 
     python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
+    python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
 
-Builds copies of ``attention_sm90.cu`` with one part of the work left
-out (``-DSM90_SKIP=<bits>``, the kernel's ``SKIP_*`` parts), each into
-its own library under ``build/probe/`` (git-ignored), and times each
-against the unchanged kernel and SDPA on the same inputs (CUDA events,
-interleaved rounds, the median of each). The first five copies compute
-wrong results; they only time what remains:
+Builds copies of the kernel's source with one part of the work left out
+(``-DSM90_SKIP=<bits>`` / ``-DWIDE_SKIP=<bits>``, the kernel's
+``SKIP_*`` parts), each into its own library under ``build/probe/``
+(git-ignored), and times each against the unchanged kernel and SDPA on
+the same inputs (CUDA events, interleaved rounds, the median of each).
+Every copy but ``no_turns`` and the ``cluster_*`` ones computes wrong
+results; they only time what remains. For ``attention_sm90.cu``:
 
 * ``no_exp``: p = s * scale - m, no ex2 (the special-function units idle);
 * ``no_loads``: the producer loads the first ring of K/V tiles of each
@@ -22,6 +25,20 @@ wrong results; they only time what remains:
   shared memory stays);
 * ``no_turns``: the consumer warpgroups issue their products without
   taking turns (this one computes the right result).
+
+For ``attention_wide_sm90.cu`` (the shapes: the VAE mid-block attention
+of one frame and of two, and the UNet's 160-wide L2 heads at 1536
+tokens):
+
+* ``no_loads``: K/V loads of the first ring only, as above;
+* ``no_qk`` / ``no_pv`` / ``no_products``: without the q k^T products,
+  the p v products, or both;
+* ``no_xch``: no exchange of the partial scores (no named barriers);
+* ``no_softmax`` / ``no_exp``: as above;
+* ``products_only``: no loads past the ring, no exchange, no softmax;
+* ``cluster_1`` / ``cluster_2`` / ``cluster_4``: the kernel with clusters
+  of that many CTAs sharing each K/V tile (it picks 4 at d > 256, else 2;
+  these compute the right result).
 
 Nothing of the port uses these copies.
 """
@@ -42,21 +59,60 @@ from sd_animation_optical_flow_tpu_torch.ops import _cuda
 
 ROOT = Path(__file__).resolve().parent
 PROBE_DIR = ROOT / "build" / "probe"
-SHAPES = {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80),
-          "cross_l0": (2, 6144, 231, 8, 40), "cross_l1": (2, 1536, 231, 8, 80)}
+# per kernel: its source, the defines of each variant, and its shapes
+# (B, Nq, Nk, H, D)
+KERNELS = {
+    # attention_sm90.cu's SM90_SKIP bits: SKIP_EXP = 1, SKIP_LOADS = 2,
+    # SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16, SKIP_TURNS = 32
+    "sm90": ("attention_sm90.cu",
+             {name: [f"SM90_SKIP={bits}"] for name, bits in {
+                 "full": 0, "no_exp": 1, "no_loads": 2, "no_pv": 4, "no_softmax": 8,
+                 "no_stores": 16, "no_turns": 32}.items()},
+             {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80),
+              "cross_l0": (2, 6144, 231, 8, 40), "cross_l1": (2, 1536, 231, 8, 80)}),
+    # attention_wide_sm90.cu's WIDE_SKIP bits: SKIP_LOADS = 1, SKIP_QK = 2,
+    # SKIP_PV = 4, SKIP_XCH = 8, SKIP_SOFTMAX = 16, SKIP_EXP = 32; and
+    # WIDE_CLUSTER, the CTAs of a cluster
+    "wide": ("attention_wide_sm90.cu",
+             {name: [f"WIDE_SKIP={bits}"] for name, bits in {
+                 "full": 0, "no_loads": 1, "no_qk": 2, "no_pv": 4, "no_products": 6,
+                 "no_xch": 8, "no_softmax": 16, "no_exp": 32, "products_only": 25}.items()}
+             | {f"cluster_{n}": [f"WIDE_CLUSTER={n}"] for n in (1, 2, 4)},
+             {"vae_mid": (1, 6144, 6144, 1, 512), "vae_mid2": (2, 6144, 6144, 1, 512),
+              "l2": (2, 1536, 1536, 8, 160)}),
+}
+# the wide kernel's launcher has C++ linkage: a shim exports it under the
+# name and arguments of sdaof_attention
+WIDE_SHIM = """
+#include <cuda_runtime.h>
+cudaError_t launch_attention_wide_sm90(const void*, const void*, const void*, void*, int, int,
+                                       int, int, int, long long, long long, long long,
+                                       long long, long long, long long, long long, long long,
+                                       long long, float, int, cudaStream_t);
+extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void* o, int B,
+                               int H, int Nq, int Nk, int D, long long qsb, long long qsn,
+                               long long qsh, long long ksb, long long ksn, long long ksh,
+                               long long vsb, long long vsn, long long vsh, float scale_log2,
+                               int device, void* stream) {
+  return launch_attention_wide_sm90(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
+                                    vsb, vsn, vsh, scale_log2, device,
+                                    static_cast<cudaStream_t>(stream));
+}
+"""
 
-# SM90_SKIP bits per variant (attention_sm90.cu: SKIP_EXP = 1, SKIP_LOADS
-# = 2, SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16, SKIP_TURNS = 32)
-VARIANTS = {"full": 0, "no_exp": 1, "no_loads": 2, "no_pv": 4, "no_softmax": 8,
-            "no_stores": 16, "no_turns": 32}
 
-
-def build(name: str) -> Path:
+def build(kernel: str, name: str) -> Path:
+    source, variants, _ = KERNELS[kernel]
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    so = PROBE_DIR / f"{name}.so"
+    so = PROBE_DIR / f"{kernel}_{name}.so"
+    sources = [str(_cuda.CSRC / source)]
+    if kernel == "wide":
+        shim = PROBE_DIR / "wide_shim.cu"
+        shim.write_text(WIDE_SHIM)
+        sources.append(str(shim))
     out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC),
-                          f"-DSM90_SKIP={VARIANTS[name]}", "-shared",
-                          str(_cuda.CSRC / "attention_sm90.cu"), "-o", str(so)],
+                          *(f"-D{d}" for d in variants[name]), "-shared", *sources,
+                          "-o", str(so)],
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"nvcc {name}:\n{out.stdout}{out.stderr}")
@@ -65,7 +121,9 @@ def build(name: str) -> Path:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--shape", choices=list(SHAPES), default="self_l0")
+    ap.add_argument("--kernel", choices=list(KERNELS), default="sm90")
+    ap.add_argument("--shape", default=None,
+                    help="one of the kernel's shapes (default: its first)")
     ap.add_argument("--nq", type=int, default=None,
                     help="query tokens in place of the shape's")
     ap.add_argument("--rounds", type=int, default=7)
@@ -74,19 +132,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("sm90_probe: no CUDA device")
         return 2
+    _, variants, shapes = KERNELS[args.kernel]
+    shape = args.shape or next(iter(shapes))
+    if shape not in shapes:
+        ap.error(f"--shape: one of {sorted(shapes)} for --kernel {args.kernel}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(lambda v: build(args.kernel, v), variants)))
+    entry = "sdaof_attention_fwd_stats" if args.kernel == "sm90" else "sdaof_attention"
     fns = {}
     for name, so in libs.items():
-        fn = ctypes.CDLL(str(so)).sdaof_attention_fwd_stats
-        fn.argtypes = _cuda._SIGNATURES["sdaof_attention_fwd_stats"]
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = _cuda._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
 
-    b, nq, nk, h, d = SHAPES[args.shape]
+    b, nq, nk, h, d = shapes[shape]
     self_attn = nq == nk
     nq = args.nq or nq
     gen = torch.Generator("cuda").manual_seed(0)
@@ -102,10 +165,11 @@ def main() -> int:
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream().cuda_stream
     scale_log2 = math.log2(math.e) / math.sqrt(d)
+    lse = [None] if args.kernel == "sm90" else []
 
     def call(fn):
         return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), None, b, h, nq, nk, d, *strides,
+                          out.data_ptr(), *lse, b, h, nq, nk, d, *strides,
                           scale_log2, torch.cuda.current_device(), stream)
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -133,7 +197,7 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / args.iters)
-    print(f"[probe] {card}; {args.shape} q [{b},{nq},{h},{d}] kv {nk}; "
+    print(f"[probe] {card}; {args.kernel} {shape} q [{b},{nq},{h},{d}] kv {nk}; "
           f"median of {args.rounds} rounds of {args.iters} calls")
     full = statistics.median(times["full"])
     for name, ts in times.items():

@@ -10,9 +10,11 @@ Shapes are small but cover the kernels' edges: ragged query and key
 tiles (for the Hopper forward of #1 and #7: Nq off its 192-row units,
 Nk = 1, below a key tile, a tile exactly and one key either side, 231),
 head dims from 8 to 128 that are not all a multiple of 16 (zero-padded
-tiles) or above 128 (the wide kernel), strided and misaligned q/k/v
-views, a single-head view whose neighbouring columns are NaN (no read
-past D), rows past a 32-row tile; for the keymask kernel n_own = Nk, n_own not a
+tiles), strided and misaligned q/k/v views, single-head views whose
+neighbouring columns are NaN (no read past D); for the wide kernel (#2,
+d > 128) d padded to each of its four widths, Nq off its 64-row blocks,
+Nk off its key tiles and below one, B * H > 1, the router's 160-wide
+route and its refusal under a gradient; for the keymask kernel n_own = Nk, n_own not a
 multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
 ragged N, 3 tiles, both modes and key tiles outside the band; both at
 SD-1.5's widest head (d = 160) and at a d padded up to it; for the
@@ -89,20 +91,24 @@ def test_flash_attention_tpv_strided_qkv(gen, offset):
     _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(q, k, v))
 
 
-@pytest.mark.parametrize("fwd", ["tpv", "stats"])
-def test_attention_reads_no_column_past_d(gen, fwd):
-    """A single-head q/k/v view [..., :40] of [B, N, 80] tensors whose
-    columns 40-79 are NaN (the next head of a fused projection): the
+@pytest.mark.parametrize("fwd,d", [("tpv", 40), ("stats", 40), ("wide", 512),
+                                   ("wide", 136)])
+def test_attention_reads_no_column_past_d(gen, fwd, d):
+    """A single-head q/k/v view [..., :d] of [B, N, 2 d] tensors whose
+    columns d.. are NaN (the next head of a fused projection): the
     kernels read no column past D, so out (and lse) stay finite and match
-    the plain version on the clean columns."""
+    the plain version on the clean columns. d = 136 leaves the wide
+    kernel's second d-half 7 of its 10 chunks."""
     def view(n):
-        t = _randn(gen, 2, n, 80)
-        t[..., 40:] = float("nan")
-        return t[..., :40].unsqueeze(2)
+        t = _randn(gen, 2, n, 2 * d)
+        t[..., d:] = float("nan")
+        return t[..., :d].unsqueeze(2)
     q, k, v = view(200), view(231), view(231)
     clean = [t.contiguous() for t in (q, k, v)]
     if fwd == "tpv":
         _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(*clean))
+    elif fwd == "wide":
+        _check(TA.flash_attention(q, k, v), TA.xla_attention(*clean))
     else:
         out, lse = TA.flash_fwd_stats(q, k, v)
         ref_out, ref_lse = TA.flash_fwd_stats_plain(*clean)
@@ -110,11 +116,41 @@ def test_attention_reads_no_column_past_d(gen, fwd):
         _check(lse, ref_lse)
 
 
-@pytest.mark.parametrize("d", [512, 160])
-def test_flash_attention_wide_kernel(gen, d):
-    q, k, v = (_randn(gen, 1, n, 1, d) for n in (70, 100, 100))
+# the wide kernel's edges: d padded to DP = 160, 256, 384, 512 (halves of
+# 80, 128, 192, 256; d = 136 and 264 leave the second half partly
+# padded), Nq off its 64-row blocks and its clusters of 2 or 4 blocks,
+# Nk off its key tiles (32 keys above d = 256, 64 below; and below one
+# tile, and 1), B * H > 1
+WIDE_CASES = [(1, 70, 100, 1, 512), (1, 70, 100, 1, 160),
+              (1, 130, 257, 1, 512), (1, 64, 40, 1, 512), (1, 200, 1, 1, 512),
+              (1, 100, 64, 1, 136), (1, 77, 129, 2, 264), (1, 50, 90, 2, 256),
+              (1, 96, 65, 3, 392), (2, 300, 231, 1, 512),
+              (2, 257, 191, 8, 160), (1, 129, 63, 2, 168)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", WIDE_CASES)
+def test_flash_attention_wide_kernel(gen, b, nq, nk, h, d):
+    q = _randn(gen, b, nq, h, d)
+    k = _randn(gen, b, nk, h, d)
+    v = _randn(gen, b, nk, h, d)
     n0 = TA.flash_attention.launches
     _check(TA.flash_attention(q, k, v), TA.xla_attention(q, k, v))
+    assert TA.flash_attention.launches == n0 + 1
+
+
+def test_attention_routes_wide_heads_to_the_wide_kernel(gen):
+    """Past the self-attention gate (Nq, Nk >= 1536) a 160-wide head goes
+    to flash_attention's kernel; under a gradient the route raises, as
+    the JAX flash_attention has no VJP."""
+    q, k, v = (_randn(gen, 1, 1536, 2, 160) for _ in range(3))
+    n0 = TA.flash_attention.launches
+    _check(TA.attention(q, k, v), TA.xla_attention(q, k, v))
+    assert TA.flash_attention.launches == n0 + 1
+    q = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TA.flash_attention(q, k, v)
     assert TA.flash_attention.launches == n0 + 1
 
 
@@ -239,6 +275,9 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     q = _randn(gen, 1, 64, 2, 20)            # d not a multiple of 8
     with pytest.raises(ValueError):
         TA.flash_attention_tpv(q, q, q)
+    q = _randn(gen, 1, 64, 1, 520)           # d > 512
+    with pytest.raises(ValueError):
+        TA.flash_attention(q, q, q)
     q = _randn(gen, 2, 64, 1, 168)           # d > 160
     with pytest.raises(ValueError):
         TA.flash_attention_keymask(q, q, q, n_own=32, n_uncond=1)

@@ -198,7 +198,7 @@ def test_train_state_from_jax_resumes(jax_run):
     state = train_state_from_jax(
         after2.params, after2.opt_state,
         functools.partial(TO.adamw_with_ema_wings, **OPT),
-        step=int(after2.step))
+        step=int(after2.step), device="cpu")
     assert state.step == 2 and state.opt.ema_step == 2
     loss = _port_step(state, batches[2])
     assert abs(loss - jlosses[2]) <= 1e-5 * abs(jlosses[2])
