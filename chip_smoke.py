@@ -346,7 +346,7 @@ def check_kernels():
                   + b2.numel()) + 8.0 * din,
            ffn_tol, ffn_src, "sd_animation_optical_flow_tpu/ops/ffn.py:54",
            iters=20)
-    check_training_kernels(gen, record, attn_tol)
+    check_training_kernels(gen, record, rows, attn_tol)
     return rows
 
 
@@ -431,16 +431,18 @@ def _bwd_by_head(plain, q, k, v, do, lse, dvec):
     return tuple(torch.cat(p, dim=2) for p in zip(*parts))
 
 
-def check_training_kernels(gen, record, tol):
+def check_training_kernels(gen, record, rows, tol):
     """Kernels #7 (forward with statistics), #8 (dK, dV) and #9 (dQ) at
     the training step's self-attention shapes (batch 2, bf16, q/k/v
     slices of the fused QKV projection), each against its plain version
     (one head at a time). Library: SDPA's forward for #7; SDPA's backward
     (autograd of its output with the same dO) for the pair #8 + #9,
-    reported once, on the #8 row. ``record`` adds the rows."""
+    reported once, on the #8 row; a log line gives the pair's time and
+    its ratio to it, with and without the D = rowsum(dO * O) pass that
+    SDPA's backward holds inside it. ``record`` adds the rows."""
     from sd_animation_optical_flow_tpu_torch.ops import attention as A
     src = "sd_animation_optical_flow_tpu_torch/csrc/attention_sm90.cu"
-    bwd_src = "sd_animation_optical_flow_tpu_torch/csrc/attention_bwd.cu"
+    bwd_src = "sd_animation_optical_flow_tpu_torch/csrc/attention_bwd_sm90.cu"
     rep = "sd_animation_optical_flow_tpu/ops/attention.py:"
     for label, (b, n, h, d) in {"self L0": (2, 6144, 8, 40),
                                 "self L1": (2, 1536, 8, 80)}.items():
@@ -478,6 +480,19 @@ def check_training_kernels(gen, record, tol):
                None, 6.0 * flop, qkv_bytes + 2.0 * b * n * h * d
                + 2 * stat_bytes + 2.0 * b * n * h * d,
                tol, bwd_src, rep + "673", iters=10, exps=b * h * n * n)
+        dkv, dq = rows[-2], rows[-1]
+        d_ms = cuda_ms(lambda: A.flash_dvec(out, do), 10)
+        d_unq = cuda_ms(lambda: A.flash_dvec(out, do), 10, queued=False)
+        pair, pair_unq = dkv["ms"] + dq["ms"], \
+            dkv["ms_unqueued"] + dq["ms_unqueued"]
+        lib, lib_unq = dkv["library_ms"], dkv["library_ms_unqueued"]
+        log(f"[kernel] flash_bwd pair #8 + #9 [{label}]: {dkv['ms']:.3f} + "
+            f"{dq['ms']:.3f} = {pair:.3f} ms, SDPA's backward {lib:.3f} ms "
+            f"(pair / library {pair / lib:.2f}; with the D pass "
+            f"{d_ms:.3f} ms {(pair + d_ms) / lib:.2f}); unqueued "
+            f"{pair_unq:.3f} ms, SDPA's backward {lib_unq:.3f} ms (pair / "
+            f"library {pair_unq / lib_unq:.2f}; with the D pass "
+            f"{d_unq:.3f} ms {(pair_unq + d_unq) / lib_unq:.2f})")
         del sdpa_out
 
 
@@ -953,7 +968,9 @@ def _kernel_name(mangled: str) -> str:
 
 
 def ptxas_report(text: str, named=("attention_sm90_kernel",
-                                     "attention_wide_sm90_kernel")):
+                                     "attention_wide_sm90_kernel",
+                                     "attention_bwd_dkv_sm90_kernel",
+                                     "attention_bwd_dq_sm90_kernel")):
     """Lines of the ptxas report (``nvcc -Xptxas -v``) worth printing:
     registers and spills of every instantiation of the ``named`` kernels
     (wgmma kernels whose registers setmaxnreg hands over), and anywhere
@@ -1054,7 +1071,9 @@ def main() -> int:
             "on the two d-halves, TMA K/V ring multicast across a cluster; "
             "csrc/attention_wide_sm90.cu); attn_mma_kernel (keymask, MFR and "
             "banded modes; csrc/attention.cu); "
-            "attn_bwd_dkv_kernel, attn_bwd_dq_kernel (csrc/attention_bwd.cu); "
+            "attention_bwd_dkv_sm90_kernel, attention_bwd_dq_sm90_kernel (#8 "
+            "and #9: one wgmma skeleton, a cp.async ring of the streamed "
+            "axis; csrc/attention_bwd_sm90.cu); "
             "linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log(f"[ptxas] {line}")

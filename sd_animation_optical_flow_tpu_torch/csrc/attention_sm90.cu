@@ -8,7 +8,7 @@
 // strides along B, N, H that are multiples of 8 elements; unit stride
 // along D), writing a contiguous [B, Nq, H, D] out, and, where lse is
 // given, each query row's base-2 log-sum-exp m + log2(l) of the scaled
-// scores (f32 [B*H, Nq]) for the backward (csrc/attention_bwd.cu). It
+// scores (f32 [B*H, Nq]) for the backward (csrc/attention_bwd_sm90.cu). It
 // replaces two Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
 // attention.py, whose Python wrappers keep their names and counters:
 //

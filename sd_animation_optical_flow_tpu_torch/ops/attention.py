@@ -6,7 +6,7 @@ keep the JAX package's layout: q [B, Nq, H, D], k/v [B, Nk, H, D] ->
 out [B, Nq, H, D].
 
 Kernels (``csrc/attention_sm90.cu``, ``csrc/attention_wide_sm90.cu``,
-``csrc/attention.cu``, ``csrc/attention_bwd.cu``), each with its plain
+``csrc/attention.cu``, ``csrc/attention_bwd_sm90.cu``), each with its plain
 version beside it:
 
 * :func:`flash_attention_tpv` replaces the TPU's ``_flash_kernel_tpv``
@@ -53,11 +53,18 @@ version beside it:
 * :func:`flash_fwd_stats` (``_flash_kernel_tpv_stats``, the same
   ``attention_sm90_kernel`` writing the LSE too),
   :func:`flash_bwd_dkv` (``_flash_bwd_dkv_kernel``) and
-  :func:`flash_bwd_dq` (``_flash_bwd_dq_kernel``, ``csrc/attention_bwd.cu``)
-  are the forward with statistics and the two backward kernels of
-  :func:`flash_attention_diff`, the differentiable self-attention of
-  training; plain versions :func:`flash_fwd_stats_plain` and
-  :func:`flash_bwd_plain`.
+  :func:`flash_bwd_dq` (``_flash_bwd_dq_kernel``) are the forward with
+  statistics and the two backward kernels of :func:`flash_attention_diff`,
+  the differentiable self-attention of training; plain versions
+  :func:`flash_fwd_stats_plain` and :func:`flash_bwd_plain`. The two
+  backward kernels (``csrc/attention_bwd_sm90.cu``) are one Hopper design
+  with two epilogues: persistent blocks whose consumer warpgroups each own
+  64 rows of one axis (keys for dK / dV, queries for dQ) while a producer
+  warpgroup streams the other axis through a ``cp.async`` ring; per tile
+  two ``wgmma`` score products (S and dP), P and dS in registers, and the
+  gradient products with the packed scores as register operands,
+  overlapped with the next tile's scores. No atomics: each gradient is
+  bitwise deterministic.
 
 Every kernel computes the function of its plain version (softmax in f32)
 with a tracked running max, so unlike the TPU's max-free forms they need
@@ -361,10 +368,11 @@ def _bwd_inputs(name, q, k, v, do, lse, dvec):
 
 def flash_bwd_dkv(q, k, v, do, lse, dvec):
     """dK and dV of the flash backward (kernel #8,
-    ``attn_bwd_dkv_kernel``): a block per (b * h, 64 keys) loops over the
-    query tiles, recomputes S^T and P, and accumulates dV += P^T dO and
-    dK += dS^T Q in f32 registers. Returns contiguous [B, Nk, H, D] in
-    k's dtype. ``lse`` / ``dvec``: [B * H, Nq] f32."""
+    ``attention_bwd_dkv_sm90_kernel``): each consumer warpgroup owns 64
+    keys of one (b, h) and loops over the query tiles, recomputes S^T and
+    P, and accumulates dV += P^T dO and dK += dS^T Q in f32 registers.
+    Returns contiguous [B, Nk, H, D] in k's dtype. ``lse`` / ``dvec``:
+    [B * H, Nq] f32."""
     if q.device.type != "cuda":
         return _bwd_dkv_plain(q, k, v, do, lse, dvec)
     q, k, v, do = _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse, dvec)
@@ -383,10 +391,11 @@ flash_bwd_dkv.launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, dvec):
-    """dQ of the flash backward (kernel #9, ``attn_bwd_dq_kernel``): a
-    block per (b * h, 64 queries) loops over the key tiles (the ragged
-    last one masked), recomputes P and dS and accumulates dQ += dS K in
-    f32 registers. Returns contiguous [B, Nq, H, D] in q's dtype."""
+    """dQ of the flash backward (kernel #9,
+    ``attention_bwd_dq_sm90_kernel``): each consumer warpgroup owns 64
+    queries of one (b, h) and loops over the key tiles (the ragged last
+    one masked), recomputes P and dS and accumulates dQ += dS K in f32
+    registers. Returns contiguous [B, Nq, H, D] in q's dtype."""
     if q.device.type != "cuda":
         return _bwd_dq_plain(q, k, v, do, lse, dvec)
     q, k, v, do = _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, dvec)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper attention forwards goes, on one NVIDIA
-card: kernels #1 / #7 (``csrc/attention_sm90.cu``) or kernel #2
-(``csrc/attention_wide_sm90.cu``):
+"""Where the time of the Hopper attention kernels goes, on one NVIDIA
+card: the forwards #1 / #7 (``csrc/attention_sm90.cu``) and #2
+(``csrc/attention_wide_sm90.cu``), and the backward pair #8 / #9
+(``csrc/attention_bwd_sm90.cu``):
 
     python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
     python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
+    python3 sm90_probe.py --kernel bwd [--shape self_l0|self_l1]
 
 Builds copies of the kernel's source with one part of the work left out
 (``-DSM90_SKIP=<bits>`` / ``-DWIDE_SKIP=<bits>``, the kernel's
@@ -39,6 +41,24 @@ tokens):
 * ``cluster_1`` / ``cluster_2`` / ``cluster_4``: the kernel with clusters
   of that many CTAs sharing each K/V tile (it picks 4 at d > 256, else 2;
   these compute the right result).
+
+For ``attention_bwd_sm90.cu`` (``-DBWD_SKIP``; the training step's
+self-attention shapes; each copy times #8 (dK, dV) and #9 (dQ) against
+SDPA's backward on the same inputs, the statistics from a plain f32
+forward):
+
+* ``no_exp``: P = S * scale - lse, no ex2;
+* ``no_loads``: the streamed tiles of the first ring only, as above;
+* ``no_scores``: no S / dP products;
+* ``no_grads``: no dV / dK / dQ products;
+* ``no_chain``: no elementwise chain (neither P nor dS: the score
+  accumulators are packed as they are);
+* ``no_turns``: the consumers issue without taking turns (right result);
+* ``dkv_nc3_bs32``, ``dkv_nc3_bs32_r160``: #8 with three consumers
+  (``-DBWD_NC8=3``: 192-key units of 32-query tiles) at 152 registers a
+  consumer thread, or at 160 with ``-DBWD_REGS3=160``, which leaves the
+  producer 32; these compute the right result. The ptxas lines of any
+  copy that spills or serialises its wgmma are printed first.
 
 Nothing of the port uses these copies.
 """
@@ -80,6 +100,16 @@ KERNELS = {
              | {f"cluster_{n}": [f"WIDE_CLUSTER={n}"] for n in (1, 2, 4)},
              {"vae_mid": (1, 6144, 6144, 1, 512), "vae_mid2": (2, 6144, 6144, 1, 512),
               "l2": (2, 1536, 1536, 8, 160)}),
+    # attention_bwd_sm90.cu's BWD_SKIP bits: SKIP_EXP = 1, SKIP_LOADS = 2,
+    # SKIP_SCORES = 4, SKIP_GRADS = 8, SKIP_CHAIN = 16, SKIP_TURNS = 32;
+    # and BWD_NC8 = 3 (#8 with three consumers) at BWD_REGS3 registers
+    "bwd": ("attention_bwd_sm90.cu",
+            {name: [f"BWD_SKIP={bits}"] for name, bits in {
+                "full": 0, "no_exp": 1, "no_loads": 2, "no_scores": 4, "no_grads": 8,
+                "no_chain": 16, "no_turns": 32}.items()}
+            | {"dkv_nc3_bs32": ["BWD_NC8=3"],
+               "dkv_nc3_bs32_r160": ["BWD_NC8=3", "BWD_REGS3=160"]},
+            {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80)}),
 }
 # the wide kernel's launcher has C++ linkage: a shim exports it under the
 # name and arguments of sdaof_attention
@@ -110,13 +140,104 @@ def build(kernel: str, name: str) -> Path:
         shim = PROBE_DIR / "wide_shim.cu"
         shim.write_text(WIDE_SHIM)
         sources.append(str(shim))
-    out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC),
-                          *(f"-D{d}" for d in variants[name]), "-shared", *sources,
-                          "-o", str(so)],
+    out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                          str(_cuda.CSRC), *(f"-D{d}" for d in variants[name]), "-shared",
+                          *sources, "-o", str(so)],
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"nvcc {name}:\n{out.stdout}{out.stderr}")
+    so.with_suffix(".log").write_text(out.stdout + out.stderr)
     return so
+
+
+def _mean_ms(run, iters):
+    """Mean ms of ``iters`` calls after two warm-up calls (CUDA events)."""
+    for _ in range(2):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def probe_bwd(libs, shape, args, card, label) -> int:
+    """#8 and #9 of each copy of attention_bwd_sm90.cu, and SDPA's
+    backward, on fused-QKV slices, interleaved in rounds (as ``main``)."""
+    for name, so in libs.items():   # spills and serialised wgmma, if any
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if ("spill" in line and " 0 bytes spill stores" not in line) \
+                    or "wgmma" in line.lower():
+                print(f"[ptxas] {name}: {line.strip()}")
+    b, nq, nk, h, d = shape
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (t.reshape(b, nq, h, d) for t in torch.randn(
+        (b, nq, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16).chunk(3, -1))
+    do = torch.randn((b, nq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    # the forward's statistics in f32, one head at a time: lse in base 2
+    # of the scaled scores, D = rowsum(dO * O)
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    lse = torch.empty((b, h, nq), device="cuda")
+    dvec = torch.empty((b, h, nq), device="cuda")
+    for i in range(h):
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, i].float(), k[:, :, i].float()) * scale_log2
+        lse[:, i] = torch.logsumexp(s * math.log(2), -1) / math.log(2)
+        o = torch.softmax(s * math.log(2), -1) @ v[:, :, i].float()
+        dvec[:, i] = (o.to(torch.bfloat16).float() * do[:, :, i].float()).sum(-1)
+        del s, o
+    lse, dvec = lse.reshape(b * h, nq), dvec.reshape(b * h, nq)
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=torch.bfloat16, device="cuda")
+                  for n in (nq, nk, nk))
+    strides = [s for t in (q, k, v, do) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr())
+    runs = {}
+    for name, so in libs.items():
+        lib = ctypes.CDLL(str(so))
+        for entry, outs in (("sdaof_attention_bwd_dkv", (dk, dv)),
+                            ("sdaof_attention_bwd_dq", (dq,))):
+            fn = getattr(lib, entry)
+            fn.argtypes = _cuda._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            ptrs = [t.data_ptr() for t in outs]
+            runs[(name, entry[-3:].lstrip("_"))] = (lambda fn=fn, ptrs=ptrs: fn(
+                *head, *ptrs, b, h, nq, nk, d, *strides, scale_log2, dev, stream))
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2).contiguous()
+    runs[("sdpa", "bwd")] = lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                                       retain_graph=True)
+    outs = {}
+    for key, run in runs.items():
+        if key[0] != "sdpa":
+            err = run()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"{key}: CUDA error {err}")
+            outs[key] = [t.float().clone() for t in ((dk, dv) if key[1] == "dkv" else (dq,))]
+    times = {key: [] for key in runs}
+    for _ in range(args.rounds):
+        for key, run in runs.items():
+            times[key].append(_mean_ms(run, args.iters))
+    print(f"[probe] {card}; bwd {label} q [{b},{nq},{h},{d}] kv {nk}; median of "
+          f"{args.rounds} rounds of {args.iters} calls")
+    ms = {key: statistics.median(ts) for key, ts in times.items()}
+    for key in runs:
+        full = ms[("full", key[1])] if key[0] != "sdpa" else ms[key]
+        diff = "" if key not in outs else ", max |out - full's| " + " ".join(
+            f"{(o - f).abs().max().item():.3e}" for o, f in zip(outs[key], outs[("full", key[1])]))
+        print(f"[probe] {key[0]:13s} {key[1]:3s} {ms[key]:.4f} ms ({ms[key] / full:.2f} of "
+              f"full){diff}")
+    for name in libs:
+        pair = ms[(name, "dkv")] + ms[(name, "dq")]
+        print(f"[probe] {name:13s} pair {pair:.4f} ms ({pair / ms[('sdpa', 'bwd')]:.2f} of "
+              f"SDPA's backward)")
+    return 0
 
 
 def main() -> int:
@@ -141,6 +262,8 @@ def main() -> int:
                           text=True).stdout.strip().splitlines()[0]
     with ThreadPoolExecutor(len(variants)) as pool:
         libs = dict(zip(variants, pool.map(lambda v: build(args.kernel, v), variants)))
+    if args.kernel == "bwd":
+        return probe_bwd(libs, shapes[shape], args, card, shape)
     entry = "sdaof_attention_fwd_stats" if args.kernel == "sm90" else "sdaof_attention"
     fns = {}
     for name, so in libs.items():

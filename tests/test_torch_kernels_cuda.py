@@ -22,8 +22,10 @@ banded kernel the three UNet levels' frame geometries at weight 0 and
 0.7, frames whose h * w is not a multiple of the 64-key tile (tiles
 straddling a frame boundary) and base = -inf; for the
 forward with statistics and the two backward kernels (#7-#9) ragged
-query and key tiles, d from 16 to 128, and the fused-QKV slices under
-autograd. Every wrapper whose kernel has no backward refuses inputs
+query and key tiles, Nq and Nk off the backward's 128- and 192-row work
+units and its 32- and 64-row streamed tiles, one key, d from 8 to 128,
+NaN columns past d, two calls bitwise equal, and the fused-QKV slices
+(directly and under autograd). Every wrapper whose kernel has no backward refuses inputs
 that record a gradient.
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain|,
 with no floor (a few bf16 ulps of the largest output; both sides round
@@ -92,13 +94,14 @@ def test_flash_attention_tpv_strided_qkv(gen, offset):
 
 
 @pytest.mark.parametrize("fwd,d", [("tpv", 40), ("stats", 40), ("wide", 512),
-                                   ("wide", 136)])
+                                   ("wide", 136), ("bwd", 40), ("bwd", 128)])
 def test_attention_reads_no_column_past_d(gen, fwd, d):
     """A single-head q/k/v view [..., :d] of [B, N, 2 d] tensors whose
     columns d.. are NaN (the next head of a fused projection): the
-    kernels read no column past D, so out (and lse) stay finite and match
-    the plain version on the clean columns. d = 136 leaves the wide
-    kernel's second d-half 7 of its 10 chunks."""
+    kernels read no column past D, so out (and lse, and the backward's
+    dQ, dK, dV, with dO such a view too) stay finite and match the plain
+    version on the clean columns. d = 136 leaves the wide kernel's second
+    d-half 7 of its 10 chunks."""
     def view(n):
         t = _randn(gen, 2, n, 2 * d)
         t[..., d:] = float("nan")
@@ -109,6 +112,16 @@ def test_attention_reads_no_column_past_d(gen, fwd, d):
         _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(*clean))
     elif fwd == "wide":
         _check(TA.flash_attention(q, k, v), TA.xla_attention(*clean))
+    elif fwd == "bwd":
+        do = view(200)
+        clean.append(do.contiguous())
+        out, lse = TA.flash_fwd_stats_plain(*clean[:3])
+        dvec = TA.flash_dvec(out, clean[3])
+        _check(TA.flash_bwd_dq(q, k, v, do, lse, dvec),
+               TA._bwd_dq_plain(*clean, lse, dvec))
+        for got, ref in zip(TA.flash_bwd_dkv(q, k, v, do, lse, dvec),
+                            TA._bwd_dkv_plain(*clean, lse, dvec)):
+            _check(got, ref)
     else:
         out, lse = TA.flash_fwd_stats(q, k, v)
         ref_out, ref_lse = TA.flash_fwd_stats_plain(*clean)
@@ -299,10 +312,16 @@ def test_kernels_refuse_what_they_do_not_take(gen):
 # kernels #7-#9: the differentiable attention of training
 # ---------------------------------------------------------------------------
 
+# the backward's edges: the Hopper kernels' work units are 64 * NC own
+# rows (128 or 192) and their streamed tiles 32 or 64 rows, so Nq and Nk
+# fall below, on and one either side of both (191, 193, 385), B * H > 1,
+# and d from 8 to 128 (40 and 80 padded to 48 and 80 in shared memory)
 BWD_CASES = [(2, 300, 231, 3, 40), (1, 130, 257, 2, 80), (1, 77, 64, 2, 128),
              (1, 50, 90, 2, 24), (2, 64, 64, 1, 16), (2, 129, 129, 2, 40),
              (1, 257, 127, 1, 64), (1, 100, 63, 2, 80), (1, 70, 65, 1, 128),
-             (1, 193, 127, 2, 40)]
+             (1, 193, 127, 2, 40), (1, 191, 193, 2, 40), (2, 385, 191, 2, 80),
+             (1, 193, 385, 3, 48), (2, 100, 150, 2, 8), (1, 129, 200, 2, 128),
+             (2, 192, 128, 2, 80)]
 
 
 # Nk = 1 for the forward only: there dK = dQ = 0 exactly, and the plain
@@ -321,16 +340,20 @@ def test_flash_fwd_stats_kernel(gen, b, nq, nk, h, d):
     assert TA.flash_fwd_stats.launches == n0 + 1
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d", BWD_CASES)
-def test_flash_bwd_kernels(gen, b, nq, nk, h, d):
-    """#8 and #9 on the plain forward's residuals: ragged query and key
-    tiles, d padded up to a multiple of 16, the widest head (128)."""
+def _bwd_inputs(gen, b, nq, nk, h, d):
     q = _randn(gen, b, nq, h, d)
     k = _randn(gen, b, nk, h, d)
     v = _randn(gen, b, nk, h, d)
     do = _randn(gen, b, nq, h, d)
     out, lse = TA.flash_fwd_stats_plain(q, k, v)
-    dvec = TA.flash_dvec(out, do)
+    return q, k, v, do, lse, TA.flash_dvec(out, do)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", BWD_CASES)
+def test_flash_bwd_kernels(gen, b, nq, nk, h, d):
+    """#8 and #9 on the plain forward's residuals: ragged query and key
+    tiles, d padded up to a multiple of 16, the widest head (128)."""
+    q, k, v, do, lse, dvec = _bwd_inputs(gen, b, nq, nk, h, d)
     n8, n9 = TA.flash_bwd_dkv.launches, TA.flash_bwd_dq.launches
     dk, dv = TA.flash_bwd_dkv(q, k, v, do, lse, dvec)
     dq = TA.flash_bwd_dq(q, k, v, do, lse, dvec)
@@ -341,6 +364,52 @@ def test_flash_bwd_kernels(gen, b, nq, nk, h, d):
         _check(got, ref)
     assert (TA.flash_bwd_dkv.launches, TA.flash_bwd_dq.launches) == \
         (n8 + 1, n9 + 1)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [(1, 193, 1, 2, 40),
+                                         (2, 70, 1, 1, 128)])
+def test_flash_bwd_kernels_one_key(gen, b, nq, nk, h, d):
+    """One key: P = 1, so dS = dP - D = 0 and dQ = dK = 0 exactly (both
+    sides give rounding noise there, held to dV's absolute tolerance);
+    dV is the sum of dO over the queries."""
+    q, k, v, do, lse, dvec = _bwd_inputs(gen, b, nq, nk, h, d)
+    dk, dv = TA.flash_bwd_dkv(q, k, v, do, lse, dvec)
+    dq = TA.flash_bwd_dq(q, k, v, do, lse, dvec)
+    _, rdv = TA._bwd_dkv_plain(q, k, v, do, lse, dvec)
+    _check(dv, rdv)
+    limit = TOL * rdv.float().abs().max().item()
+    for zero in (dq, dk):
+        assert torch.isfinite(zero).all()
+        assert zero.float().abs().max().item() <= limit
+
+
+def test_flash_bwd_kernels_are_deterministic(gen):
+    """No atomics: every block writes only its own rows, so two calls
+    give bitwise-identical dQ, dK and dV (several work units a block)."""
+    args = _bwd_inputs(gen, 2, 1536, 1536, 8, 80)
+    first = (TA.flash_bwd_dq(*args), *TA.flash_bwd_dkv(*args))
+    second = (TA.flash_bwd_dq(*args), *TA.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_bwd_kernels_strided_qkv(gen, offset):
+    """The backward on q/k/v column slices of one fused projection (the
+    training step's layout): offset 0 goes in without a copy, offset 1
+    takes the wrapper's contiguous copy."""
+    qkv = _randn(gen, 2, 200, offset + 3 * 320)[..., offset:]
+    q, k, v = (t.reshape(2, 200, 8, 40) for t in qkv.chunk(3, dim=-1))
+    do = _randn(gen, 2, 200, 8, 40)
+    out, lse = TA.flash_fwd_stats_plain(q, k, v)
+    dvec = TA.flash_dvec(out, do)
+    dk, dv = TA.flash_bwd_dkv(q, k, v, do, lse, dvec)
+    rdk, rdv = TA._bwd_dkv_plain(q, k, v, do, lse, dvec)
+    _check(TA.flash_bwd_dq(q, k, v, do, lse, dvec),
+           TA._bwd_dq_plain(q, k, v, do, lse, dvec))
+    _check(dk, rdk)
+    _check(dv, rdv)
 
 
 def test_flash_attention_diff_grads_on_card(gen):
