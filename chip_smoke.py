@@ -276,7 +276,9 @@ def check_kernels():
 
     # kernel #10 at the strips' shapes (2 tiles of a 512x768 frame: latent
     # 64 x 192 at L0, 32 x 96 at L1; L2 (d 160) reaches the gate with 4
-    # tiles: 16 x 96), q/k/v slices of the fused QKV
+    # tiles: 16 x 96), q/k/v slices of the fused QKV; d <= 128 runs
+    # attention_sm90_kernel's MFR mode, d = 160 attention.cu's older
+    # attn_mma_kernel<160, MODE_MFR>
     for label, (hh, w_tile, tiles, d, mode) in {
             "strip L0 mutual": (64, 96, 2, 40, "mutual"),
             "strip L0 target": (64, 96, 2, 40, "target"),
@@ -294,7 +296,7 @@ def check_kernels():
                lambda: _by_head(A.strip_attention_plain, q, k, v, **kw),
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qt, kt, vt, attn_mask=bias16),
-               flops, nbytes, attn_tol, tpv_src,
+               flops, nbytes, attn_tol, sm90_src if d <= 128 else tpv_src,
                "sd_animation_optical_flow_tpu/ops/attention.py:1078",
                iters=5, exps=b * h * n * n)
 
@@ -957,13 +959,16 @@ def run_train_phase(sd, kernels, gen):
 
 def _kernel_name(mangled: str) -> str:
     """``name<DP>`` of a mangled kernel (a length-prefixed name ending in
-    ``_kernel``, its first template argument an int), else the input."""
+    ``_kernel``, its first template argument an int), ``name<DP, MFR>``
+    where a second one is ``true`` (attention_sm90_kernel's MFR mode),
+    else the input."""
     for m in re.finditer(r"(?=(\d+)([a-z]))", mangled):
         at = m.start(2)
         name = mangled[at:at + int(m.group(1))]
         if name.endswith("_kernel"):
-            t = re.match(r"ILi(\d+)E", mangled[at + len(name):])
-            return name + (f"<{t.group(1)}>" if t else "")
+            t = re.match(r"ILi(\d+)E(Lb1E)?", mangled[at + len(name):])
+            return name + (f"<{t.group(1)}{', MFR' if t.group(2) else ''}>"
+                           if t else "")
     return mangled
 
 
@@ -1066,11 +1071,13 @@ def main() -> int:
     else:
         log(f"[build] {so.name} in {time.time() - t0:.1f} s: "
             "attention_sm90_kernel (#1 and #7: three wgmma consumer "
-            "warpgroups, cp.async K/V ring; csrc/attention_sm90.cu); "
+            "warpgroups, cp.async K/V ring; and #10 at d <= 128, the MFR "
+            "strip bias as an epilogue on the score tile; "
+            "csrc/attention_sm90.cu); "
             "attention_wide_sm90_kernel (#2: two wgmma consumer warpgroups "
             "on the two d-halves, TMA K/V ring multicast across a cluster; "
-            "csrc/attention_wide_sm90.cu); attn_mma_kernel (keymask, MFR and "
-            "banded modes; csrc/attention.cu); "
+            "csrc/attention_wide_sm90.cu); attn_mma_kernel (keymask and "
+            "banded modes, MFR at d = 160; csrc/attention.cu); "
             "attention_bwd_dkv_sm90_kernel, attention_bwd_dq_sm90_kernel (#8 "
             "and #9: one wgmma skeleton, a cp.async ring of the streamed "
             "axis; csrc/attention_bwd_sm90.cu); "

@@ -12,8 +12,10 @@
 //
 // The plain forward and the forward with statistics run on the Hopper
 // kernels of csrc/attention_sm90.cu (d <= 128) and csrc/
-// attention_wide_sm90.cu (d > 128); sdaof_attention routes there. This
-// file keeps the masked and biased modes. It replaces these Pallas TPU
+// attention_wide_sm90.cu (d > 128); sdaof_attention routes there, and
+// sdaof_attention_mfr sends the MFR strip attention at d <= 128 to
+// attention_sm90_kernel's MFR mode. This file keeps the masked and banded
+// modes, and the MFR mode at d = 160. It replaces these Pallas TPU
 // kernels of sd_animation_optical_flow_tpu/ops/attention.py (the Python
 // wrappers keep their names and counters):
 //
@@ -31,7 +33,12 @@
 //     the TPU kernel masks the same scores to -1e30 and still streams
 //     them. The cond rows run all Nk.
 //   _flash_mfr_kernel (flash_attention_mfr: MFR strip self-attention)
-//     -> attn_mma_kernel<DP, MODE_MFR>: the band bias weight * exp(-dist
+//     at d = 160 only (SD-1.5's third UNet level, on no tested path: a
+//     4-tile strip; attention_sm90_kernel's 192-row units, Q slots and
+//     ring do not fit 227 KB at that width, so d = 160 waits for the
+//     d-split design of attention_wide_sm90_kernel; d <= 128 runs
+//     attention_sm90_kernel<DP, true>, csrc/attention_sm90.cu)
+//     -> attn_mma_kernel<160, MODE_MFR>: the band bias weight * exp(-dist
 //     / sigma) (Chebyshev radius, `target` / `mutual` tile rule) is
 //     computed in registers from the token indices (y = i / w_strip,
 //     tile = (i % w_strip) / w_tile, x = (i % w_strip) % w_tile) and added
@@ -62,8 +69,9 @@
 // (4*N^2*D operations on ~4*N*D*2 bytes, and one exp2 per score on the
 // special-function units). These kernels use mma.sync without pipelining
 // the tile loads (no cp.async ring, no wgmma), so they sit several times
-// above those bounds; attention_sm90.cu's design (sm90.cuh) is the next
-// step for the masked and biased modes.
+// above those bounds; attention_sm90.cu's design (sm90.cuh), which runs
+// the MFR strips at d <= 128, is the next step for the keymask and
+// banded modes.
 
 #include <math.h>
 
@@ -388,6 +396,13 @@ AttnArgs make_args(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // csrc/attention_sm90.cu, csrc/attention_wide_sm90.cu
+cudaError_t launch_attention_sm90_mfr(const void* q, const void* k, const void* v, void* o, int B,
+                                      int H, int N, int D, long long qsb, long long qsn,
+                                      long long qsh, long long ksb, long long ksn, long long ksh,
+                                      long long vsb, long long vsn, long long vsh,
+                                      float scale_log2, int w_strip, int w_tile, int radius,
+                                      int target_only, float bias_log2, float inv_sigma,
+                                      int device, cudaStream_t st);
 cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                   float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
                                   long long qsn, long long qsh, long long ksb, long long ksn,
@@ -440,7 +455,9 @@ extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void*
 
 // MFR strip self-attention (bf16, D a multiple of 8 up to 160, Nq = Nk =
 // h * w_strip, w_strip = n_tiles * w_tile): scores of in-band pairs of
-// distinct tiles gain bias_log2 * exp(-dist * inv_sigma).
+// distinct tiles gain bias_log2 * exp(-dist * inv_sigma). d <= 128 runs
+// attention_sm90_kernel<DP, true> (csrc/attention_sm90.cu), d = 160
+// attn_mma_kernel<160, MODE_MFR>.
 extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, void* o, int B,
                                    int H, int Nq, int Nk, int D, long long qsb, long long qsn,
                                    long long qsh, long long ksb, long long ksn, long long ksh,
@@ -453,6 +470,11 @@ extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, 
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 128)
+    return launch_attention_sm90_mfr(q, k, v, o, B, H, Nq, D, qsb, qsn, qsh, ksb, ksn, ksh, vsb,
+                                     vsn, vsh, scale_log2, w_strip, w_tile, radius, target_only,
+                                     bias_log2, inv_sigma, device, st);
   AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
                          scale_log2);
   a.w_strip = w_strip;
@@ -462,7 +484,9 @@ extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, 
   a.bias_log2 = bias_log2;
   a.inv_sigma = inv_sigma;
   if (!aligned(a, D)) return cudaErrorMisalignedAddress;
-  return launch_mma<MODE_MFR>(a, D, static_cast<cudaStream_t>(stream));
+  const dim3 grid((Nq + MMA_BQ - 1) / MMA_BQ, B * H);
+  attn_mma_kernel<160, MODE_MFR><<<grid, 32 * MMA_WARPS, 0, st>>>(a, D);
+  return cudaGetLastError();
 }
 
 // Banded multi-frame attention (bf16, D a multiple of 8 up to 160, Nq =

@@ -19,6 +19,12 @@
 //     flash_attention_diff under a gradient; sdaof_attention_fwd_stats).
 //     The TPU kernel is max-free and returns the denominator l; with a
 //     tracked max the LSE is the statistic that stays finite.
+//   _flash_mfr_kernel (flash_attention_mfr, via strip_attention: the MFR
+//     strip self-attention, d <= 128; sdaof_attention_mfr in
+//     attention.cu routes here, d = 160 stays on attention.cu's
+//     attn_mma_kernel<160, MODE_MFR>: 192-row units, their Q slots and
+//     the ring do not fit 227 KB there) -> attention_sm90_kernel<DP,
+//     true>, the same kernel with an epilogue on the score tile (below).
 //
 // What bounds it on the H100: at SD's self-attention (self L0: 2 x 8
 // heads, 6144 tokens, d = 40) the tensor-core work takes 0.098 ms at the
@@ -76,6 +82,32 @@
 // * Epilogue: O / l to bf16 staged through the warpgroup's own Q rows of
 //   shared memory, then written as 16-byte row chunks; the Q slot then
 //   goes back to the producer (its "empty" mbarrier).
+// * The MFR strip bias (MFR = true): softmax over keys of q k^T * scale +
+//   weight * exp(-dist / sigma) on pairs of distinct tiles (`mutual`) or
+//   from tile-0 queries to other tiles (`target`), inside a Chebyshev
+//   radius; 0 elsewhere. Token i of the width-concatenated strip sits at
+//   row i / w_strip, tile (i % w_strip) / w_tile, column i % w_tile. The
+//   bias is added to s after q k^T and before the softmax, divided by
+//   scale_log2, so the softmax's one FMA and its max stay as they are.
+//   It is sparse (at the 512x768 strip's L0, 169 of 12288 keys of a
+//   query), so the work goes only where it can be nonzero: a key tile
+//   holding no key within the radius of the warpgroup's 64 query rows'
+//   strip rows gets nothing (a warpgroup-uniform test on the tile index
+//   against a range taken once a unit; at L0 ~20% of the tiles are in
+//   band), nor does a warpgroup whose rows all lie outside tile 0 in
+//   `target` mode. In band, where w_tile is a multiple of 8 (every 8-key
+//   column block then lies in one strip row and tile, so its row and
+//   tile tests are taken once a row) and the radius is at most 7, the
+//   bias comes from a 16 x 16 f32 table in shared memory indexed by (dy +
+//   radius, dx + radius), each clamped to 15 (zero entries past 2
+//   radius), filled once a block with the plain version's f32 formula:
+//   no sqrt or exp per pair. Any other strip or radius (after the host
+//   clamps the radius to max(h, w_tile) - 1, which gives the same bias)
+//   computes each pair's bias as the plain version does. No integer
+//   division per score: a thread's key coordinates start from the tile's
+//   first key (divided out once a tile in band) and step by its column
+//   offsets, wrapping at w_tile and w_strip; the query rows' are divided
+//   out once a unit.
 //
 // Shared memory uses the no-swizzle core-matrix layout of sm90.cuh
 // (tile_offset): one layout serves as the K-major operand (Q, K) and the
@@ -98,6 +130,12 @@ struct Sm90Args {
   long long ksb, ksn, ksh;
   long long vsb, vsn, vsh;
   float scale_log2;  // softmax scale * log2(e): scores live in the log2 domain
+  // the MFR strip bias (attention_sm90_kernel<DP, true> only): strip and
+  // tile width in tokens, tiles a strip row, Chebyshev radius (clamped
+  // to max(h, w_tile) - 1), tile rule (1: tile-0 queries to the other
+  // tiles; 0: every pair of distinct tiles), weight * log2(e), 1 / sigma
+  int w_strip, w_tile, n_tiles, radius, target_only;
+  float bias_log2, inv_sigma;
 };
 
 constexpr int NC = 3;                   // consumer warpgroups
@@ -118,12 +156,18 @@ constexpr float MAX_FLOOR = -1e30f;     // the running max's start
 #define SM90_SKIP 0
 #endif
 constexpr int SKIP_EXP = 1, SKIP_LOADS = 2, SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16,
-              SKIP_TURNS = 32;
+              SKIP_TURNS = 32, SKIP_BIAS = 64;
 __host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) != 0; }
 
-template <int DP>  // head dim padded to a multiple of 16
+// the MFR bias table: BIAS_SIDE x BIAS_SIDE f32, indexed by (dy + radius,
+// dx + radius) each clamped to BIAS_SIDE - 1; entries past 2 radius are 0
+constexpr int BIAS_SIDE = 16, BIAS_MAX_R = (BIAS_SIDE - 2) / 2;
+
+template <int DP, bool MFR = false>  // head dim padded to a multiple of 16
 struct Tiles {
-  static constexpr int BK = DP <= 48 ? 128 : 64;  // keys per tile
+  // keys per tile; the MFR mode's state leaves a consumer too few
+  // registers for o at DP = 128 beside 64-key score tiles
+  static constexpr int BK = DP <= 48 ? 128 : MFR && DP > 112 ? 32 : 64;
   static constexpr uint32_t Q_BYTES = BQ * DP * 2;   // one Q slot
   static constexpr uint32_t KV_BYTES = BK * DP * 2;  // one of K, V
   static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
@@ -133,7 +177,8 @@ struct Tiles {
   static constexpr uint32_t QFULL = EMPTY + 8 * STAGES;
   static constexpr uint32_t QEMPTY = QFULL + 8 * QSLOTS;
   static constexpr uint32_t SMEM = QEMPTY + 8 * QSLOTS;
-  static_assert(SMEM <= 232448, "shared memory of one block");
+  static constexpr uint32_t MFR_SMEM = SMEM + BIAS_SIDE * BIAS_SIDE * 4;  // the bias table
+  static_assert(MFR_SMEM <= 232448, "shared memory of one block");
 };
 
 // work unit u of a block: BQ query rows of one (batch, head)
@@ -154,10 +199,10 @@ __device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp
 // its K/V tiles through the ring; it runs ahead of the consumers by up to
 // STAGES tiles and QSLOTS - 1 units' Q, so the next units' loads overlap this
 // unit's math and epilogue
-template <int DP>
+template <int DP, bool MFR>
 __device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, int nt, uint32_t sm,
                                         int tid) {
-  using T = Tiles<DP>;
+  using T = Tiles<DP, MFR>;
   constexpr int BK = T::BK;
   constexpr int NE = (BK * DP / 8 + PRODUCER - 1) / PRODUCER;  // copies per tile
   const int ch = a.D / 8, rq = 8 * ch;  // 16-byte chunks of a row, of a row group
@@ -256,13 +301,115 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int nvalid, flo
   online_softmax<BK, !skip(SKIP_EXP)>(s, nvalid, scale_log2, tq, m0, m1, l0, l1, al0, al1);
 }
 
+// a token's place in a width-concatenated strip (row y, tile t, column x
+// in the tile), moved along the strip without a division
+struct StripPos {
+  int y, t, x;
+  __device__ __forceinline__ StripPos(int i, const Sm90Args& a) {
+    y = i / a.w_strip;
+    const int rem = i - y * a.w_strip;
+    t = rem / a.w_tile;
+    x = rem - t * a.w_tile;
+  }
+  // n tokens on; short steps against a tile run the loop once or not
+  __device__ __forceinline__ void advance(int n, const Sm90Args& a) {
+    x += n;
+    while (x >= a.w_tile) {
+      x -= a.w_tile;
+      if (++t == a.n_tiles) {
+        t = 0;
+        ++y;
+      }
+    }
+  }
+};
+
+// the MFR bias of one consumer thread on one work unit: its two query
+// rows' strip coordinates (rows g and g + 8 of its warp) and the key
+// tiles that hold keys within the radius of its warpgroup's strip rows
+struct StripBias {
+  uint32_t qy[2], qx[2];  // row, column + radius: dy + radius = qy - ky (unsigned, out of band wraps high)
+  int qt[2];              // keys of this tile get no bias from the row
+  int tlo, thi;           // key tiles [tlo, thi] may be in band (tlo > thi: none)
+
+  // row: the thread's first query row; wg_row: its warpgroup's first
+  template <int BK>
+  __device__ __forceinline__ void init(const Sm90Args& a, int row, int wg_row) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const StripPos p(row + 8 * r, a);
+      // target: a row outside tile 0 lies out of every band
+      qy[r] = a.target_only && p.t != 0 ? 0x80000000u : static_cast<uint32_t>(p.y + a.radius);
+      qx[r] = static_cast<uint32_t>(p.x + a.radius);
+      qt[r] = a.target_only ? 0 : p.t;
+    }
+    const int last = min(wg_row + 63, a.Nq - 1), ylo = wg_row / a.w_strip, yhi = last / a.w_strip;
+    // the keys of strip rows [ylo - radius, yhi + radius]; target: only a
+    // warpgroup holding a tile-0 row (the start of a strip row, or its
+    // first row's column under w_tile) gets any bias
+    tlo = max(ylo - a.radius, 0) * a.w_strip / BK;
+    thi = static_cast<int>(
+        min(static_cast<long long>(yhi + a.radius + 1) * a.w_strip, static_cast<long long>(a.Nq)) - 1) / BK;
+    if (wg_row >= a.Nq || (a.target_only && yhi == ylo && wg_row - ylo * a.w_strip >= a.w_tile))
+      tlo = 1 << 30;
+  }
+
+  // add the bias of key tile `tile` to the scores s of the two rows (keys
+  // past Nk get some, and the softmax masks them)
+  template <int BK>
+  __device__ __forceinline__ void apply(float (&s)[BK / 2], const Sm90Args& a, int tile, int tq,
+                                        const float* tab) const {
+    if (skip(SKIP_BIAS) || tile < tlo || tile > thi) return;
+    StripPos key(tile * BK, a);
+    if (a.radius <= BIAS_MAX_R && a.w_tile % 8 == 0) {
+      // each 8-key column block lies in one strip row and tile: its row
+      // and tile tests are taken once for a row; the table row 15 is 0
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t row =
+              key.t == qt[r] ? BIAS_SIDE - 1u : min(qy[r] - key.y, BIAS_SIDE - 1u);
+          const uint32_t ux = qx[r] - key.x - 2 * tq;  // + radius - the key's column
+          s[4 * j + 2 * r] += tab[row * BIAS_SIDE + min(ux, BIAS_SIDE - 1u)];
+          s[4 * j + 2 * r + 1] += tab[row * BIAS_SIDE + min(ux - 1, BIAS_SIDE - 1u)];
+        }
+        key.advance(8, a);
+      }
+      return;
+    }
+    // any strip, any radius: each pair's bias, a key at a time
+    const uint32_t span = 2 * a.radius;
+    const float scale = a.bias_log2 / a.scale_log2;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      StripPos p = key;  // key 8 j + 2 tq + c of the tile
+      p.advance(2 * tq + c, a);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t uy = qy[r] - p.y, ux = qx[r] - p.x;
+          if (p.t != qt[r] && uy <= span && ux <= span) {
+            const int dy = static_cast<int>(uy) - a.radius, dx = static_cast<int>(ux) - a.radius;
+            s[4 * j + 2 * r + c] +=
+                scale * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma);
+          }
+        }
+        p.advance(8, a);
+      }
+    }
+  }
+};
+
 // a consumer warpgroup on work unit `un` (its li-th; `last`: the block's
 // last): query rows [q0 + 64 wg, q0 + 64 wg + 64); the unit's tiles are
-// the ring's T0 .. T0 + nt - 1
-template <int DP>
+// the ring's T0 .. T0 + nt - 1; MFR: tab is the bias table
+template <int DP, bool MFR>
 __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int li, bool last,
-                                        int T0, int nt, uint32_t sm, int wg, int tid) {
-  using T = Tiles<DP>;
+                                        int T0, int nt, uint32_t sm, int wg, int tid,
+                                        const float* tab) {
+  using T = Tiles<DP, MFR>;
   constexpr int BK = T::BK;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const int slot = li % QSLOTS;
@@ -302,6 +449,12 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m0 = MAX_FLOOR, m1 = MAX_FLOOR, l0 = 0.f, l1 = 0.f, al0, al1;
+  // MFR: the strip bias of each key tile, added to s before its softmax
+  StripBias sb{};
+  if constexpr (MFR) sb.init<BK>(a, un.q0 + 64 * wg + 16 * warp + g, un.q0 + 64 * wg);
+  auto add_bias = [&](int t) {
+    if constexpr (MFR) sb.apply<BK>(s, a, t, tq, tab);
+  };
 
   mbar_wait(sm + T::QFULL + 8 * slot, (li / QSLOTS) & 1);
   wait_full(0);
@@ -312,6 +465,7 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
   pass(false);
   wgmma_wait<0>();
   fence_operands(s);
+  add_bias(0);
   softmax_tile<BK>(s, min(BK, a.Nk), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
   pack_p<BK>(p, s);
   for (int t = 1; t < nt; ++t) {
@@ -327,6 +481,7 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
     pass(false);
     wgmma_wait<1>();  // q k^T of tile t done, p v of tile t - 1 running
     fence_operands(s);
+    add_bias(t);
     softmax_tile<BK>(s, min(BK, a.Nk - t * BK), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
     wgmma_wait<0>();
     fence_operands(o);
@@ -398,10 +553,10 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
 
 // persistent: block i takes work units i, i + gridDim.x, ... of the
 // B * H * ceil(Nq / BQ) units (neighbouring blocks share a head's K/V in
-// L2)
-template <int DP>
+// L2); MFR: with the strip bias
+template <int DP, bool MFR>
 __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, int B) {
-  using T = Tiles<DP>;
+  using T = Tiles<DP, MFR>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sm = smem_u32(smem);
   const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
@@ -416,6 +571,19 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
     zero_pad(sm + T::RING + s * T::STAGE_BYTES + T::KV_BYTES, T::BK, ch, DP / 8);
   }
   fence_proxy_async();
+  // MFR: the bias table, weight * exp(-dist / sigma) in f32 as the plain
+  // version computes it, times log2(e) / scale_log2 (the scores' domain)
+  const float* tab = reinterpret_cast<const float*>(smem + T::SMEM);
+  if constexpr (MFR) {
+    const float scale = a.bias_log2 / a.scale_log2;
+    for (int i = threadIdx.x; i < BIAS_SIDE * BIAS_SIDE; i += THREADS) {
+      const int uy = i / BIAS_SIDE, ux = i % BIAS_SIDE, dy = uy - a.radius, dx = ux - a.radius;
+      reinterpret_cast<float*>(smem + T::SMEM)[i] =
+          uy <= 2 * a.radius && ux <= 2 * a.radius
+              ? scale * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma)
+              : 0.f;
+    }
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(sm + T::FULL + 8 * s, PRODUCER);  // one arrival a producer thread
@@ -433,25 +601,26 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
   // setmaxnreg count
   if (wg == NC) {  // the producer, after the consumers' warpgroups
     setmaxnreg_dec<PRODUCER_REGS>();
-    produce<DP>(a, units, nqt, nt, sm, tid);
+    produce<DP, MFR>(a, units, nqt, nt, sm, tid);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     if (!skip(SKIP_TURNS) && wg == NC - 1)
       named_bar_arrive(SCHED_BAR, 2 * WG_THREADS);  // consumer 0 first
     for (int li = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x)
-      consume<DP>(a, Unit(u, nqt), li, u + gridDim.x >= units, li * nt, nt, sm, wg, tid);
+      consume<DP, MFR>(a, Unit(u, nqt), li, u + gridDim.x >= units, li * nt, nt, sm, wg, tid, tab);
   }
 }
 
-template <int DP>
+template <int DP, bool MFR>
 cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
+  constexpr uint32_t smem = MFR ? Tiles<DP, MFR>::MFR_SMEM : Tiles<DP>::SMEM;
   // the opt-in above 48 KB and the SM count, once per card
   static unsigned opted = 0;
   static int sms[32];
   if (device >= 32 || !(opted >> device & 1u)) {
     cudaError_t err =
-        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP>),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<DP>::SMEM);
+        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP, MFR>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int n = 0;
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
@@ -462,8 +631,39 @@ cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
   const long long units = static_cast<long long>(B) * a.H * ((a.Nq + BQ - 1) / BQ);
   if (units >= (1LL << 31)) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
-  attention_sm90_kernel<DP><<<grid, THREADS, Tiles<DP>::SMEM, st>>>(a, B);
+  attention_sm90_kernel<DP, MFR><<<grid, THREADS, smem, st>>>(a, B);
   return cudaGetLastError();
+}
+
+template <bool MFR>
+cudaError_t launch(const Sm90Args& a, int B, int device, cudaStream_t st) {
+  switch ((a.D + 15) / 16) {
+    case 1: return launch_dp<16, MFR>(a, B, device, st);
+    case 2: return launch_dp<32, MFR>(a, B, device, st);
+    case 3: return launch_dp<48, MFR>(a, B, device, st);
+    case 4: return launch_dp<64, MFR>(a, B, device, st);
+    case 5: return launch_dp<80, MFR>(a, B, device, st);
+    case 6: return launch_dp<96, MFR>(a, B, device, st);
+    case 7: return launch_dp<112, MFR>(a, B, device, st);
+    default: return launch_dp<128, MFR>(a, B, device, st);
+  }
+}
+
+// the checks and arguments both launchers share
+cudaError_t make_args(Sm90Args& a, const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
+                      long long qsn, long long qsh, long long ksb, long long ksn, long long ksh,
+                      long long vsb, long long vsn, long long vsh, float scale_log2) {
+  if (D < 8 || D > 128 || D % 8 || B < 1 || H < 1 || Nq < 1 || Nk < 1)
+    return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if ((ptrs & 15) || ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & 7))
+    return cudaErrorMisalignedAddress;
+  a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+       static_cast<bf16*>(o), lse, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
+       scale_log2};
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -476,25 +676,42 @@ cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, v
                                   long long qsn, long long qsh, long long ksb, long long ksn,
                                   long long ksh, long long vsb, long long vsn, long long vsh,
                                   float scale_log2, int device, cudaStream_t st) {
-  if (D < 8 || D > 128 || D % 8 || B < 1 || H < 1 || Nq < 1 || Nk < 1)
+  Sm90Args a;
+  const cudaError_t err = make_args(a, q, k, v, o, lse, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn,
+                                    ksh, vsb, vsn, vsh, scale_log2);
+  return err != cudaSuccess ? err : launch<false>(a, B, device, st);
+}
+
+// Launch the MFR strip self-attention, attention_sm90_kernel<DP, true>
+// (as launch_attention_sm90, with N = Nq = Nk = h * w_strip and w_strip =
+// n_tiles * w_tile): scores of in-band pairs of distinct tiles (all, or
+// from tile-0 queries with target_only) gain bias_log2 * exp(-dist *
+// inv_sigma) in the log2 domain. Used by sdaof_attention_mfr
+// (csrc/attention.cu) for d <= 128.
+cudaError_t launch_attention_sm90_mfr(const void* q, const void* k, const void* v, void* o, int B,
+                                      int H, int N, int D, long long qsb, long long qsn,
+                                      long long qsh, long long ksb, long long ksn, long long ksh,
+                                      long long vsb, long long vsn, long long vsh,
+                                      float scale_log2, int w_strip, int w_tile, int radius,
+                                      int target_only, float bias_log2, float inv_sigma,
+                                      int device, cudaStream_t st) {
+  if (w_tile < 1 || w_strip < w_tile || w_strip % w_tile || N % w_strip || radius < 0)
     return cudaErrorInvalidValue;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if ((ptrs & 15) || ((qsb | qsn | qsh | ksb | ksn | ksh | vsb | vsn | vsh) & 7))
-    return cudaErrorMisalignedAddress;
-  const Sm90Args a = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Nq, Nk, D,
-                      qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, scale_log2};
-  switch ((D + 15) / 16) {
-    case 1: return launch_dp<16>(a, B, device, st);
-    case 2: return launch_dp<32>(a, B, device, st);
-    case 3: return launch_dp<48>(a, B, device, st);
-    case 4: return launch_dp<64>(a, B, device, st);
-    case 5: return launch_dp<80>(a, B, device, st);
-    case 6: return launch_dp<96>(a, B, device, st);
-    case 7: return launch_dp<112>(a, B, device, st);
-    default: return launch_dp<128>(a, B, device, st);
-  }
+  Sm90Args a;
+  const cudaError_t err = make_args(a, q, k, v, o, nullptr, B, H, N, N, D, qsb, qsn, qsh, ksb,
+                                    ksn, ksh, vsb, vsn, vsh, scale_log2);
+  if (err != cudaSuccess) return err;
+  a.w_strip = w_strip;
+  a.w_tile = w_tile;
+  a.n_tiles = w_strip / w_tile;
+  // every pair has |dy| <= h - 1 and |dx| <= w_tile - 1, so a wider
+  // radius gives the same bias as this one
+  const int widest = (N / w_strip > w_tile ? N / w_strip : w_tile) - 1;
+  a.radius = radius < widest ? radius : widest;
+  a.target_only = target_only != 0;
+  a.bias_log2 = bias_log2;
+  a.inv_sigma = inv_sigma;
+  return launch<true>(a, B, device, st);
 }
 
 // Attention with statistics (bf16, D a multiple of 8 up to 128): out as

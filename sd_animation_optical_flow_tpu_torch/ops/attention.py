@@ -39,7 +39,12 @@ version beside it:
 * :func:`flash_attention_mfr` replaces the TPU's ``_flash_mfr_kernel``
   (launched by ``flash_attention_mfr`` via ``strip_attention``): strip
   self-attention with the MFR band bias, plain version
-  :func:`strip_attention_plain`.
+  :func:`strip_attention_plain`. At d <= 128 its kernel is
+  ``attention_sm90_kernel`` with the bias as an epilogue on the score
+  tile: only key tiles whose strip rows lie within the radius of a
+  warpgroup's query rows take it, from a table in shared memory. At
+  d = 160 (on no tested path) it is ``csrc/attention.cu``'s older
+  ``attn_mma_kernel<160, MODE_MFR>``.
 * :func:`flash_attention_banded` replaces the TPU's
   ``_flash_banded_kernel`` (launched by ``flash_attention_banded``):
   one frame's queries against ``n`` frames' keys with the banded
@@ -580,9 +585,10 @@ def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
                         radius: int = MFR_RADIUS, weight: float = MFR_WEIGHT,
                         sigma: float | None = None, mode: str = "target"):
     """Strip self-attention with the MFR band bias computed in the kernel
-    (kernel #10, ``attn_mma_kernel<DP, MODE_MFR>``) from the token
-    indices; q/k/v [B, N, H, D] with N = h * n_tiles * w_tile. bf16 on
-    the card, d a multiple of 8 up to 160."""
+    (kernel #10: ``attention_sm90_kernel<DP, true>`` for d <= 128,
+    ``attn_mma_kernel<160, MODE_MFR>`` above) from the token indices;
+    q/k/v [B, N, H, D] with N = h * n_tiles * w_tile. bf16 on the card,
+    d a multiple of 8 up to 160."""
     if sigma is None:
         sigma = mfr_sigma(h)
     if mode not in ("target", "mutual"):

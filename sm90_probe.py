@@ -5,6 +5,7 @@ card: the forwards #1 / #7 (``csrc/attention_sm90.cu``) and #2
 (``csrc/attention_bwd_sm90.cu``):
 
     python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
+    python3 sm90_probe.py --shape strip_l0|strip_l1 [--mode mutual|target]
     python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
     python3 sm90_probe.py --kernel bwd [--shape self_l0|self_l1]
 
@@ -26,7 +27,15 @@ results; they only time what remains. For ``attention_sm90.cu``:
 * ``no_stores``: no output stores to device memory (the bf16 staging in
   shared memory stays);
 * ``no_turns``: the consumer warpgroups issue their products without
-  taking turns (this one computes the right result).
+  taking turns (this one computes the right result);
+* ``no_bias`` (the strip shapes only): the MFR mode without its bias
+  epilogue (no band test, no table reads), so its time against the full
+  kernel's is what the bias costs.
+
+The strip shapes run the kernel's MFR mode (#10: the 2-tile strips of a
+512x768 frame, 64 x 192 latent tokens at L0, 32 x 96 at L1) through a
+shim that exports its C++ launcher as ``sdaof_attention_mfr``, against
+SDPA with the materialized bf16 bias.
 
 For ``attention_wide_sm90.cu`` (the shapes: the VAE mid-block attention
 of one frame and of two, and the UNet's 160-wide L2 heads at 1536
@@ -83,13 +92,15 @@ PROBE_DIR = ROOT / "build" / "probe"
 # (B, Nq, Nk, H, D)
 KERNELS = {
     # attention_sm90.cu's SM90_SKIP bits: SKIP_EXP = 1, SKIP_LOADS = 2,
-    # SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16, SKIP_TURNS = 32
+    # SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16, SKIP_TURNS = 32,
+    # SKIP_BIAS = 64 (the MFR mode's epilogue)
     "sm90": ("attention_sm90.cu",
              {name: [f"SM90_SKIP={bits}"] for name, bits in {
                  "full": 0, "no_exp": 1, "no_loads": 2, "no_pv": 4, "no_softmax": 8,
-                 "no_stores": 16, "no_turns": 32}.items()},
+                 "no_stores": 16, "no_turns": 32, "no_bias": 64}.items()},
              {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80),
-              "cross_l0": (2, 6144, 231, 8, 40), "cross_l1": (2, 1536, 231, 8, 80)}),
+              "cross_l0": (2, 6144, 231, 8, 40), "cross_l1": (2, 1536, 231, 8, 80),
+              "strip_l0": (2, 12288, 12288, 8, 40), "strip_l1": (2, 3072, 3072, 8, 80)}),
     # attention_wide_sm90.cu's WIDE_SKIP bits: SKIP_LOADS = 1, SKIP_QK = 2,
     # SKIP_PV = 4, SKIP_XCH = 8, SKIP_SOFTMAX = 16, SKIP_EXP = 32; and
     # WIDE_CLUSTER, the CTAs of a cluster
@@ -111,6 +122,30 @@ KERNELS = {
                "dkv_nc3_bs32_r160": ["BWD_NC8=3", "BWD_REGS3=160"]},
             {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80)}),
 }
+# the strip shapes' geometry (h, w_tile, n_tiles)
+STRIPS = {"strip_l0": (64, 96, 2), "strip_l1": (32, 48, 2)}
+# the MFR launcher of attention_sm90.cu has C++ linkage: a shim exports
+# it under the name and arguments of sdaof_attention_mfr
+SM90_SHIM = """
+#include <cuda_runtime.h>
+cudaError_t launch_attention_sm90_mfr(const void*, const void*, const void*, void*, int, int, int,
+                                      int, long long, long long, long long, long long, long long,
+                                      long long, long long, long long, long long, float, int, int,
+                                      int, int, float, float, int, cudaStream_t);
+extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, void* o, int B,
+                                   int H, int Nq, int Nk, int D, long long qsb, long long qsn,
+                                   long long qsh, long long ksb, long long ksn, long long ksh,
+                                   long long vsb, long long vsn, long long vsh,
+                                   float scale_log2, int w_strip, int w_tile, int radius,
+                                   int target_only, float bias_log2, float inv_sigma,
+                                   int device, void* stream) {
+  (void)Nk;
+  return launch_attention_sm90_mfr(q, k, v, o, B, H, Nq, D, qsb, qsn, qsh, ksb, ksn, ksh, vsb,
+                                   vsn, vsh, scale_log2, w_strip, w_tile, radius, target_only,
+                                   bias_log2, inv_sigma, device,
+                                   static_cast<cudaStream_t>(stream));
+}
+"""
 # the wide kernel's launcher has C++ linkage: a shim exports it under the
 # name and arguments of sdaof_attention
 WIDE_SHIM = """
@@ -131,14 +166,38 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
 """
 
 
+def in_band_share(h: int, w_tile: int, n_tiles: int, radius: int, target: bool,
+                  bk: int) -> float:
+    """The share of (warpgroup, key tile) pairs of one head that take the
+    MFR bias pass, by the kernel's test (``StripBias::init``): key tiles
+    holding keys of the strip rows within ``radius`` of the warpgroup's
+    64 query rows; none for a warpgroup without a tile-0 row in
+    ``target`` mode. 192-row units, ``bk`` keys a tile."""
+    w_strip = n_tiles * w_tile
+    n = h * w_strip
+    nt = -(-n // bk)
+    taken = total = 0
+    for wg_row in range(0, -(-n // 192) * 192, 64):
+        total += nt
+        last = min(wg_row + 63, n - 1)
+        ylo, yhi = wg_row // w_strip, last // w_strip
+        if wg_row >= n or (target and yhi == ylo and wg_row - ylo * w_strip >= w_tile):
+            continue
+        tlo = max(ylo - radius, 0) * w_strip // bk
+        thi = (min((yhi + radius + 1) * w_strip, n) - 1) // bk
+        taken += thi - tlo + 1
+    return taken / total
+
+
 def build(kernel: str, name: str) -> Path:
     source, variants, _ = KERNELS[kernel]
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     so = PROBE_DIR / f"{kernel}_{name}.so"
     sources = [str(_cuda.CSRC / source)]
-    if kernel == "wide":
-        shim = PROBE_DIR / "wide_shim.cu"
-        shim.write_text(WIDE_SHIM)
+    shims = {"wide": WIDE_SHIM, "sm90": SM90_SHIM}
+    if kernel in shims:
+        shim = PROBE_DIR / f"{kernel}_shim.cu"
+        shim.write_text(shims[kernel])
         sources.append(str(shim))
     out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I",
                           str(_cuda.CSRC), *(f"-D{d}" for d in variants[name]), "-shared",
@@ -247,6 +306,8 @@ def main() -> int:
                     help="one of the kernel's shapes (default: its first)")
     ap.add_argument("--nq", type=int, default=None,
                     help="query tokens in place of the shape's")
+    ap.add_argument("--mode", choices=["mutual", "target"], default="mutual",
+                    help="the strip shapes' tile rule")
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
@@ -257,6 +318,9 @@ def main() -> int:
     shape = args.shape or next(iter(shapes))
     if shape not in shapes:
         ap.error(f"--shape: one of {sorted(shapes)} for --kernel {args.kernel}")
+    strip = STRIPS.get(shape)
+    if not strip:   # the bias epilogue exists on the strips only
+        variants = {n: v for n, v in variants.items() if n != "no_bias"}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -264,7 +328,8 @@ def main() -> int:
         libs = dict(zip(variants, pool.map(lambda v: build(args.kernel, v), variants)))
     if args.kernel == "bwd":
         return probe_bwd(libs, shapes[shape], args, card, shape)
-    entry = "sdaof_attention_fwd_stats" if args.kernel == "sm90" else "sdaof_attention"
+    entry = ("sdaof_attention_mfr" if strip else "sdaof_attention_fwd_stats") \
+        if args.kernel == "sm90" else "sdaof_attention"
     fns = {}
     for name, so in libs.items():
         fn = getattr(ctypes.CDLL(str(so)), entry)
@@ -288,17 +353,30 @@ def main() -> int:
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream().cuda_stream
     scale_log2 = math.log2(math.e) / math.sqrt(d)
-    lse = [None] if args.kernel == "sm90" else []
+    lse = [None] if args.kernel == "sm90" and not strip else []
+    mfr, mask = [], None
+    if strip:   # the strip geometry and bias, as flash_attention_mfr passes them
+        from sd_animation_optical_flow_tpu_torch.ops import attention as A
+        hh, w_tile, n_tiles = strip
+        if nq != hh * n_tiles * w_tile:
+            ap.error("--nq: the strip shapes keep their token count")
+        mfr = [n_tiles * w_tile, w_tile, A.MFR_RADIUS, int(args.mode == "target"),
+               A.MFR_WEIGHT * math.log2(math.e), 1.0 / A.mfr_sigma(hh)]
+        mask = A.mfr_strip_bias(hh, w_tile, n_tiles, mode=args.mode, device="cuda").to(
+            torch.bfloat16)[None, None]
+        share = in_band_share(hh, w_tile, n_tiles, A.MFR_RADIUS, args.mode == "target",
+                              128 if d <= 48 else 64)
+        shape = f"{shape} {args.mode} (bias pass on {share:.3f} of the warpgroups' key tiles)"
 
     def call(fn):
         return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), *lse, b, h, nq, nk, d, *strides,
-                          scale_log2, torch.cuda.current_device(), stream)
+                          scale_log2, *mfr, torch.cuda.current_device(), stream)
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     runs = {name: call(fn) for name, fn in fns.items()}
     runs["sdpa"] = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt)
+        qt, kt, vt, attn_mask=mask)
     outs = {}
     for name, run in runs.items():
         if name != "sdpa":

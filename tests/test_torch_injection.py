@@ -101,6 +101,31 @@ def test_mfr_bias_and_sigma_match_jax():
         TA.mfr_strip_bias(4, 3, 2, mode="both")
 
 
+@pytest.mark.parametrize("h,w_tile,n_tiles,mode", [
+    (5, 7, 2, "target"), (6, 5, 3, "mutual"), (16, 12, 2, "mutual"),
+    (4, 9, 2, "target")])
+def test_mfr_bias_radius_clamp(h, w_tile, n_tiles, mode):
+    """The CUDA kernel clamps the radius to max(h, w_tile) - 1: every
+    pair of a strip has |dy| <= h - 1 and |dx| <= w_tile - 1, so any
+    wider radius gives exactly the bias at the clamp, which is JAX's."""
+    clamp = max(h, w_tile) - 1
+    at_clamp = TA.mfr_strip_bias(h, w_tile, n_tiles, radius=clamp,
+                                 mode=mode)
+    for radius in (clamp + 1, clamp + 7, 1000):
+        assert torch.equal(TA.mfr_strip_bias(h, w_tile, n_tiles,
+                                             radius=radius, mode=mode),
+                           at_clamp)
+        np.testing.assert_allclose(
+            at_clamp.numpy(),
+            np.asarray(JA.mfr_strip_bias(h, w_tile, n_tiles, radius=radius,
+                                         mode=mode)), rtol=1e-6, atol=1e-7)
+    # one less than the clamp drops the pairs at the widest offset
+    if clamp >= 1:
+        assert not torch.equal(TA.mfr_strip_bias(h, w_tile, n_tiles,
+                                                 radius=clamp - 1, mode=mode),
+                               at_clamp)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("mode", ["target", "mutual"])
 @pytest.mark.parametrize("n_tiles,d", [(2, 40), (3, 80)])

@@ -16,8 +16,9 @@ d > 128) d padded to each of its four widths, Nq off its 64-row blocks,
 Nk off its key tiles and below one, B * H > 1, the router's 160-wide
 route and its refusal under a gradient; for the keymask kernel n_own = Nk, n_own not a
 multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
-ragged N, 3 tiles, both modes and key tiles outside the band; both at
-SD-1.5's widest head (d = 160) and at a d padded up to it; for the
+ragged N, 3 tiles, both modes and key tiles outside the band (both at
+SD-1.5's widest head, d = 160, and the keymask kernel at a d padded up
+to it), and the Hopper MFR mode's edges (``MFR_CASES``); for the
 banded kernel the three UNet levels' frame geometries at weight 0 and
 0.7, frames whose h * w is not a multiple of the 64-key tile (tiles
 straddling a frame boundary) and base = -inf; for the
@@ -217,25 +218,65 @@ def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
     assert TA.flash_attention_keymask.launches == n0 + 1
 
 
-@pytest.mark.parametrize("b,hh,w_tile,n_tiles,heads,d,mode,radius", [
-    (1, 5, 7, 2, 2, 40, "target", 6),   # ragged N = 70
-    (2, 5, 7, 2, 2, 40, "mutual", 6),
-    (1, 6, 8, 3, 2, 80, "target", 6),   # 3 tiles
-    (2, 6, 8, 3, 1, 80, "mutual", 6),
-    (1, 16, 12, 2, 2, 40, "mutual", 2),  # key tiles outside the band
-    (1, 4, 6, 4, 2, 160, "mutual", 6),  # SD-1.5's L2 head width, 4 tiles
-    (2, 5, 7, 2, 1, 160, "target", 6)])
+# the MFR kernel's edges: ragged N and N below one 192-row unit, 3 and 4
+# tiles, both modes, key tiles outside the band, units straddling strip
+# rows (w_strip = 80, 100), `target` with a warpgroup wholly outside tile
+# 0 (w_strip = 192: rows 128-191 of a unit are tile 1), radius 0, a radius
+# clamped to the table's widest (100 -> 7) and one past the table (10),
+# fused-QKV column slices, the 512x768 strips' L0 / L1 shapes at B = 2,
+# H = 8; w_tile a multiple of 8 with radius <= 7 takes the table, the
+# rest (w_tile 5, 7, 12, 50; radius 10) the per-pair branch; d <= 128
+# runs attention_sm90_kernel's MFR mode, d = 160 attn_mma_kernel<160,
+# MODE_MFR>
+MFR_CASES = [
+    (1, 5, 7, 2, 2, 40, "target", 6, False),    # ragged N = 70
+    (2, 5, 7, 2, 2, 40, "mutual", 6, False),
+    (1, 6, 8, 3, 2, 80, "target", 6, False),    # 3 tiles
+    (2, 6, 8, 3, 1, 80, "mutual", 6, False),
+    (1, 16, 12, 2, 2, 40, "mutual", 2, False),  # key tiles outside the band
+    (1, 4, 6, 4, 2, 160, "mutual", 6, False),   # SD-1.5's L2 head width, 4 tiles
+    (2, 5, 7, 2, 1, 160, "target", 6, False),
+    (1, 4, 50, 2, 2, 40, "mutual", 6, False),   # units straddle strip rows
+    (2, 6, 40, 2, 2, 80, "target", 6, False),
+    (1, 5, 40, 2, 2, 40, "mutual", 6, False),
+    (1, 4, 96, 2, 2, 40, "target", 6, False),   # warpgroup 2 outside tile 0
+    (1, 8, 16, 2, 2, 40, "mutual", 0, False),   # radius 0
+    (1, 8, 12, 2, 2, 40, "target", 0, False),
+    (1, 6, 8, 2, 2, 64, "target", 100, False),  # clamped to 7, the table's widest
+    (1, 16, 12, 2, 2, 80, "mutual", 10, False),  # past the table: per pair
+    (1, 4, 5, 2, 2, 16, "mutual", 6, False),    # N = 40
+    (2, 16, 48, 2, 8, 40, "mutual", 6, True),   # fused-QKV slices
+    (1, 8, 24, 3, 4, 128, "target", 6, True),
+    (2, 64, 96, 2, 8, 40, "mutual", 6, True),   # strip L0, 512x768
+    (2, 64, 96, 2, 8, 40, "target", 6, True),
+    (2, 32, 48, 2, 8, 80, "mutual", 6, True)]   # strip L1
+
+
+@pytest.mark.parametrize("b,hh,w_tile,n_tiles,heads,d,mode,radius,fused",
+                         MFR_CASES)
 def test_flash_attention_mfr_kernel(gen, b, hh, w_tile, n_tiles, heads, d,
-                                    mode, radius):
+                                    mode, radius, fused):
+    """Against xla_attention with mfr_strip_bias, one head at a time (the
+    L0 strip's f32 scores take 9.7 GB for all heads); two calls bitwise
+    equal (each block writes only its own rows)."""
     n = hh * n_tiles * w_tile
-    q, k, v = (_randn(gen, b, n, heads, d) for _ in range(3))
+    if fused:
+        q, k, v = (t.reshape(b, n, heads, d) for t in
+                   _randn(gen, b, n, 3 * heads * d).chunk(3, dim=-1))
+    else:
+        q, k, v = (_randn(gen, b, n, heads, d) for _ in range(3))
+    kw = dict(h=hh, w_tile=w_tile, n_tiles=n_tiles, mode=mode, radius=radius)
     n0 = TA.flash_attention_mfr.launches
-    out = TA.flash_attention_mfr(q, k, v, h=hh, w_tile=w_tile,
-                                 n_tiles=n_tiles, mode=mode, radius=radius)
+    out = TA.flash_attention_mfr(q, k, v, **kw)
+    again = TA.flash_attention_mfr(q, k, v, **kw)
     bias = TA.mfr_strip_bias(hh, w_tile, n_tiles, radius=radius, mode=mode,
-                             device="cuda")
-    _check(out, TA.xla_attention(q, k, v, bias=bias[None, None]))
-    assert TA.flash_attention_mfr.launches == n0 + 1
+                             device="cuda")[None, None]
+    ref = torch.cat([TA.xla_attention(q[:, :, i:i + 1], k[:, :, i:i + 1],
+                                      v[:, :, i:i + 1], bias=bias)
+                     for i in range(heads)], dim=2)
+    _check(out, ref)
+    assert torch.equal(out, again)
+    assert TA.flash_attention_mfr.launches == n0 + 2
 
 
 @pytest.mark.parametrize("weight", [0.0, 0.7])
