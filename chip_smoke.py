@@ -145,6 +145,7 @@ def _by_head(plain, q, k, v, **kw):
 
 
 def check_kernels():
+    from sd_animation_optical_flow_tpu_torch.ops import _cuda
     from sd_animation_optical_flow_tpu_torch.ops import attention as A
     from sd_animation_optical_flow_tpu_torch.ops import ffn as FF
 
@@ -152,14 +153,16 @@ def check_kernels():
     rows = []
 
     def record(name, kernel_fn, plain_fn, library_fn, flops, nbytes,
-               tol, source, replaces, iters, note="", exps=None):
+               tol, source, replaces, iters, note="", exps=None, design=None):
         """Hold each output of ``kernel_fn`` (a tensor or a tuple) to the
         same output of ``plain_fn``: max |err| <= tol * max |plain| per
         output; the row reports the output with the largest err / limit.
         ``exps``: the exponentials the function needs (attention: one per
         score), for the exp floor in the log line. Kernel and library are
         timed queued (the row's ``ms``, ``library_ms``) and unqueued
-        (``ms_unqueued``, ``library_ms_unqueued``)."""
+        (``ms_unqueued``, ``library_ms_unqueued``). ``design``: the device
+        kernels one call launches, where they are more than one (the
+        kernels line carries it)."""
         outs = kernel_fn()
         torch.cuda.synchronize()
         refs = plain_fn()
@@ -192,7 +195,7 @@ def check_kernels():
                "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S
                > flops / PEAK_BF16_FLOPS else "operations",
                "library_ms": lib_ms, "library_ms_unqueued": lib_unq,
-               "ok": ok}
+               "ok": ok} | ({"design": design} if design else {})
         log(f"[kernel] {name}: max|err| {err:.3e} (tol {tol * scale:.3e} ="
             f" {tol:g} * max|plain| {scale:.3e}; rms(plain) {rms:.3e}; worst "
             f"output) "
@@ -311,6 +314,10 @@ def check_kernels():
     lns = 1.0 + 0.1 * torch.randn(din, generator=gen, device="cuda")
     lnb = 0.1 * torch.randn(din, generator=gen, device="cuda")
     ffn_src = "sd_animation_optical_flow_tpu_torch/csrc/ffn.cu"
+    # kernel #4's source: the two Hopper kernels, or (in a tree from
+    # before them, under --kernels) ffn.cu's geglu_kernel
+    geglu_src = ffn_src if not (_cuda.CSRC / "ffn_sm90.cu").exists() \
+        else "sd_animation_optical_flow_tpu_torch/csrc/ffn_sm90.cu"
     # outputs are sums of din bf16 products rounded to bf16: 2e-2 of the
     # plain version's largest output, as for attention
     ffn_tol = 2e-2
@@ -326,28 +333,42 @@ def check_kernels():
                ffn_tol, ffn_src,
                "sd_animation_optical_flow_tpu/ops/ffn.py:192", iters=20)
 
-    dff = 4 * din
-    w1 = randn(2 * dff, din, scale=1.0 / math.sqrt(din))
-    b1 = randn(2 * dff, scale=1.0 / math.sqrt(din))
-    w2 = randn(din, dff, scale=1.0 / math.sqrt(dff))
-    b2 = randn(din, scale=1.0 / math.sqrt(dff))
+    # kernel #4 at the UNet's transformer tails: L0 of the CFG pair
+    # (12288 rows of 320) and L1 of a 2-frame batch (6144 rows of 640, as
+    # keyframe steps 3-5 run it), dff 4 din, LN and the residual
+    for label, (m, din) in {"L0 tail": (12288, 320),
+                            "L1 tail": (6144, 640)}.items():
+        dff = 4 * din
+        x = randn(m, din)
+        lns = 1.0 + 0.1 * torch.randn(din, generator=gen, device="cuda")
+        lnb = 0.1 * torch.randn(din, generator=gen, device="cuda")
+        w1 = randn(2 * dff, din, scale=1.0 / math.sqrt(din))
+        b1 = randn(2 * dff, scale=1.0 / math.sqrt(din))
+        w2 = randn(din, dff, scale=1.0 / math.sqrt(dff))
+        b2 = randn(din, scale=1.0 / math.sqrt(dff))
 
-    def geglu_library():
-        F = torch.nn.functional
-        hh, g = F.linear(F.layer_norm(x, (din,), lns.to(x.dtype),
-                                      lnb.to(x.dtype)), w1, b1).chunk(2, -1)
-        return x + F.linear(hh * F.gelu(g), w2, b2)
+        def geglu_library():
+            F = torch.nn.functional
+            hh, g = F.linear(F.layer_norm(x, (din,), lns.to(x.dtype),
+                                          lnb.to(x.dtype)), w1, b1).chunk(2, -1)
+            return x + F.linear(hh * F.gelu(g), w2, b2)
 
-    record("geglu_ff_fused [L0 tail]",
-           lambda: FF.geglu_ff_fused(x, w1, b1, w2, b2, lns, lnb,
-                                     residual=True),
-           lambda: FF.geglu_ff_plain(x, w1, b1, w2, b2, lns, lnb, 1e-5,
-                                      True),
-           geglu_library, 2.0 * m * din * 2 * dff + 2.0 * m * dff * din,
-           2.0 * (2 * x.numel() + w1.numel() + b1.numel() + w2.numel()
-                  + b2.numel()) + 8.0 * din,
-           ffn_tol, ffn_src, "sd_animation_optical_flow_tpu/ops/ffn.py:54",
-           iters=20)
+        # the bound counts the function's inputs and output, not the
+        # [m, dff] intermediate the two kernels pass through device memory
+        record(f"geglu_ff_fused [{label}]",
+               lambda: FF.geglu_ff_fused(x, w1, b1, w2, b2, lns, lnb,
+                                         residual=True),
+               lambda: FF.geglu_ff_plain(x, w1, b1, w2, b2, lns, lnb, 1e-5,
+                                          True),
+               geglu_library, 2.0 * m * din * 2 * dff + 2.0 * m * dff * din,
+               2.0 * (2 * x.numel() + w1.numel() + b1.numel() + w2.numel()
+                      + b2.numel()) + 8.0 * din,
+               ffn_tol, geglu_src,
+               "sd_animation_optical_flow_tpu/ops/ffn.py:54", iters=20,
+               design=None if geglu_src == ffn_src else
+               "geglu_up_sm90_kernel (LN prologue, W1, GEGLU in registers "
+               "-> a [m, dff] bf16) then geglu_down_sm90_kernel (a @ W2^T, "
+               "b2 and residual epilogue): two wgmma GEMMs, one call")
     check_training_kernels(gen, record, rows, attn_tol)
     return rows
 
@@ -975,7 +996,9 @@ def _kernel_name(mangled: str) -> str:
 def ptxas_report(text: str, named=("attention_sm90_kernel",
                                      "attention_wide_sm90_kernel",
                                      "attention_bwd_dkv_sm90_kernel",
-                                     "attention_bwd_dq_sm90_kernel")):
+                                     "attention_bwd_dq_sm90_kernel",
+                                     "geglu_up_sm90_kernel",
+                                     "geglu_down_sm90_kernel")):
     """Lines of the ptxas report (``nvcc -Xptxas -v``) worth printing:
     registers and spills of every instantiation of the ``named`` kernels
     (wgmma kernels whose registers setmaxnreg hands over), and anywhere
@@ -1027,6 +1050,16 @@ def profile_frame(run, label, top: int = 8):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile] {label}:   {e.self_device_time_total / 1e3:8.2f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+    # kernel #4 is two device kernels a call (geglu_up_sm90_kernel, then
+    # geglu_down_sm90_kernel; one, geglu_kernel, before them): counted together
+    geglu = [(re.search(r"geglu_\w+", e.key).group(0), e) for e in kern
+             if "geglu" in e.key]
+    if geglu:
+        ms = sum(e.self_device_time_total for _, e in geglu) / 1e3
+        calls = max(e.count for _, e in geglu)
+        log(f"[profile] {label}: #4 ("
+            + ", ".join(f"{name} x{e.count}" for name, e in geglu)
+            + f") {ms:.2f} ms, {ms / calls:.4f} ms a call")
     return busy_ms, wall_ms
 
 
@@ -1081,7 +1114,11 @@ def main() -> int:
             "attention_bwd_dkv_sm90_kernel, attention_bwd_dq_sm90_kernel (#8 "
             "and #9: one wgmma skeleton, a cp.async ring of the streamed "
             "axis; csrc/attention_bwd_sm90.cu); "
-            "linear_ln_kernel, geglu_kernel (csrc/ffn.cu)")
+            "linear_ln_kernel (#3, csrc/ffn.cu); geglu_up_sm90_kernel, "
+            "geglu_down_sm90_kernel (#4: two wgmma GEMMs on one skeleton, "
+            "a cp.async ring each; the LN prologue and the GEGLU in "
+            "registers, then W2 with the bias and residual epilogue; "
+            "csrc/ffn_sm90.cu)")
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log(f"[ptxas] {line}")
 
@@ -1162,7 +1199,8 @@ def main() -> int:
                 "name", "route", "source", "replaces")}
                 | {"launches": launches}
                 | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")})
+                                     "bound_ms", "bound_by", "library_ms")}
+                | {k: r[k] for k in ("design",) if k in r})
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},

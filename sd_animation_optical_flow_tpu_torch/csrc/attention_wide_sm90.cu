@@ -74,8 +74,6 @@
 // d pads to DP, a multiple of 32 so that each half is a whole number of
 // boxes: DP = 160 (d 136..160, halves of 80), 256, 384 and 512.
 
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
-
 #include "sm90.cuh"
 
 namespace {
@@ -421,21 +419,6 @@ __global__ void __launch_bounds__(THREADS, 1) attention_wide_sm90_kernel(const _
     consume<DP>(a, b, h, q0, nt, sm, wg, tid);
   }
   cluster_sync();  // no CTA exits while another's copies or releases may reach it
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
-// libcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
-  }
-  return fn;
 }
 
 // a 4-d map of bf16 [B, N, H, D] (strides sb, sn, sh in elements, unit

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's kernels: wgmma
 // descriptors and instructions with their fences and waits, mbarriers,
-// cp.async copies and groups, TMA copies (multicast too), transaction
-// mbarriers and clusters, proxy fences, named barriers and register
-// hand-over (setmaxnreg), and the online softmax of a score tile in
-// registers. Header-only, on top of mma.cuh (bf16, pack_bf16, smem_u32);
-// every helper is __device__ __forceinline__ in an anonymous namespace
-// per translation unit.
+// cp.async copies and groups, TMA copies (multicast too) and the host's
+// tensor-map encoder, transaction mbarriers and clusters, proxy fences,
+// named barriers and register hand-over (setmaxnreg), and the online
+// softmax of a score tile in registers. Header-only, on top of mma.cuh
+// (bf16, pack_bf16, smem_u32); every helper is __forceinline__ (the
+// encoder inline) in an anonymous namespace per translation unit.
 //
 // Shared-memory layout of every wgmma operand here: the canonical
 // no-swizzle ("interleave") layout. A core matrix is 8 rows of 16 bytes
@@ -20,7 +20,8 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap
+#include <cuda.h>          // CUtensorMap
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <math.h>
 
 #include "mma.cuh"
@@ -205,6 +206,52 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// tma_load_4d for 2-d and 3-d maps, in this CTA only
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x0, int x1, int x2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(x2), "r"(bar)
+      : "memory");
+}
+
+// copy a box from shared memory at src to a 2-d tensor map at (x0, x1)
+// (parts past the map's bounds are not written), in this thread's bulk
+// group; the writes to src must be fenced to the async proxy before
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x0), "r"(x1)
+      : "memory");
+}
+
+// close this thread's bulk copies into a group; wait until at most N of
+// its groups are still reading shared memory (READ) or not yet done
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map,
                                                       uint32_t bar, int x0, int x1, int x2,
                                                       int x3, uint16_t mask) {
@@ -214,6 +261,21 @@ __device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtens
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(bar),
       "h"(mask)
       : "memory");
+}
+
+// cuTensorMapEncodeTiled (host), looked up through the CUDA runtime (no
+// link to libcuda); null where the driver lacks it
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
 }
 
 // hand registers between warpgroups (every thread of a warpgroup runs it,
@@ -479,6 +541,36 @@ struct Wgmma<128> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<160> {
+  // d (+)= A B, A and B from shared memory, both K-major; scale_d = 0
+  // overwrites d
+  __device__ static __forceinline__ void ss(float (&d)[80], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(scale_d)
         : "memory");
   }
 };

@@ -61,9 +61,9 @@ _SIGNATURES = {
     + [_F, _I, _P],
     # x, ln_scale, ln_bias, w, y, M, din, dout, eps, device, stream
     "sdaof_linear_ln": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, y, M, din, dff, eps, residual,
-    # device, stream
-    "sdaof_geglu": [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P],
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, a (the [M, dff] scratch), y, M,
+    # din, dff, eps, residual, device, stream
+    "sdaof_geglu": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
 }
 
 

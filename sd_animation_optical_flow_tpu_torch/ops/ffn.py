@@ -3,13 +3,15 @@
 Counterpart of ``sd_animation_optical_flow_tpu/ops/ffn.py``. Weights take
 the port's (torch) layout: a linear weight is [out, in].
 
-Kernels (``csrc/ffn.cu``), each with its plain version beside it:
+Kernels, each with its plain version beside it:
 
 * :func:`linear_ln_fused` replaces the TPU's ``_linear_ln_kernel``:
-  ``LN(x) @ w^T``, the UNet's LN1 -> QKV and LN2 -> Q projections.
+  ``LN(x) @ w^T``, the UNet's LN1 -> QKV and LN2 -> Q projections
+  (``csrc/ffn.cu``).
 * :func:`geglu_ff_fused` replaces the TPU's ``_geglu_kernel`` /
   ``_geglu_kernel_ln``: ``[x +] FF([LN](x))`` with the GEGLU
-  feed-forward, the transformer-block tail.
+  feed-forward, the transformer-block tail (``csrc/ffn_sm90.cu``: two
+  wgmma kernels).
 
 On a CPU tensor each wrapper returns its plain version (the unfused
 chain); on a CUDA tensor it launches its kernel (bf16 only) or raises.
@@ -54,7 +56,7 @@ def _rows(x):
 
 
 def _aligned(t):
-    # the kernels stage weights with 16-byte loads (a view at an odd
+    # the kernels stage tiles with 16-byte loads (a view at an odd
     # offset gets a fresh copy)
     t = t.contiguous()
     return t if t.data_ptr() % 32 == 0 else t.clone()
@@ -102,10 +104,13 @@ def geglu_ff_fused(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
     ``h | gate = [LN](x) @ w1^T + b1``; w1 [2*dff, din] (value rows, then
     gate rows), w2 [din, dff].
 
-    Kernel #4 (``geglu_kernel``): a block owns 32 rows for the whole dff
-    loop, so the second product accumulates in registers and the
-    [rows, dff] intermediates stay in shared memory. Needs din a multiple
-    of 64 up to 640 and dff a multiple of 64."""
+    Kernel #4, two launches on the current stream (``csrc/ffn_sm90.cu``):
+    ``geglu_up_sm90_kernel`` normalises 128-row blocks of x into shared
+    memory and writes ``a = h * gelu(gate)`` [rows, dff] in bf16 (the
+    TPU kernel's rounding point before w2) to a scratch tensor, then
+    ``geglu_down_sm90_kernel`` computes ``a @ w2^T + b2 [+ x]``; both
+    are wgmma GEMMs fed by a cp.async ring. ``.launches`` counts calls.
+    Needs din a multiple of 64 up to 640 and dff a multiple of 64."""
     if x.device.type != "cuda":
         return geglu_ff_plain(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps,
                               residual)
@@ -115,18 +120,21 @@ def geglu_ff_fused(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
     if w1.shape != (2 * dff, din) or w2.shape != (din, dff):
         raise ValueError(f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} do "
                          f"not match din {din}")
+    x2 = _aligned(x2)
     w1, b1, w2, b2 = (_aligned(t.to(x.dtype)) for t in (w1, b1, w2, b2))
     _check_bf16_cuda(x2, w1, b1, w2, b2)
     if ln_scale is not None:
-        lns = ln_scale.float().contiguous()
-        lnb = ln_bias.float().contiguous()
+        lns = _aligned(ln_scale.float())
+        lnb = _aligned(ln_bias.float())
         ln_ptrs = (lns.data_ptr(), lnb.data_ptr())
     else:
         ln_ptrs = (None, None)
+    a = torch.empty((m, dff), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x2)
     _cuda.call("sdaof_geglu", x.device, x2.data_ptr(), *ln_ptrs,
                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-               y.data_ptr(), m, din, dff, ln_eps, int(residual))
+               a.data_ptr(), y.data_ptr(), m, din, dff, ln_eps,
+               int(residual))
     geglu_ff_fused.launches += 1
     return y.reshape(x.shape)
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper attention kernels goes, on one NVIDIA
-card: the forwards #1 / #7 (``csrc/attention_sm90.cu``) and #2
-(``csrc/attention_wide_sm90.cu``), and the backward pair #8 / #9
-(``csrc/attention_bwd_sm90.cu``):
+"""Where the time of the Hopper kernels goes, on one NVIDIA card: the
+attention forwards #1 / #7 (``csrc/attention_sm90.cu``) and #2
+(``csrc/attention_wide_sm90.cu``), the backward pair #8 / #9
+(``csrc/attention_bwd_sm90.cu``) and the GEGLU tail #4
+(``csrc/ffn_sm90.cu``):
 
     python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
     python3 sm90_probe.py --shape strip_l0|strip_l1 [--mode mutual|target]
     python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
     python3 sm90_probe.py --kernel bwd [--shape self_l0|self_l1]
+    python3 sm90_probe.py --kernel geglu [--shape l0|l1]
 
 Builds copies of the kernel's source with one part of the work left out
 (``-DSM90_SKIP=<bits>`` / ``-DWIDE_SKIP=<bits>``, the kernel's
@@ -69,6 +71,23 @@ forward):
   producer 32; these compute the right result. The ptxas lines of any
   copy that spills or serialises its wgmma are printed first.
 
+For ``ffn_sm90.cu`` (``-DGEGLU_SKIP``; the UNet's transformer tails, x
+[12288, 320], dff 1280 at L0 and x [6144, 640], dff 2560 at L1 of a
+2-frame batch, with LN and the residual; each copy times the up kernel,
+the down kernel on the full copy's a, and the pair as the port calls it,
+against the library chain and its two halves, and the pair run over row
+chunks of 4096 rows, whose a stays in the 50 MB L2 between the two
+launches):
+
+* ``no_prologue``: the up kernel neither loads x nor normalises it;
+* ``no_epilogue``: neither kernel's epilogue (no GEGLU, bias, residual or
+  stores);
+* ``no_loads``: the ring stages of the first ring of k chunks only, as
+  above.
+
+The ptxas lines of both kernels (registers, spills) of every copy are
+printed first.
+
 Nothing of the port uses these copies.
 """
 
@@ -77,6 +96,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
+import re
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -88,6 +108,7 @@ from sd_animation_optical_flow_tpu_torch.ops import _cuda
 
 ROOT = Path(__file__).resolve().parent
 PROBE_DIR = ROOT / "build" / "probe"
+CHUNK = 4096    # rows of a chunk of the chunked GEGLU pair (a: 10.5 MB at L0)
 # per kernel: its source, the defines of each variant, and its shapes
 # (B, Nq, Nk, H, D)
 KERNELS = {
@@ -121,6 +142,12 @@ KERNELS = {
             | {"dkv_nc3_bs32": ["BWD_NC8=3"],
                "dkv_nc3_bs32_r160": ["BWD_NC8=3", "BWD_REGS3=160"]},
             {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80)}),
+    # ffn_sm90.cu's GEGLU_SKIP bits: SKIP_PROLOGUE = 1, SKIP_EPILOGUE = 2,
+    # SKIP_LOADS = 4; the shapes (M, din, dff)
+    "geglu": ("ffn_sm90.cu",
+              {name: [f"GEGLU_SKIP={bits}"] for name, bits in {
+                  "full": 0, "no_prologue": 1, "no_epilogue": 2, "no_loads": 4}.items()},
+              {"l0": (12288, 320, 1280), "l1": (6144, 640, 2560)}),
 }
 # the strip shapes' geometry (h, w_tile, n_tiles)
 STRIPS = {"strip_l0": (64, 96, 2), "strip_l1": (32, 48, 2)}
@@ -165,6 +192,27 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
 }
 """
 
+# the GEGLU kernels' launchers have C++ linkage: a shim exports them
+GEGLU_SHIM = """
+#include <cuda_runtime.h>
+cudaError_t launch_geglu_up_sm90(const void*, const void*, const void*, const void*, const void*,
+                                 void*, int, int, int, float, int, cudaStream_t);
+cudaError_t launch_geglu_down_sm90(const void*, const void*, const void*, const void*, void*, int,
+                                   int, int, int, int, cudaStream_t);
+extern "C" int sdaof_geglu_up(const void* x, const void* lns, const void* lnb, const void* w1,
+                              const void* b1, void* a, int M, int din, int dff, float eps,
+                              int device, void* stream) {
+  return launch_geglu_up_sm90(x, lns, lnb, w1, b1, a, M, din, dff, eps, device,
+                              static_cast<cudaStream_t>(stream));
+}
+extern "C" int sdaof_geglu_down(const void* a, const void* w2, const void* b2, const void* x,
+                                void* y, int M, int din, int dff, int residual, int device,
+                                void* stream) {
+  return launch_geglu_down_sm90(a, w2, b2, x, y, M, din, dff, residual, device,
+                                static_cast<cudaStream_t>(stream));
+}
+"""
+
 
 def in_band_share(h: int, w_tile: int, n_tiles: int, radius: int, target: bool,
                   bk: int) -> float:
@@ -194,7 +242,7 @@ def build(kernel: str, name: str) -> Path:
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
     so = PROBE_DIR / f"{kernel}_{name}.so"
     sources = [str(_cuda.CSRC / source)]
-    shims = {"wide": WIDE_SHIM, "sm90": SM90_SHIM}
+    shims = {"wide": WIDE_SHIM, "sm90": SM90_SHIM, "geglu": GEGLU_SHIM}
     if kernel in shims:
         shim = PROBE_DIR / f"{kernel}_shim.cu"
         shim.write_text(shims[kernel])
@@ -299,6 +347,111 @@ def probe_bwd(libs, shape, args, card, label) -> int:
     return 0
 
 
+def probe_geglu(libs, shape, args, card, label) -> int:
+    """The up and down kernels of each copy of ffn_sm90.cu apart and as a
+    pair, against the library chain, interleaved in rounds (as ``main``);
+    and the pair over row chunks of ``CHUNK`` rows."""
+    for name, so in libs.items():   # both kernels' registers and spills
+        kern = ""
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                bn = re.search(r"ILi(\d+)E", line)
+                kern = f"down<{bn.group(1)}>" if bn else "up"
+            elif kern and ("registers" in line or "spill" in line or "wgmma" in line.lower()):
+                print(f"[ptxas] {name:11s} {kern:9s} {line.strip()}")
+    m, din, dff = shape
+    F = torch.nn.functional
+    gen = torch.Generator("cuda").manual_seed(0)
+    bf = lambda *sh, scale=1.0: (torch.randn(sh, generator=gen, device="cuda") * scale).to(
+        torch.bfloat16)
+    x = bf(m, din)
+    w1, b1 = bf(2 * dff, din, scale=din ** -0.5), bf(2 * dff, scale=din ** -0.5)
+    w2, b2 = bf(din, dff, scale=dff ** -0.5), bf(din, scale=dff ** -0.5)
+    lns = 1.0 + 0.1 * torch.randn(din, generator=gen, device="cuda")
+    lnb = 0.1 * torch.randn(din, generator=gen, device="cuda")
+    a = torch.empty((m, dff), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+    ptr = lambda t, row=0: t.data_ptr() + row * t.stride(0) * t.element_size()
+    entries = {"sdaof_geglu": _cuda._SIGNATURES["sdaof_geglu"],
+               "sdaof_geglu_up": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+               "sdaof_geglu_down": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+    runs = {}
+    for name, so in libs.items():
+        lib = ctypes.CDLL(str(so))
+        fn = {}
+        for entry, argtypes in entries.items():
+            fn[entry] = getattr(lib, entry)
+            fn[entry].argtypes = argtypes
+            fn[entry].restype = ctypes.c_int
+
+        def up(fn=fn, r0=0, rows=m):
+            return fn["sdaof_geglu_up"](ptr(x, r0), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
+                                        b1.data_ptr(), ptr(a, r0), rows, din, dff, 1e-5, dev,
+                                        stream)
+
+        def down(fn=fn, r0=0, rows=m):
+            return fn["sdaof_geglu_down"](ptr(a, r0), w2.data_ptr(), b2.data_ptr(), ptr(x, r0),
+                                          ptr(y, r0), rows, din, dff, 1, dev, stream)
+
+        def chunked(up=up, down=down):
+            for r0 in range(0, m, CHUNK):
+                rows = min(CHUNK, m - r0)
+                err = up(r0=r0, rows=rows) or down(r0=r0, rows=rows)
+                if err:
+                    return err
+            return 0
+
+        runs[(name, "up")] = up
+        runs[(name, "down")] = down
+        runs[(name, "pair")] = lambda fn=fn: fn["sdaof_geglu"](
+            x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), a.data_ptr(), y.data_ptr(), m, din, dff, 1e-5, 1, dev,
+            stream)
+        runs[(name, "chunked")] = chunked
+
+    def lib_up():
+        hh, g = F.linear(F.layer_norm(x, (din,), lns.to(x.dtype), lnb.to(x.dtype)), w1,
+                         b1).chunk(2, -1)
+        return hh * F.gelu(g)
+
+    a_lib = lib_up()
+    runs[("library", "up")] = lib_up
+    runs[("library", "down")] = lambda: x + F.linear(a_lib, w2, b2)
+    runs[("library", "pair")] = lambda: x + F.linear(lib_up(), w2, b2)
+    outs = {}
+    for name in libs:
+        for part in ("pair", "chunked"):
+            y.zero_()
+            err = runs[(name, part)]()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"{name} {part}: CUDA error {err}")
+            outs[(name, part)] = y.float().clone()
+    ref = runs[("library", "pair")]().float()
+    times = {key: [] for key in runs}
+    for _ in range(args.rounds):
+        for key, run in runs.items():
+            times[key].append(_mean_ms(run, args.iters))
+    flops = 6.0 * m * din * dff
+    print(f"[probe] {card}; geglu {label} x [{m},{din}] dff {dff}, LN + residual; median of "
+          f"{args.rounds} rounds of {args.iters} calls; bf16 bound "
+          f"{1e3 * flops / 989e12:.4f} ms (up {1e3 * 4 * m * din * dff / 989e12:.4f}, down "
+          f"{1e3 * 2 * m * din * dff / 989e12:.4f})")
+    ms = {key: statistics.median(ts) for key, ts in times.items()}
+    for key in runs:
+        full = ms[("full", key[1])]
+        diff = ""
+        if key in outs:
+            diff = f", max |out - library's| {(outs[key] - ref).abs().max().item():.3e}"
+        print(f"[probe] {key[0]:11s} {key[1]:7s} {ms[key]:.4f} ms ({ms[key] / full:.2f} of "
+              f"full's, {ms[key] / ms[('library', key[1] if key[1] != 'chunked' else 'pair')]:.2f}"
+              f" of the library's){diff}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=list(KERNELS), default="sm90")
@@ -328,6 +481,8 @@ def main() -> int:
         libs = dict(zip(variants, pool.map(lambda v: build(args.kernel, v), variants)))
     if args.kernel == "bwd":
         return probe_bwd(libs, shapes[shape], args, card, shape)
+    if args.kernel == "geglu":
+        return probe_geglu(libs, shapes[shape], args, card, shape)
     entry = ("sdaof_attention_mfr" if strip else "sdaof_attention_fwd_stats") \
         if args.kernel == "sm90" else "sdaof_attention"
     fns = {}

@@ -179,11 +179,20 @@ def test_linear_ln_kernel(gen, m, din, dout):
            TF.linear_ln_plain(x, w, g, bta, 1e-5))
 
 
-@pytest.mark.parametrize("m,din,ln,residual", [(100, 320, True, True),
-                                               (45, 640, True, True),
-                                               (64, 64, False, False)])
-def test_geglu_kernel(gen, m, din, ln, residual):
-    dff = 4 * din
+# the two Hopper kernels' edges (128-row blocks; the up kernel's 64-wide
+# dff tiles split across blocks, the down kernel's 160 / 128 / 64 output
+# columns a block): M off the row block (100, 45, 4000), the UNet's L0
+# and L1 widths (din 320 / dff 1280, din 640 / dff 2560: 160 columns),
+# din 128 (128 columns), 64 and 192 (64 columns), with and without LN and
+# the residual, 13 dff tiles (a split that cannot divide them evenly), and
+# the L0 / L1 tails at full size (more than one wave of blocks); two calls
+# bitwise equal (no atomics)
+@pytest.mark.parametrize("m,din,dff,ln,residual", [
+    (100, 320, 1280, True, True), (45, 640, 2560, True, True),
+    (64, 64, 256, False, False), (100, 192, 768, False, True),
+    (100, 128, 512, True, False), (4000, 320, 832, True, True),
+    (12288, 320, 1280, True, True), (6144, 640, 2560, True, True)])
+def test_geglu_kernel(gen, m, din, dff, ln, residual):
     x = _randn(gen, m, din)
     w1 = _randn(gen, 2 * dff, din, scale=din ** -0.5)
     b1 = _randn(gen, 2 * dff, scale=0.1)
@@ -193,8 +202,10 @@ def test_geglu_kernel(gen, m, din, ln, residual):
         if ln else None
     bta = 0.1 * torch.randn(din, generator=gen, device="cuda") \
         if ln else None
-    _check(TF.geglu_ff_fused(x, w1, b1, w2, b2, g, bta, residual=residual),
-           TF.geglu_ff_plain(x, w1, b1, w2, b2, g, bta, 1e-5, residual))
+    out = TF.geglu_ff_fused(x, w1, b1, w2, b2, g, bta, residual=residual)
+    _check(out, TF.geglu_ff_plain(x, w1, b1, w2, b2, g, bta, 1e-5, residual))
+    assert torch.equal(out, TF.geglu_ff_fused(x, w1, b1, w2, b2, g, bta,
+                                              residual=residual))
 
 
 @pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", [

@@ -122,12 +122,14 @@ def _ffn_params(np_rng, din, dff):
     return w1, b1, w2, b2, g, beta
 
 
+# the last case is the UNet's L0 width (din 320, dff 1280), the shape the
+# card's kernel is held to this plain version at
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("ln,residual,m", [(True, True, 300),
-                                           (False, False, 256)])
-def test_geglu_ff_plain_matches_jax(np_rng, dt, ln, residual, m):
+@pytest.mark.parametrize("ln,residual,m,din,dff", [(True, True, 300, 64, 256),
+                                                   (False, False, 256, 64, 256),
+                                                   (True, True, 64, 320, 1280)])
+def test_geglu_ff_plain_matches_jax(np_rng, dt, ln, residual, m, din, dff):
     jdt, tdt, tol = DTYPES[dt]
-    din, dff = 64, 256
     x = np_rng.standard_normal((m, din)).astype(np.float32) * 0.5
     w1, b1, w2, b2, g, beta = _ffn_params(np_rng, din, dff)
     xj, xt = _pair(x, jdt, tdt)
