@@ -13,11 +13,12 @@
 // The plain forward and the forward with statistics run on the Hopper
 // kernels of csrc/attention_sm90.cu (d <= 128) and csrc/
 // attention_wide_sm90.cu (d > 128); sdaof_attention routes there, and
-// sdaof_attention_mfr sends the MFR strip attention at d <= 128 to
-// attention_sm90_kernel's MFR mode. This file keeps the masked and banded
-// modes, and the MFR mode at d = 160. It replaces these Pallas TPU
-// kernels of sd_animation_optical_flow_tpu/ops/attention.py (the Python
-// wrappers keep their names and counters):
+// sdaof_attention_mfr / sdaof_attention_keymask send the MFR strip
+// attention and the CFG key mask at d <= 128 to attention_sm90_kernel's
+// MFR and keymask modes. This file keeps the banded mode, and the MFR and
+// keymask modes at d = 160. It replaces these Pallas TPU kernels of
+// sd_animation_optical_flow_tpu/ops/attention.py (the Python wrappers
+// keep their names and counters):
 //
 // attn_mma_kernel<DP, MODE>: a warp per 16 query rows; q k^T and p v both
 // on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d
@@ -26,18 +27,20 @@
 // product, so p never leaves registers. Its modes:
 //
 //   _flash_keymask_kernel_tpv (flash_attention_keymask: the CFG K/V
-//     injection, uncond rows see their own keys only)
-//     -> attn_mma_kernel<DP, MODE_KEYMASK>: batch rows b < n_uncond run
-//     their key loop to n_own only (the last tile masked in registers as
-//     any ragged tile), so the uncond half never reads a key past n_own;
-//     the TPU kernel masks the same scores to -1e30 and still streams
-//     them. The cond rows run all Nk.
+//     injection, uncond rows see their own keys only) at d = 160 only
+//     (SD-1.5's third UNet level at a 1024x1536 frame, on no tested path;
+//     d <= 128 runs attention_sm90_kernel<DP, MODE_KEYMASK>, csrc/
+//     attention_sm90.cu) -> attn_mma_kernel<160, MODE_KEYMASK>: batch
+//     rows b < n_uncond run their key loop to n_own only (the last tile
+//     masked in registers as any ragged tile), so the uncond half never
+//     reads a key past n_own; the TPU kernel masks the same scores to
+//     -1e30 and still streams them. The cond rows run all Nk.
 //   _flash_mfr_kernel (flash_attention_mfr: MFR strip self-attention)
 //     at d = 160 only (SD-1.5's third UNet level, on no tested path: a
 //     4-tile strip; attention_sm90_kernel's 192-row units, Q slots and
 //     ring do not fit 227 KB at that width, so d = 160 waits for the
 //     d-split design of attention_wide_sm90_kernel; d <= 128 runs
-//     attention_sm90_kernel<DP, true>, csrc/attention_sm90.cu)
+//     attention_sm90_kernel<DP, MODE_MFR>, csrc/attention_sm90.cu)
 //     -> attn_mma_kernel<160, MODE_MFR>: the band bias weight * exp(-dist
 //     / sigma) (Chebyshev radius, `target` / `mutual` tile rule) is
 //     computed in registers from the token indices (y = i / w_strip,
@@ -70,8 +73,8 @@
 // special-function units). These kernels use mma.sync without pipelining
 // the tile loads (no cp.async ring, no wgmma), so they sit several times
 // above those bounds; attention_sm90.cu's design (sm90.cuh), which runs
-// the MFR strips at d <= 128, is the next step for the keymask and
-// banded modes.
+// the MFR strips and the key mask at d <= 128, is the next step for the
+// banded mode.
 
 #include <math.h>
 
@@ -330,14 +333,15 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
 // launchers
 // ---------------------------------------------------------------------------
 
-template <int MODE>
-cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
+// the banded mode at every DP (the keymask and MFR modes run here at d =
+// 160 only, launched by their entry points)
+cudaError_t launch_banded(const AttnArgs& a, int D, cudaStream_t st) {
   const dim3 grid((a.Nq + MMA_BQ - 1) / MMA_BQ, a.B * a.H);
   const int threads = 32 * MMA_WARPS;
   switch ((D + 15) / 16) {
 #define SDAOF_MMA_CASE(NK)                                            \
   case NK:                                                            \
-    attn_mma_kernel<16 * NK, MODE><<<grid, threads, 0, st>>>(a, D);   \
+    attn_mma_kernel<16 * NK, MODE_BANDED><<<grid, threads, 0, st>>>(a, D); \
     return cudaGetLastError();
     SDAOF_MMA_CASE(1)
     SDAOF_MMA_CASE(2)
@@ -351,7 +355,7 @@ cudaError_t launch_mma(const AttnArgs& a, int D, cudaStream_t st) {
     case 9:
     case 10:
       // SD-1.5's 160-wide heads of the third UNet level
-      attn_mma_kernel<160, MODE><<<grid, threads, 0, st>>>(a, D);
+      attn_mma_kernel<160, MODE_BANDED><<<grid, threads, 0, st>>>(a, D);
       return cudaGetLastError();
     default:
       return cudaErrorInvalidValue;
@@ -396,6 +400,12 @@ AttnArgs make_args(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // csrc/attention_sm90.cu, csrc/attention_wide_sm90.cu
+cudaError_t launch_attention_sm90_keymask(const void* q, const void* k, const void* v, void* o,
+                                          int B, int H, int Nq, int Nk, int D, long long qsb,
+                                          long long qsn, long long qsh, long long ksb,
+                                          long long ksn, long long ksh, long long vsb,
+                                          long long vsn, long long vsh, float scale_log2,
+                                          int n_own, int n_uncond, int device, cudaStream_t st);
 cudaError_t launch_attention_sm90_mfr(const void* q, const void* k, const void* v, void* o, int B,
                                       int H, int N, int D, long long qsb, long long qsn,
                                       long long qsh, long long ksb, long long ksn, long long ksh,
@@ -434,7 +444,9 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
 }
 
 // The CFG K/V-injection attention (bf16, D a multiple of 8 up to 160):
-// batch rows < n_uncond attend to keys < n_own only (1 <= n_own).
+// batch rows < n_uncond attend to keys < n_own only (1 <= n_own). d <= 128
+// runs attention_sm90_kernel<DP, MODE_KEYMASK> (csrc/attention_sm90.cu),
+// d > 128 attn_mma_kernel<160, MODE_KEYMASK>.
 extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void* v, void* o,
                                        int B, int H, int Nq, int Nk, int D, long long qsb,
                                        long long qsn, long long qsh, long long ksb,
@@ -445,18 +457,25 @@ extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void*
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 128)
+    return launch_attention_sm90_keymask(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn,
+                                         ksh, vsb, vsn, vsh, scale_log2, n_own, n_uncond, device,
+                                         st);
   AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
                          scale_log2);
   a.n_own = n_own;
   a.n_uncond = n_uncond;
   if (!aligned(a, D)) return cudaErrorMisalignedAddress;
-  return launch_mma<MODE_KEYMASK>(a, D, static_cast<cudaStream_t>(stream));
+  const dim3 grid((Nq + MMA_BQ - 1) / MMA_BQ, B * H);
+  attn_mma_kernel<160, MODE_KEYMASK><<<grid, 32 * MMA_WARPS, 0, st>>>(a, D);
+  return cudaGetLastError();
 }
 
 // MFR strip self-attention (bf16, D a multiple of 8 up to 160, Nq = Nk =
 // h * w_strip, w_strip = n_tiles * w_tile): scores of in-band pairs of
 // distinct tiles gain bias_log2 * exp(-dist * inv_sigma). d <= 128 runs
-// attention_sm90_kernel<DP, true> (csrc/attention_sm90.cu), d = 160
+// attention_sm90_kernel<DP, MODE_MFR> (csrc/attention_sm90.cu), d = 160
 // attn_mma_kernel<160, MODE_MFR>.
 extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, void* o, int B,
                                    int H, int Nq, int Nk, int D, long long qsb, long long qsn,
@@ -515,7 +534,7 @@ extern "C" int sdaof_attention_banded(const void* q, const void* k, const void* 
   a.base_log2 = base_log2;
   a.inv_sigma = inv_sigma;
   if (!aligned(a, D)) return cudaErrorMisalignedAddress;
-  return launch_mma<MODE_BANDED>(a, D, static_cast<cudaStream_t>(stream));
+  return launch_banded(a, D, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* sdaof_error_string(int err) {

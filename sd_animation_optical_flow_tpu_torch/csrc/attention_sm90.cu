@@ -24,7 +24,24 @@
 //     attention.cu routes here, d = 160 stays on attention.cu's
 //     attn_mma_kernel<160, MODE_MFR>: 192-row units, their Q slots and
 //     the ring do not fit 227 KB there) -> attention_sm90_kernel<DP,
-//     true>, the same kernel with an epilogue on the score tile (below).
+//     MODE_MFR>, the same kernel with an epilogue on the score tile
+//     (below).
+//   _flash_keymask_kernel_tpv (flash_attention_keymask, via
+//     attention_injected: the CFG K/V injection, d <= 128;
+//     sdaof_attention_keymask in attention.cu routes here, d = 160 stays
+//     on attn_mma_kernel<160, MODE_KEYMASK>) -> attention_sm90_kernel<DP,
+//     MODE_KEYMASK>: the batch rows b < n_uncond (the uncond half) see
+//     keys < n_own only. A unit of such a row walks min(Nk, n_own) keys
+//     instead of Nk, its last tile masked and its loads past that bound
+//     zero-filled exactly as the ragged last tile of Nk is, so the uncond
+//     rows never read a key past n_own (the TPU kernel masks the same
+//     scores to -1e30 and still streams them). The producer and the
+//     consumers index the ring by a running count of the tiles of the
+//     units they walk, in the same order. At the injected inpaint's L0
+//     (2 x 8 heads, 6144 queries, 12288 keys, n_own 6144, one uncond row)
+//     the 512 units take 48 or 96 key tiles; round-robin over 132 blocks
+//     the busiest block walks 288 tiles against a mean of 279 (an order
+//     of the units heaviest first gives the same 288).
 //
 // What bounds it on the H100: at SD's self-attention (self L0: 2 x 8
 // heads, 6144 tokens, d = 40) the tensor-core work takes 0.098 ms at the
@@ -82,7 +99,7 @@
 // * Epilogue: O / l to bf16 staged through the warpgroup's own Q rows of
 //   shared memory, then written as 16-byte row chunks; the Q slot then
 //   goes back to the producer (its "empty" mbarrier).
-// * The MFR strip bias (MFR = true): softmax over keys of q k^T * scale +
+// * The MFR strip bias (MODE_MFR): softmax over keys of q k^T * scale +
 //   weight * exp(-dist / sigma) on pairs of distinct tiles (`mutual`) or
 //   from tile-0 queries to other tiles (`target`), inside a Chebyshev
 //   radius; 0 elsewhere. Token i of the width-concatenated strip sits at
@@ -130,13 +147,20 @@ struct Sm90Args {
   long long ksb, ksn, ksh;
   long long vsb, vsn, vsh;
   float scale_log2;  // softmax scale * log2(e): scores live in the log2 domain
-  // the MFR strip bias (attention_sm90_kernel<DP, true> only): strip and
+  // the MFR strip bias (attention_sm90_kernel<DP, MODE_MFR> only): strip and
   // tile width in tokens, tiles a strip row, Chebyshev radius (clamped
   // to max(h, w_tile) - 1), tile rule (1: tile-0 queries to the other
   // tiles; 0: every pair of distinct tiles), weight * log2(e), 1 / sigma
   int w_strip, w_tile, n_tiles, radius, target_only;
   float bias_log2, inv_sigma;
+  // the CFG key mask (attention_sm90_kernel<DP, MODE_KEYMASK> only): batch
+  // rows < n_uncond attend to keys < n_own only
+  int n_own, n_uncond;
 };
+
+// the kernel's modes (as attn_mma_kernel's in attention.cu): plain, with
+// the per-row key bound of the CFG key mask, with the MFR strip bias
+enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2 };
 
 constexpr int NC = 3;                   // consumer warpgroups
 constexpr int BQ = 64 * NC;             // query rows per work unit
@@ -163,11 +187,11 @@ __host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) !=
 // dx + radius) each clamped to BIAS_SIDE - 1; entries past 2 radius are 0
 constexpr int BIAS_SIDE = 16, BIAS_MAX_R = (BIAS_SIDE - 2) / 2;
 
-template <int DP, bool MFR = false>  // head dim padded to a multiple of 16
+template <int DP, int MODE = MODE_PLAIN>  // head dim padded to a multiple of 16
 struct Tiles {
   // keys per tile; the MFR mode's state leaves a consumer too few
   // registers for o at DP = 128 beside 64-key score tiles
-  static constexpr int BK = DP <= 48 ? 128 : MFR && DP > 112 ? 32 : 64;
+  static constexpr int BK = DP <= 48 ? 128 : MODE == MODE_MFR && DP > 112 ? 32 : 64;
   static constexpr uint32_t Q_BYTES = BQ * DP * 2;   // one Q slot
   static constexpr uint32_t KV_BYTES = BK * DP * 2;  // one of K, V
   static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
@@ -187,6 +211,14 @@ struct Unit {
   __device__ Unit(int u, int nqt) : bh(u / nqt), q0((u % nqt) * BQ) {}
 };
 
+// the keys a unit attends to: all Nk, or in MODE_KEYMASK for the uncond
+// batch rows (b < n_uncond) the first min(Nk, n_own); its key tiles are
+// the first (keys + BK - 1) / BK, the last masked past `keys`
+template <int MODE>
+__device__ __forceinline__ int unit_keys(const Sm90Args& a, const Unit& un) {
+  return MODE == MODE_KEYMASK && un.bh / a.H < a.n_uncond ? min(a.Nk, a.n_own) : a.Nk;
+}
+
 // zero 16-byte chunks [ch, DP / 8) of a tile of `rows` rows (contiguous
 // in the chunk-major layout)
 __device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp8) {
@@ -199,10 +231,10 @@ __device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp
 // its K/V tiles through the ring; it runs ahead of the consumers by up to
 // STAGES tiles and QSLOTS - 1 units' Q, so the next units' loads overlap this
 // unit's math and epilogue
-template <int DP, bool MFR>
-__device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, int nt, uint32_t sm,
+template <int DP, int MODE>
+__device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, uint32_t sm,
                                         int tid) {
-  using T = Tiles<DP, MFR>;
+  using T = Tiles<DP, MODE>;
   constexpr int BK = T::BK;
   constexpr int NE = (BK * DP / 8 + PRODUCER - 1) / PRODUCER;  // copies per tile
   const int ch = a.D / 8, rq = 8 * ch;  // 16-byte chunks of a row, of a row group
@@ -244,6 +276,7 @@ __device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, i
   for (int li = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x) {
     const Unit un(u, nqt);
     const int b = un.bh / a.H, h = un.bh % a.H, slot = li % QSLOTS;
+    const int nk = unit_keys<MODE>(a, un), nt = (nk + BK - 1) / BK;
     const bf16* q = a.q + b * a.qsb + h * a.qsh;
     const bf16* k = a.k + b * a.ksb + h * a.ksh;
     const bf16* v = a.v + b * a.vsb + h * a.vsh;
@@ -260,7 +293,7 @@ __device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, i
       const int s = tl % STAGES;
       if (tl >= STAGES) acquire(sm + T::EMPTY + 8 * s, ((tl / STAGES) - 1) & 1);
       const uint32_t ks = sm + T::RING + s * T::STAGE_BYTES, vs = ks + T::KV_BYTES;
-      const int nvalid = a.Nk - t * BK;
+      const int nvalid = nk - t * BK;
       const bf16* kt = k + static_cast<long long>(t) * BK * a.ksn;
       const bf16* vt = v + static_cast<long long>(t) * BK * a.vsn;
       int gq = g0, w = w0;
@@ -403,13 +436,14 @@ struct StripBias {
 };
 
 // a consumer warpgroup on work unit `un` (its li-th; `last`: the block's
-// last): query rows [q0 + 64 wg, q0 + 64 wg + 64); the unit's tiles are
-// the ring's T0 .. T0 + nt - 1; MFR: tab is the bias table
-template <int DP, bool MFR>
+// last): query rows [q0 + 64 wg, q0 + 64 wg + 64) against its nk keys;
+// the unit's tiles are the ring's T0 .. T0 + nt - 1 (the tiles of the
+// block's earlier units come first); MFR: tab is the bias table
+template <int DP, int MODE>
 __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int li, bool last,
-                                        int T0, int nt, uint32_t sm, int wg, int tid,
+                                        int T0, int nt, int nk, uint32_t sm, int wg, int tid,
                                         const float* tab) {
-  using T = Tiles<DP, MFR>;
+  using T = Tiles<DP, MODE>;
   constexpr int BK = T::BK;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const int slot = li % QSLOTS;
@@ -451,9 +485,9 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
   float m0 = MAX_FLOOR, m1 = MAX_FLOOR, l0 = 0.f, l1 = 0.f, al0, al1;
   // MFR: the strip bias of each key tile, added to s before its softmax
   StripBias sb{};
-  if constexpr (MFR) sb.init<BK>(a, un.q0 + 64 * wg + 16 * warp + g, un.q0 + 64 * wg);
+  if constexpr (MODE == MODE_MFR) sb.init<BK>(a, un.q0 + 64 * wg + 16 * warp + g, un.q0 + 64 * wg);
   auto add_bias = [&](int t) {
-    if constexpr (MFR) sb.apply<BK>(s, a, t, tq, tab);
+    if constexpr (MODE == MODE_MFR) sb.apply<BK>(s, a, t, tq, tab);
   };
 
   mbar_wait(sm + T::QFULL + 8 * slot, (li / QSLOTS) & 1);
@@ -466,7 +500,7 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
   wgmma_wait<0>();
   fence_operands(s);
   add_bias(0);
-  softmax_tile<BK>(s, min(BK, a.Nk), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
+  softmax_tile<BK>(s, min(BK, nk), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
   pack_p<BK>(p, s);
   for (int t = 1; t < nt; ++t) {
     wait_full(t);
@@ -482,7 +516,7 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
     wgmma_wait<1>();  // q k^T of tile t done, p v of tile t - 1 running
     fence_operands(s);
     add_bias(t);
-    softmax_tile<BK>(s, min(BK, a.Nk - t * BK), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
+    softmax_tile<BK>(s, min(BK, nk - t * BK), a.scale_log2, tq, m0, m1, l0, l1, al0, al1);
     wgmma_wait<0>();
     fence_operands(o);
     fence_operands(p);
@@ -553,15 +587,15 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
 
 // persistent: block i takes work units i, i + gridDim.x, ... of the
 // B * H * ceil(Nq / BQ) units (neighbouring blocks share a head's K/V in
-// L2); MFR: with the strip bias
-template <int DP, bool MFR>
+// L2); MODE_MFR: with the strip bias; MODE_KEYMASK: the uncond batch rows'
+// units walk min(Nk, n_own) keys, the others Nk
+template <int DP, int MODE>
 __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, int B) {
-  using T = Tiles<DP, MFR>;
+  using T = Tiles<DP, MODE>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sm = smem_u32(smem);
   const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
   const int nqt = (a.Nq + BQ - 1) / BQ, units = B * a.H * nqt;
-  const int nt = (a.Nk + T::BK - 1) / T::BK;
 
   // zero the padded chunks once (no load writes them), then the barriers
   const int ch = a.D / 8;
@@ -574,7 +608,7 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
   // MFR: the bias table, weight * exp(-dist / sigma) in f32 as the plain
   // version computes it, times log2(e) / scale_log2 (the scores' domain)
   const float* tab = reinterpret_cast<const float*>(smem + T::SMEM);
-  if constexpr (MFR) {
+  if constexpr (MODE == MODE_MFR) {
     const float scale = a.bias_log2 / a.scale_log2;
     for (int i = threadIdx.x; i < BIAS_SIDE * BIAS_SIDE; i += THREADS) {
       const int uy = i / BIAS_SIDE, ux = i % BIAS_SIDE, dy = uy - a.radius, dx = ux - a.radius;
@@ -601,25 +635,29 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
   // setmaxnreg count
   if (wg == NC) {  // the producer, after the consumers' warpgroups
     setmaxnreg_dec<PRODUCER_REGS>();
-    produce<DP, MFR>(a, units, nqt, nt, sm, tid);
+    produce<DP, MODE>(a, units, nqt, sm, tid);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     if (!skip(SKIP_TURNS) && wg == NC - 1)
       named_bar_arrive(SCHED_BAR, 2 * WG_THREADS);  // consumer 0 first
-    for (int li = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x)
-      consume<DP, MFR>(a, Unit(u, nqt), li, u + gridDim.x >= units, li * nt, nt, sm, wg, tid, tab);
+    for (int li = 0, T0 = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x) {
+      const Unit un(u, nqt);
+      const int nk = unit_keys<MODE>(a, un), nt = (nk + T::BK - 1) / T::BK;
+      consume<DP, MODE>(a, un, li, u + gridDim.x >= units, T0, nt, nk, sm, wg, tid, tab);
+      T0 += nt;
+    }
   }
 }
 
-template <int DP, bool MFR>
+template <int DP, int MODE>
 cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
-  constexpr uint32_t smem = MFR ? Tiles<DP, MFR>::MFR_SMEM : Tiles<DP>::SMEM;
+  constexpr uint32_t smem = MODE == MODE_MFR ? Tiles<DP, MODE>::MFR_SMEM : Tiles<DP, MODE>::SMEM;
   // the opt-in above 48 KB and the SM count, once per card
   static unsigned opted = 0;
   static int sms[32];
   if (device >= 32 || !(opted >> device & 1u)) {
     cudaError_t err =
-        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP, MFR>),
+        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP, MODE>),
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int n = 0;
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
@@ -631,21 +669,21 @@ cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
   const long long units = static_cast<long long>(B) * a.H * ((a.Nq + BQ - 1) / BQ);
   if (units >= (1LL << 31)) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
-  attention_sm90_kernel<DP, MFR><<<grid, THREADS, smem, st>>>(a, B);
+  attention_sm90_kernel<DP, MODE><<<grid, THREADS, smem, st>>>(a, B);
   return cudaGetLastError();
 }
 
-template <bool MFR>
+template <int MODE>
 cudaError_t launch(const Sm90Args& a, int B, int device, cudaStream_t st) {
   switch ((a.D + 15) / 16) {
-    case 1: return launch_dp<16, MFR>(a, B, device, st);
-    case 2: return launch_dp<32, MFR>(a, B, device, st);
-    case 3: return launch_dp<48, MFR>(a, B, device, st);
-    case 4: return launch_dp<64, MFR>(a, B, device, st);
-    case 5: return launch_dp<80, MFR>(a, B, device, st);
-    case 6: return launch_dp<96, MFR>(a, B, device, st);
-    case 7: return launch_dp<112, MFR>(a, B, device, st);
-    default: return launch_dp<128, MFR>(a, B, device, st);
+    case 1: return launch_dp<16, MODE>(a, B, device, st);
+    case 2: return launch_dp<32, MODE>(a, B, device, st);
+    case 3: return launch_dp<48, MODE>(a, B, device, st);
+    case 4: return launch_dp<64, MODE>(a, B, device, st);
+    case 5: return launch_dp<80, MODE>(a, B, device, st);
+    case 6: return launch_dp<96, MODE>(a, B, device, st);
+    case 7: return launch_dp<112, MODE>(a, B, device, st);
+    default: return launch_dp<128, MODE>(a, B, device, st);
   }
 }
 
@@ -679,10 +717,10 @@ cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, v
   Sm90Args a;
   const cudaError_t err = make_args(a, q, k, v, o, lse, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn,
                                     ksh, vsb, vsn, vsh, scale_log2);
-  return err != cudaSuccess ? err : launch<false>(a, B, device, st);
+  return err != cudaSuccess ? err : launch<MODE_PLAIN>(a, B, device, st);
 }
 
-// Launch the MFR strip self-attention, attention_sm90_kernel<DP, true>
+// Launch the MFR strip self-attention, attention_sm90_kernel<DP, MODE_MFR>
 // (as launch_attention_sm90, with N = Nq = Nk = h * w_strip and w_strip =
 // n_tiles * w_tile): scores of in-band pairs of distinct tiles (all, or
 // from tile-0 queries with target_only) gain bias_log2 * exp(-dist *
@@ -711,7 +749,27 @@ cudaError_t launch_attention_sm90_mfr(const void* q, const void* k, const void* 
   a.target_only = target_only != 0;
   a.bias_log2 = bias_log2;
   a.inv_sigma = inv_sigma;
-  return launch<true>(a, B, device, st);
+  return launch<MODE_MFR>(a, B, device, st);
+}
+
+// Launch the CFG K/V-injection attention, attention_sm90_kernel<DP,
+// MODE_KEYMASK> (as launch_attention_sm90, without lse): batch rows <
+// n_uncond attend to keys < n_own only (n_own >= 1), the others to all
+// Nk. Used by sdaof_attention_keymask (csrc/attention.cu) for d <= 128.
+cudaError_t launch_attention_sm90_keymask(const void* q, const void* k, const void* v, void* o,
+                                          int B, int H, int Nq, int Nk, int D, long long qsb,
+                                          long long qsn, long long qsh, long long ksb,
+                                          long long ksn, long long ksh, long long vsb,
+                                          long long vsn, long long vsh, float scale_log2,
+                                          int n_own, int n_uncond, int device, cudaStream_t st) {
+  if (n_own < 1 || n_uncond < 0) return cudaErrorInvalidValue;
+  Sm90Args a;
+  const cudaError_t err = make_args(a, q, k, v, o, nullptr, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb,
+                                    ksn, ksh, vsb, vsn, vsh, scale_log2);
+  if (err != cudaSuccess) return err;
+  a.n_own = n_own;
+  a.n_uncond = n_uncond;
+  return launch<MODE_KEYMASK>(a, B, device, st);
 }
 
 // Attention with statistics (bf16, D a multiple of 8 up to 128): out as

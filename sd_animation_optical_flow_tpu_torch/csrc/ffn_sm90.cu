@@ -1,9 +1,11 @@
-// The GEGLU transformer-block tail for Hopper (sm_90a) as two wgmma GEMMs
-// on one skeleton. Plain C interface for ctypes (ops/_cuda.py builds and
-// loads this file).
+// The transformer block's two fused LayerNorm GEMMs for Hopper (sm_90a):
+// the GEGLU tail (#4) as two wgmma GEMMs on one skeleton, and the
+// LN-prologue projection (#3) on the same skeleton. Plain C interface for
+// ctypes (ops/_cuda.py builds and loads this file).
 //
-// Replaces the Pallas TPU kernel _geglu_kernel / _geglu_kernel_ln of
-// sd_animation_optical_flow_tpu/ops/ffn.py (geglu_ff_fused): for x [M, din]
+// Replaces the Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
+// ffn.py: _geglu_kernel / _geglu_kernel_ln (geglu_ff_fused) and
+// _linear_ln_kernel (linear_ln_fused). For x [M, din] the GEGLU tail is
 //
 //   xn = bf16(LN(x))                  (f32 mean, then var = mean((x -
 //                                      mean)^2), affine in f32; or xn = x)
@@ -66,6 +68,53 @@
 // and the rings fill at ~1.5 TB/s from L2 (sm90_probe.py --kernel geglu:
 // without the loads past its first ring the down kernel takes 0.46 of its
 // time at L0). Whole 128-byte rows need the swizzled layouts.
+//
+// The LN-prologue projection, linear_ln_sm90_kernel<BN>: y [M, dout] =
+// bf16(xn @ W^T), xn = bf16(LN(x)) as above, W [dout, din], no bias; the
+// UNet's LN1 -> QKV (dout 3 din) and LN2 -> Q (dout din) projections.
+//
+// * The up kernel's skeleton without the GEGLU: 128-row blocks, two
+//   consumer warpgroups of 64 rows, one producer thread. It first loads
+//   the block's x by TMA into the resident xn tile (rows past M and
+//   columns past din zero-filled), then streams W's BN x 64 k chunks
+//   through the ring; each consumer normalises its 64 rows in place while
+//   the first stages land, then runs one m64nBNk16 chain a column tile.
+// * 128-byte-swizzled operands: the x and W boxes are whole 128-byte
+//   rows (64 bf16 of k) under TMA's SWIZZLE_128B, which is the layout of
+//   wgmma's layout type 1 (gmma_desc_sw128), and the LN reads and writes
+//   xn at the same swizzled offsets (a conflict-free 16-byte chunk a
+//   thread, 8 threads on the 8 rows of an atom). A box then moves 128
+//   bytes a row where #4's no-swizzle 8-column boxes move 16.
+// * BN = 160 (it divides the UNet's 320, 640, 960 and 1920) where 4 ring
+//   stages fit beside the 128 x din xn tile and the two output tiles (din
+//   up to 384), else 64 (at din 640: the 160 KB xn tile, two 8 KB output
+//   tiles and 6 stages of 8 KB). Column tiles past dout read zero-filled
+//   W rows, and the stores clip them.
+// * Grid: the column tiles are split across blocks by the up kernel's
+//   rule (choose_splits), each split recomputing the LN of its rows
+//   (deterministic), with a block's LN and fixed costs weighed as the
+//   products of LN_COLS = 600 output columns. sm90_probe.py --kernel
+//   linear_ln times each split count on the H100: at x [12288, 320] and
+//   [24576, 320] a block costs ~3-4 tiles of 160 columns (480-690) beyond
+//   its tiles, and any weight from 480 columns up picks the fastest
+//   measured split at every UNet shape: one block a row block at L0 (QKV
+//   of the CFG pair: 6 tiles of 160 on 96 SMs; of a 2-frame batch: 2
+//   waves of 6, 0.94x the time of 3 waves of 3), two at L1 (48 row
+//   blocks, 64-column tiles: 96 blocks; a one-tile weight would take
+//   five splits, 1.10x the time).
+// * Epilogue: each consumer rounds its tile to bf16 into a shared-memory
+//   tile of 32-column panels (64-byte rows under TMA's SWIZZLE_64B, so the
+//   stores of a warp's 8 rows hit distinct banks) and one thread stores
+//   the panels with TMA, which clips rows past M and columns past dout.
+// * What bounds it: 2 M din dout operations (7.5 GFLOP for QKV at L0,
+//   0.0076 ms at the bf16 peak) against x, W and y (32 MB, 0.0096 ms), so
+//   the bytes; each row block reads all of W from L2 (59 MB at L0).
+//   sm90_probe.py --kernel linear_ln on the H100 reads QKV L0 at ~2.5x
+//   that bound, and the parts in series rather than the loads: without
+//   the loads past the first ring it takes 0.99 of its time, without the
+//   prologue 0.72 (0.57 at L1, where the LN of 640-wide rows is done in
+//   each of two splits), without the epilogue's stores 0.57. On #4's
+//   no-swizzle tiles and 8-column boxes it took 1.5-2.0x the time.
 //
 // No atomics: two calls give bitwise-equal outputs.
 
@@ -234,16 +283,18 @@ __device__ __forceinline__ float gelu_erf(float g) {
 
 // LayerNorm of 64 rows [row0, row0 + 64) of the xn tile in place: 4 lanes
 // a row (lane % 8 the row of a group of 8, lane / 8 every fourth 16-byte
-// chunk), f32 statistics, the affine in f32, rounded to bf16
+// chunk), f32 statistics, the affine in f32, rounded to bf16; offset(row,
+// chunk) is the tile's layout
+template <class Offset>
 __device__ void ln_rows(uint32_t xn, int row0, int din, const float* lns, const float* lnb,
-                        float eps, int tid) {
+                        float eps, int tid, Offset offset) {
   const int warp = tid >> 5, lane = tid & 31, nch = din / 8;
   const int cp = lane >> 3;
   for (int grp = warp; grp < 8; grp += 4) {
     const int row = row0 + 8 * grp + (lane & 7);
     float f[8], sum = 0.f;
     for (int c = cp; c < nch; c += 4) {
-      unpack8(lds128(xn + tile_offset(row, c, BM)), f);
+      unpack8(lds128(xn + offset(row, c)), f);
 #pragma unroll
       for (int i = 0; i < 8; ++i) sum += f[i];
     }
@@ -252,7 +303,7 @@ __device__ void ln_rows(uint32_t xn, int row0, int din, const float* lns, const 
     const float mean = sum / din;
     float sq = 0.f;
     for (int c = cp; c < nch; c += 4) {
-      unpack8(lds128(xn + tile_offset(row, c, BM)), f);
+      unpack8(lds128(xn + offset(row, c)), f);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float dx = f[i] - mean;
@@ -263,7 +314,7 @@ __device__ void ln_rows(uint32_t xn, int row0, int din, const float* lns, const 
     sq += __shfl_xor_sync(0xffffffffu, sq, 16);
     const float rstd = rsqrtf(sq / din + eps);
     for (int c = cp; c < nch; c += 4) {
-      const uint32_t at = xn + tile_offset(row, c, BM);
+      const uint32_t at = xn + offset(row, c);
       unpack8(lds128(at), f);
       const float4 s0 = *reinterpret_cast<const float4*>(lns + 8 * c);
       const float4 s1 = *reinterpret_cast<const float4*>(lns + 8 * c + 4);
@@ -361,7 +412,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_wait<0>();
     named_bar_sync(1 + wg, WG_THREADS);
     if (p.lns != nullptr) {
-      ln_rows(xn, 64 * wg, p.din, p.lns, p.lnb, p.eps, tid);
+      ln_rows(xn, 64 * wg, p.din, p.lns, p.lnb, p.eps, tid,
+              [](int r, int c) { return tile_offset(r, c, BM); });
       named_bar_sync(1 + wg, WG_THREADS);
     }
   }
@@ -491,8 +543,155 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// #3: y = bf16(LN(x) @ w^T), linear_ln_sm90_kernel<BN>
+// ---------------------------------------------------------------------------
+
+constexpr int LN_BNS[] = {160, 64};     // column tiles: the first where 4 stages fit
+constexpr int LN_COLS = 600;            // a block's LN and fixed costs, in output columns
+constexpr int OUT_PANEL = 32;           // columns of an output box (64-byte rows)
+constexpr uint32_t LN_SLACK = 1024;     // the dynamic base, rounded up to 1024 bytes
+
+struct LnMaps {  // TMA maps of x (BM-row boxes), w (BN-row boxes) and y
+                 // (32 x 64 boxes, SWIZZLE_64B)
+  CUtensorMap x, w, y;
+};
+
+struct LnArgs {
+  const float* lns;
+  const float* lnb;
+  int M, din, dout, splits, stages;
+  float eps;
+};
+
+// the kernel's shared memory from its 1024-byte aligned base: the xn tile
+// (din padded to 64-column panels), each consumer's 64 x BN output tile,
+// the ring of BN x 64 W stages, the mbarriers
+__host__ __device__ constexpr uint32_t ln_xn(int din) { return BM * ((din + KC - 1) / KC) * KC * 2; }
+__host__ __device__ constexpr uint32_t ln_out(int bn) { return 64 * bn * 2; }
+__host__ __device__ constexpr uint32_t ln_stage(int bn) { return bn * KC * 2; }
+__host__ __device__ constexpr uint32_t ln_ring(int din, int bn) { return ln_xn(din) + NC * ln_out(bn); }
+__host__ __device__ constexpr int ln_fit(int din, int bn) {
+  return fit(ln_ring(din, bn) + LN_SLACK + BARS, ln_stage(bn));
+}
+__host__ __device__ constexpr uint32_t ln_smem(int din, int bn, int stages) {
+  return LN_SLACK + ln_ring(din, bn) + stages * ln_stage(bn) + BARS;
+}
+
+static_assert(ln_fit(384, LN_BNS[0]) >= 4 && ln_fit(MAX_DIN, LN_BNS[1]) >= 4,
+              "shared memory of one block");
+
+// the descriptor of k16 step ks of rows [row0, row0 + 64 or BN) of a
+// K-major 128-byte-swizzled tile of `rows` rows
+__device__ __forceinline__ uint64_t ln_desc(uint32_t tile, int row0, int ks, int rows) {
+  return gmma_desc_sw128(tile + swizzled_offset(row0, 2 * ks, rows));
+}
+
+// y tile of this warpgroup (64 rows from row0, BN columns from n0) in
+// bf16: staged in 32-column panels of 64-byte rows, 16-byte chunk c of row
+// r at chunk c ^ (r / 2 % 4) (TMA's SWIZZLE_64B), then one TMA copy a
+// panel; the copies clip rows past M and columns past dout. ob is reused
+// once the previous tile's copies have read it.
+template <int BN>
+__device__ __forceinline__ void ln_store(const float (&acc)[BN / 2], const LnMaps& maps,
+                                         uint32_t ob, int n0, int row0, const LnArgs& p, int wg,
+                                         int tid) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, tq = tid & 3;
+  if (tid == 0) bulk_wait_read<0>();
+  named_bar_sync(1 + wg, WG_THREADS);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + g + 8 * half;
+      sts32(ob + (j >> 2) * 64 * 64 + r * 64 + (((j & 3) ^ ((r >> 1) & 3)) << 4) + 4 * tq,
+            pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]));
+    }
+  fence_proxy_async();  // the staged tile before the TMA copies read it
+  named_bar_sync(1 + wg, WG_THREADS);
+  if (tid == 0 && row0 < p.M) {
+    for (int c = 0; c < BN / OUT_PANEL && n0 + c * OUT_PANEL < p.dout; ++c)
+      tma_store_2d(&maps.y, ob + c * 64 * OUT_PANEL * 2, n0 + c * OUT_PANEL, row0);
+    bulk_commit();
+  }
+}
+
+// y = bf16(LN(x) @ w^T) for rows [m0, m0 + 128) and the column tiles t in
+// [t0, t1) of BN columns each
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    linear_ln_sm90_kernel(const __grid_constant__ LnMaps maps, const LnArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sm = (smem_u32(smem) + LN_SLACK - 1) & ~(LN_SLACK - 1);
+  const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
+  const int rbs = (p.M + BM - 1) / BM, nt = (p.dout + BN - 1) / BN, nk = (p.din + KC - 1) / KC;
+  const int m0 = (blockIdx.x % rbs) * BM, split = blockIdx.x / rbs;
+  const int t0 = split * nt / p.splits, t1 = (split + 1) * nt / p.splits;
+  constexpr uint32_t STAGE = ln_stage(BN);
+  const uint32_t xn = sm, ring = sm + ln_ring(p.din, BN);
+  const uint32_t bars = ring + p.stages * STAGE;  // FULL, EMPTY, XFULL as in init_ring
+  init_ring(bars, p.stages);
+
+  if (wg == NC) {  // the producer, one thread: the block's x, then W's k
+                   // chunk kc of each tile t
+    if (tid == 0) {
+      if (!skip(SKIP_PROLOGUE)) {
+        mbar_arrive_expect_tx(bars + XFULL, ln_xn(p.din));
+        for (int kc = 0; kc < nk; ++kc)  // 64-column panel kc of the block's rows
+          tma_load_2d(xn + swizzled_offset(0, 8 * kc, BM), &maps.x, bars + XFULL, kc * KC, m0);
+      }
+      Slot sl;
+      for (int t = t0, use = 0; t < t1; ++t)
+        for (int kc = 0; kc < nk; ++kc, ++use, sl.next(p.stages))
+          if (begin_stage(bars, sl, use, p.stages, STAGE))
+            tma_load_2d(ring + sl.s * STAGE, &maps.w, bars + FULL + 8 * sl.s, kc * KC, t * BN);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows [m0 + 64 wg, m0 + 64 wg + 64), normalised
+  // in place (chunks past din stay zero)
+  const int lane = tid & 31;
+  if (!skip(SKIP_PROLOGUE)) {
+    mbar_wait(bars + XFULL, 0);
+    ln_rows(xn, 64 * wg, p.din, p.lns, p.lnb, p.eps, tid,
+            [](int r, int c) { return swizzled_offset(r, c, BM); });
+  }
+  fence_proxy_async();  // xn's generic-proxy writes before wgmma reads them
+  named_bar_sync(1 + wg, WG_THREADS);
+
+  float acc[BN / 2];
+  Slot sl, prev;
+  for (int t = t0; t < t1; ++t) {
+    for (int kc = 0; kc < nk; ++kc, prev = sl, sl.next(p.stages)) {
+      const uint32_t st = ring + sl.s * STAGE;
+      mbar_wait(bars + FULL + 8 * sl.s, sl.phase);
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        Wgmma<BN>::ss(acc, ln_desc(xn, 64 * wg, kc * KC / 16 + kk, BM), ln_desc(st, 0, kk, BN),
+                      kc > 0 || kk > 0);
+      wgmma_commit();
+      if (kc > 0) {  // the previous stage's products are done: release it
+        wgmma_wait<1>();
+        fence_operands(acc);
+        if (lane == 0) mbar_arrive(bars + EMPTY + 8 * prev.s);
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lane == 0) mbar_arrive(bars + EMPTY + 8 * prev.s);
+    if (!skip(SKIP_EPILOGUE))
+      ln_store<BN>(acc, maps, sm + ln_xn(p.din) + wg * ln_out(BN), t * BN, m0 + 64 * wg, p, wg,
+                   tid);
+  }
+  if (tid == 0) bulk_wait<0>();  // the last stores are done before the block exits
+}
+
 // per card: the SM count, and which kernels opted in to their shared
-// memory (bit 0 the up kernel, bit 1 + i the down kernel's DOWN_BNS[i])
+// memory (bit 0 the up kernel, bit 1 + i the down kernel's DOWN_BNS[i],
+// bit 4 + i linear_ln_sm90_kernel's LN_BNS[i])
 struct Card {
   int sms = 0;
   unsigned opted = 0;
@@ -517,12 +716,14 @@ cudaError_t opt_in(Card* c, const void* fn, int bit, uint32_t smem) {
 
 // a TMA map of bf16 rows of `cols` elements (contiguous rows; `blocks`
 // blocks of `rows` rows, `block_stride` elements apart, where blocks > 1)
-// in boxes of box_cols columns x box_rows rows [x blocks], no swizzle:
-// with 8 columns, a 16-byte chunk of each row, which lands as a column of
-// core matrices of the no-swizzle wgmma layout; rows past the data are
-// zero-filled on a load and not written on a store
+// in boxes of box_cols columns x box_rows rows [x blocks], no swizzle
+// unless asked: with 8 columns, a 16-byte chunk of each row, which lands
+// as a column of core matrices of the no-swizzle wgmma layout; rows and
+// columns past the data are zero-filled on a load and not written on a
+// store
 cudaError_t encode_boxes(CUtensorMap* map, const void* ptr, int cols, int rows, int box_cols,
-                         int box_rows, int blocks = 1, long long block_stride = 0) {
+                         int box_rows, int blocks = 1, long long block_stride = 0,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t size[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
@@ -534,9 +735,26 @@ cudaError_t encode_boxes(CUtensorMap* map, const void* ptr, int cols, int rows, 
   cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, blocks > 1 ? 3 : 2,
                             const_cast<void*>(ptr), size, stride, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the number of blocks that share a row block's nt column tiles (one
+// block an SM): the least waves x (a block's tiles x tile_cost + ln_cost),
+// ln_cost the weight of the LN prologue that each split repeats
+int choose_splits(int rbs, int nt, int sms, int tile_cost, int ln_cost) {
+  int splits = 1;
+  long long best = -1;
+  for (int s = 1; s <= nt; ++s) {
+    const long long waves = (static_cast<long long>(rbs) * s + sms - 1) / sms;
+    const long long cost = waves * ((nt + s - 1) / s * static_cast<long long>(tile_cost) + ln_cost);
+    if (best < 0 || cost < best) {
+      best = cost;
+      splits = s;
+    }
+  }
+  return splits;
 }
 
 template <int BN>
@@ -554,6 +772,28 @@ cudaError_t launch_down_bn(const void* a, const void* w2, const void* x, void* y
   const int rbs = (p.M + BM - 1) / BM;
   const uint32_t smem = down_ring(BN) + p.stages * down_stage(BN);
   geglu_down_sm90_kernel<BN><<<rbs * (p.din / BN), THREADS, smem, st>>>(maps, p);
+  return cudaGetLastError();
+}
+
+// linear_ln_sm90_kernel<BN> on p.splits blocks a row block
+template <int BN>
+cudaError_t launch_ln_bn(const void* x, const void* w, void* y, LnArgs p, Card* c, int bit,
+                         cudaStream_t st) {
+  cudaError_t err =
+      opt_in(c, reinterpret_cast<const void*>(linear_ln_sm90_kernel<BN>), bit, SMEM_MAX);
+  constexpr CUtensorMapSwizzle SW128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  LnMaps maps;
+  if (err == cudaSuccess) err = encode_boxes(&maps.x, x, p.din, p.M, KC, BM, 1, 0, SW128);
+  if (err == cudaSuccess) err = encode_boxes(&maps.w, w, p.din, p.dout, KC, BN, 1, 0, SW128);
+  if (err == cudaSuccess)
+    err = encode_boxes(&maps.y, y, p.dout, p.M, OUT_PANEL, 64, 1, 0, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  const int rbs = (p.M + BM - 1) / BM;
+  if (p.splits < 1 || static_cast<long long>(rbs) * p.splits >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  p.stages = ln_fit(p.din, BN);
+  linear_ln_sm90_kernel<BN>
+      <<<rbs * p.splits, THREADS, ln_smem(p.din, BN, p.stages), st>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -576,17 +816,7 @@ cudaError_t launch_geglu_up_sm90(const void* x, const void* lns, const void* lnb
     err = encode_boxes(&maps.w1, w1, din, dff, 8, FT, 2, static_cast<long long>(dff) * din);
   if (err == cudaSuccess) err = encode_boxes(&maps.a, a, dff, M, FT, 64);
   if (err != cudaSuccess) return err;
-  const int rbs = (M + BM - 1) / BM, nt = dff / FT;
-  int splits = 1;
-  long long best = -1;
-  for (int s = 1; s <= nt; ++s) {
-    const long long waves = (static_cast<long long>(rbs) * s + c->sms - 1) / c->sms;
-    const long long cost = waves * ((nt + s - 1) / s + 1);
-    if (best < 0 || cost < best) {
-      best = cost;
-      splits = s;
-    }
-  }
+  const int rbs = (M + BM - 1) / BM, splits = choose_splits(rbs, dff / FT, c->sms, 1, 1);
   if (static_cast<long long>(rbs) * splits >= (1LL << 31)) return cudaErrorInvalidValue;
   const UpArgs p{static_cast<const bf16*>(x), static_cast<const float*>(lns),
                  static_cast<const float*>(lnb), static_cast<const bf16*>(b1), M, din, dff,
@@ -634,4 +864,34 @@ extern "C" int sdaof_geglu(const void* x, const void* lns, const void* lnb, cons
   err = launch_geglu_up_sm90(x, lns, lnb, w1, b1, a, M, din, dff, eps, device, st);
   if (err != cudaSuccess) return err;
   return launch_geglu_down_sm90(a, w2, b2, x, y, M, din, dff, residual, device, st);
+}
+
+// #3: y [M, dout] = bf16(LN(x) @ w^T) through linear_ln_sm90_kernel<BN>
+// for bf16 x [M, din], w [dout, din] and f32 lns / lnb; BN = 160 where 4
+// ring stages fit beside the xn tile, else 64, and the column tiles split
+// across blocks with a block's LN weighed as LN_COLS columns (the
+// header's readings). din a multiple of 16 up to 640 (the last 64-column
+// panel zero-filled past din), dout a multiple of 16; 16-byte aligned
+// bases. Returns a cudaError_t code.
+extern "C" int sdaof_linear_ln(const void* x, const void* lns, const void* lnb, const void* w,
+                               void* y, int M, int din, int dout, float eps, int device,
+                               void* stream) {
+  if (din % 16 != 0 || din < 16 || din > MAX_DIN || dout % 16 != 0 || dout < 16 || M < 1 ||
+      lns == nullptr || lnb == nullptr)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(lns) |
+       reinterpret_cast<uintptr_t>(lnb) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y)) & 15)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaSetDevice(device);
+  Card* c;
+  if (err == cudaSuccess) err = card(device, c);
+  if (err != cudaSuccess) return err;
+  const int bn = ln_fit(din, LN_BNS[0]) >= 4 ? LN_BNS[0] : LN_BNS[1];
+  const int splits = choose_splits((M + BM - 1) / BM, (dout + bn - 1) / bn, c->sms, bn, LN_COLS);
+  const LnArgs p{static_cast<const float*>(lns), static_cast<const float*>(lnb), M, din, dout,
+                 splits, 0, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn == LN_BNS[0]) return launch_ln_bn<LN_BNS[0]>(x, w, y, p, c, 4, st);
+  return launch_ln_bn<LN_BNS[1]>(x, w, y, p, c, 5, st);
 }

@@ -1,6 +1,6 @@
-// Shared device helpers of the port's tensor-core kernels (attention.cu,
-// ffn.cu): warp reductions, 16-byte tile loads into shared memory, and
-// mma.sync m16n8k16 with ldmatrix fragment loads. Header-only; every
+// Shared device helpers of the port's tensor-core kernels: warp
+// reductions, 16-byte tile loads into shared memory, and mma.sync
+// m16n8k16 with ldmatrix fragment loads (attention.cu), bf16 packing. Header-only; every
 // helper is __device__ __forceinline__ and lives in an anonymous
 // namespace per translation unit.
 

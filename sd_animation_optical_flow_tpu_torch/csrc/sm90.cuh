@@ -7,8 +7,9 @@
 // (bf16, pack_bf16, smem_u32); every helper is __forceinline__ (the
 // encoder inline) in an anonymous namespace per translation unit.
 //
-// Shared-memory layout of every wgmma operand here: the canonical
-// no-swizzle ("interleave") layout. A core matrix is 8 rows of 16 bytes
+// Shared-memory layout of the wgmma operands here: the canonical
+// no-swizzle ("interleave") layout, and for #3's kernel the 128-byte
+// swizzle (gmma_desc_sw128, swizzled_offset). A core matrix is 8 rows of 16 bytes
 // (8 bf16), 128 contiguous bytes; a tile of R rows and C 16-byte chunks
 // keeps core (chunk c, row group g) at byte (c * R / 8 + g) * 128, row r
 // at (r % 8) * 16 inside it (tile_offset). One 16-byte chunk per thread
@@ -52,6 +53,24 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
 // 256-byte aligned (the swizzle's period), as TMA's SWIZZLE_32B writes them.
 __device__ __forceinline__ uint64_t gmma_desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return gmma_desc(addr, lbo, sbo) | (3ull << 62);
+}
+
+// 128-byte-swizzle descriptor (layout type 1) of a K-major tile: rows of
+// 128 bytes (64 bf16 of k), 16-byte chunk c of row r stored at chunk c ^
+// (r % 8), 8-row atoms of 1024 bytes SBO apart (LBO unused for K-major:
+// one wgmma's 32 bytes of k lie inside a row). The k16 steps of a row are
+// 32 bytes apart in the start address; the hardware applies the XOR by
+// address bits, so the atoms must start 1024-byte aligned, as TMA's
+// SWIZZLE_128B writes them (swizzled_offset).
+__device__ __forceinline__ uint64_t gmma_desc_sw128(uint32_t addr) {
+  return gmma_desc(addr, 16, 1024) | (1ull << 62);
+}
+
+// byte offset of (row, 16-byte chunk) in a K-major tile of `rows` rows
+// in 128-byte-swizzled panels: panel chunk / 8 holds 64 columns of every
+// row (rows * 128 bytes), its 8 chunks XOR-permuted by the row
+__device__ __forceinline__ uint32_t swizzled_offset(int row, int chunk, int rows) {
+  return static_cast<uint32_t>((((chunk >> 3) * rows + row) << 7) + (((chunk & 7) ^ (row & 7)) << 4));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -139,6 +140,19 @@ def library() -> ctypes.CDLL:
             lib.sdaof_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+class Kernel(NamedTuple):
+    """What a wrapper's ``.kernel`` holds after a launch: the device
+    kernel's source in the repo and its design, in a line."""
+    source: str
+    design: str
+
+
+def kernel(source: str, design: str) -> Kernel:
+    """The :class:`Kernel` of ``csrc/<source>``."""
+    return Kernel(f"sd_animation_optical_flow_tpu_torch/csrc/{source}",
+                  design)
 
 
 def records_grad(*tensors) -> bool:

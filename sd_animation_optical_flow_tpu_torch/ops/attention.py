@@ -75,7 +75,9 @@ Every kernel computes the function of its plain version (softmax in f32)
 with a tracked running max, so unlike the TPU's max-free forms they need
 no bound on the logits. On a CPU tensor each wrapper returns its plain
 version; on a CUDA tensor it launches its kernel (bf16 only) or raises.
-``<wrapper>.launches`` counts kernel launches. A wrapper whose kernel
+``<wrapper>.launches`` counts kernel launches, and ``<wrapper>.kernel``
+names the source and design of the kernel its last launch ran (a
+:class:`_cuda.Kernel`; None before one). A wrapper whose kernel
 has no backward raises on a CUDA tensor where a gradient would be
 recorded through it; the router sends such inputs to
 :func:`flash_attention_diff` or :func:`shortk_attention`.
@@ -90,6 +92,32 @@ import torch
 from . import _cuda
 
 _LOG2E = math.log2(math.e)
+
+# the kernels the wrappers launch, by route (``<wrapper>.kernel``)
+_K_PLAIN = _cuda.kernel(
+    "attention_sm90.cu", "attention_sm90_kernel<DP, PLAIN>: three wgmma "
+    "consumer warpgroups of 64 query rows, a cp.async K/V ring")
+_K_STATS = _cuda.kernel(
+    "attention_sm90.cu", "attention_sm90_kernel<DP, PLAIN> (#1's design), "
+    "storing each row's log-sum-exp")
+_K_KEYMASK = _cuda.kernel(
+    "attention_sm90.cu", "attention_sm90_kernel<DP, KEYMASK> (#1's "
+    "design): an uncond row's units walk min(Nk, n_own) keys")
+_K_MFR = _cuda.kernel(
+    "attention_sm90.cu", "attention_sm90_kernel<DP, MFR> (#1's design): "
+    "the band bias added to the score tiles in band")
+_K_WIDE = _cuda.kernel(
+    "attention_wide_sm90.cu", "attention_wide_sm90_kernel: two wgmma "
+    "warpgroups on the d-halves, a TMA K/V ring multicast to a cluster")
+_K_MMA = {mode: _cuda.kernel(
+    "attention.cu", f"attn_mma_kernel<DP, {mode}>: mma.sync with ldmatrix, "
+    "synchronous loads") for mode in ("KEYMASK", "MFR", "BANDED")}
+_K_BWD_DKV = _cuda.kernel(
+    "attention_bwd_sm90.cu", "attention_bwd_dkv_sm90_kernel: wgmma "
+    "warpgroups own 64 key rows each, q and dO through a cp.async ring")
+_K_BWD_DQ = _cuda.kernel(
+    "attention_bwd_sm90.cu", "attention_bwd_dq_sm90_kernel: wgmma "
+    "warpgroups own 64 query rows each, k and v through a cp.async ring")
 
 
 def xla_attention(q, k, v, *, bias=None):
@@ -175,10 +203,12 @@ def flash_attention_tpv(q, k, v):
     _cuda.refuse_grad("flash_attention_tpv", q, k, v)
     out = _launch("sdaof_attention", q, k, v)
     flash_attention_tpv.launches += 1
+    flash_attention_tpv.kernel = _K_PLAIN if q.shape[-1] <= 128 else _K_WIDE
     return out
 
 
 flash_attention_tpv.launches = 0
+flash_attention_tpv.kernel = None
 
 
 def flash_attention(q, k, v):
@@ -201,10 +231,12 @@ def flash_attention(q, k, v):
     _cuda.refuse_grad("flash_attention", q, k, v)
     out = _launch("sdaof_attention", q, k, v)
     flash_attention.launches += 1
+    flash_attention.kernel = _K_PLAIN if q.shape[-1] <= 128 else _K_WIDE
     return out
 
 
 flash_attention.launches = 0
+flash_attention.kernel = None
 
 
 def attention(q, k, v, *, bias=None):
@@ -351,10 +383,12 @@ def flash_fwd_stats(q, k, v):
                k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                b, h, nq, k.shape[1], d, *_strides(q, k, v), _scale_log2(d))
     flash_fwd_stats.launches += 1
+    flash_fwd_stats.kernel = _K_STATS
     return out, lse
 
 
 flash_fwd_stats.launches = 0
+flash_fwd_stats.kernel = None
 
 
 def _bwd_inputs(name, q, k, v, do, lse, dvec):
@@ -389,10 +423,12 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec):
                dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq,
                k.shape[1], d, *_strides(q, k, v, do), _scale_log2(d))
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.kernel = _K_BWD_DKV
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.kernel = None
 
 
 def flash_bwd_dq(q, k, v, do, lse, dvec):
@@ -411,10 +447,12 @@ def flash_bwd_dq(q, k, v, do, lse, dvec):
                dvec.data_ptr(), dq.data_ptr(), b, h, nq, k.shape[1], d,
                *_strides(q, k, v, do), _scale_log2(d))
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.kernel = _K_BWD_DQ
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.kernel = None
 
 
 class _FlashAttentionDiff(torch.autograd.Function):
@@ -490,10 +528,12 @@ def attention_injected_plain(q, k, v, *, n_own: int, n_uncond: int):
 
 def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
     """Attention of the CFG K/V-injection path (kernel #6,
-    ``attn_mma_kernel<DP, MODE_KEYMASK>``): batch rows ``< n_uncond`` see
-    keys ``< n_own`` only, the other rows see all keys. The uncond rows'
-    key loop stops at ``n_own``. bf16 on the card, d a multiple of 8 up
-    to 160 (SD-1.5's widest head); q [B, Nq, H, D], k/v [B, Nk, H, D]."""
+    ``attention_sm90_kernel<DP, MODE_KEYMASK>`` for d <= 128,
+    ``attn_mma_kernel<160, MODE_KEYMASK>`` above): batch rows
+    ``< n_uncond`` see keys ``< n_own`` only, the other rows see all keys.
+    The uncond rows' units walk ``min(Nk, n_own)`` keys. bf16 on the
+    card, d a multiple of 8 up to 160 (SD-1.5's widest head); q [B, Nq,
+    H, D], k/v [B, Nk, H, D]."""
     b = q.shape[0]
     if not 1 <= n_own or not 0 <= n_uncond <= b:
         raise ValueError(f"keymask needs n_own >= 1 and 0 <= n_uncond <= B, "
@@ -505,10 +545,13 @@ def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
     out = _launch("sdaof_attention_keymask", q, k, v, int(n_own),
                   int(n_uncond), max_d=160)
     flash_attention_keymask.launches += 1
+    flash_attention_keymask.kernel = _K_KEYMASK if q.shape[-1] <= 128 \
+        else _K_MMA["KEYMASK"]
     return out
 
 
 flash_attention_keymask.launches = 0
+flash_attention_keymask.kernel = None
 
 
 def attention_injected(q, k, v, *, n_own: int, n_uncond: int):
@@ -585,7 +628,7 @@ def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
                         radius: int = MFR_RADIUS, weight: float = MFR_WEIGHT,
                         sigma: float | None = None, mode: str = "target"):
     """Strip self-attention with the MFR band bias computed in the kernel
-    (kernel #10: ``attention_sm90_kernel<DP, true>`` for d <= 128,
+    (kernel #10: ``attention_sm90_kernel<DP, MODE_MFR>`` for d <= 128,
     ``attn_mma_kernel<160, MODE_MFR>`` above) from the token indices;
     q/k/v [B, N, H, D] with N = h * n_tiles * w_tile. bf16 on the card,
     d a multiple of 8 up to 160."""
@@ -608,10 +651,13 @@ def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
                   int(radius), int(mode == "target"), float(weight) * _LOG2E,
                   1.0 / float(sigma), max_d=160)
     flash_attention_mfr.launches += 1
+    flash_attention_mfr.kernel = _K_MFR if q.shape[-1] <= 128 \
+        else _K_MMA["MFR"]
     return out
 
 
 flash_attention_mfr.launches = 0
+flash_attention_mfr.kernel = None
 
 
 def strip_attention(q, k, v, *, h: int, w_strip: int, n_tiles: int,
@@ -698,7 +744,9 @@ def flash_attention_banded(q, k, v, *, h: int, w: int, radius: int = 8,
                   int(radius), float(weight) * _LOG2E, float(base) * _LOG2E,
                   1.0 / float(sigma), max_d=160)
     flash_attention_banded.launches += 1
+    flash_attention_banded.kernel = _K_MMA["BANDED"]
     return out
 
 
 flash_attention_banded.launches = 0
+flash_attention_banded.kernel = None

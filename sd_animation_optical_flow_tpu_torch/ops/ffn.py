@@ -7,7 +7,7 @@ Kernels, each with its plain version beside it:
 
 * :func:`linear_ln_fused` replaces the TPU's ``_linear_ln_kernel``:
   ``LN(x) @ w^T``, the UNet's LN1 -> QKV and LN2 -> Q projections
-  (``csrc/ffn.cu``).
+  (``csrc/ffn_sm90.cu``: a wgmma kernel on the GEGLU's skeleton).
 * :func:`geglu_ff_fused` replaces the TPU's ``_geglu_kernel`` /
   ``_geglu_kernel_ln``: ``[x +] FF([LN](x))`` with the GEGLU
   feed-forward, the transformer-block tail (``csrc/ffn_sm90.cu``: two
@@ -15,7 +15,9 @@ Kernels, each with its plain version beside it:
 
 On a CPU tensor each wrapper returns its plain version (the unfused
 chain); on a CUDA tensor it launches its kernel (bf16 only) or raises.
-``<wrapper>.launches`` counts kernel launches. Neither kernel has a
+``<wrapper>.launches`` counts kernel launches, and ``<wrapper>.kernel``
+names the source and design of the kernel its last launch ran (None
+before one). Neither kernel has a
 backward (neither has its Pallas original): on a CUDA tensor each wrapper
 raises where a gradient would be recorded through its inputs, and the
 UNet routes such calls to the plain chain.
@@ -30,6 +32,16 @@ import torch.nn.functional as F
 
 from ..models.layers import layer_norm
 from . import _cuda
+
+# the kernels the wrappers launch (``<wrapper>.kernel``)
+_K_LINEAR_LN = _cuda.kernel(
+    "ffn_sm90.cu", "linear_ln_sm90_kernel<BN>: x by TMA into a resident "
+    "128-byte-swizzled tile normalised in place, W through a TMA ring, "
+    "wgmma, a TMA-store epilogue")
+_K_GEGLU = _cuda.kernel(
+    "ffn_sm90.cu", "geglu_up_sm90_kernel (LN prologue, W1, the GEGLU in "
+    "registers) then geglu_down_sm90_kernel (W2, the bias and residual "
+    "epilogue): two wgmma GEMMs")
 
 
 def linear_ln_plain(x, w, ln_scale, ln_bias, ln_eps=1e-5):
@@ -72,10 +84,13 @@ def _check_bf16_cuda(*ts):
 def linear_ln_fused(x, w, ln_scale, ln_bias, *, ln_eps: float = 1e-5):
     """``LN(x) @ w^T`` for x [..., din], w [dout, din] -> [..., dout].
 
-    Kernel #3 (``linear_ln_kernel``): a block owns 32 rows, normalises
-    them once into shared memory (f32 statistics, rounded to bf16) and
-    walks 64-column chunks of w on the tensor cores. Needs din (up to
-    640) and dout multiples of 16."""
+    Kernel #3 (``linear_ln_sm90_kernel``, ``csrc/ffn_sm90.cu``): a block
+    of 128 rows takes x by TMA into a resident 128-byte-swizzled tile,
+    normalises it in place (f32 statistics, rounded to bf16), and runs
+    wgmma products against w's 64-wide k chunks, which TMA streams
+    through a ring; a TMA-store epilogue. Needs din a multiple of 16 up
+    to 640 (the last 64-column chunk is zero-filled past din) and dout a
+    multiple of 16."""
     if x.device.type != "cuda":
         return linear_ln_plain(x, w, ln_scale, ln_bias, ln_eps)
     _cuda.refuse_grad("linear_ln_fused", x, w, ln_scale, ln_bias)
@@ -83,19 +98,21 @@ def linear_ln_fused(x, w, ln_scale, ln_bias, *, ln_eps: float = 1e-5):
     dout = w.shape[0]
     if w.shape != (dout, din):
         raise ValueError(f"w {tuple(w.shape)} does not match din {din}")
-    w = _aligned(w.to(x.dtype))
+    x2, w = _aligned(x2), _aligned(w.to(x.dtype))
     _check_bf16_cuda(x2, w)
-    lns = ln_scale.float().contiguous()
-    lnb = ln_bias.float().contiguous()
+    lns = _aligned(ln_scale.float())
+    lnb = _aligned(ln_bias.float())
     y = torch.empty((m, dout), dtype=x.dtype, device=x.device)
     _cuda.call("sdaof_linear_ln", x.device, x2.data_ptr(), lns.data_ptr(),
                lnb.data_ptr(), w.data_ptr(), y.data_ptr(), m, din, dout,
                ln_eps)
     linear_ln_fused.launches += 1
+    linear_ln_fused.kernel = _K_LINEAR_LN
     return y.reshape(*x.shape[:-1], dout)
 
 
 linear_ln_fused.launches = 0
+linear_ln_fused.kernel = None
 
 
 def geglu_ff_fused(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
@@ -136,7 +153,9 @@ def geglu_ff_fused(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None, *,
                a.data_ptr(), y.data_ptr(), m, din, dff, ln_eps,
                int(residual))
     geglu_ff_fused.launches += 1
+    geglu_ff_fused.kernel = _K_GEGLU
     return y.reshape(x.shape)
 
 
 geglu_ff_fused.launches = 0
+geglu_ff_fused.kernel = None

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the Hopper kernels goes, on one NVIDIA card: the
-attention forwards #1 / #7 (``csrc/attention_sm90.cu``) and #2
-(``csrc/attention_wide_sm90.cu``), the backward pair #8 / #9
-(``csrc/attention_bwd_sm90.cu``) and the GEGLU tail #4
-(``csrc/ffn_sm90.cu``):
+attention forwards #1 / #7, #6 and #10 (``csrc/attention_sm90.cu``) and
+#2 (``csrc/attention_wide_sm90.cu``), the backward pair #8 / #9
+(``csrc/attention_bwd_sm90.cu``), the GEGLU tail #4 and the LN-prologue
+projection #3 (``csrc/ffn_sm90.cu``):
 
     python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
     python3 sm90_probe.py --shape strip_l0|strip_l1 [--mode mutual|target]
+    python3 sm90_probe.py --shape inject_l0|inject_l1
     python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
     python3 sm90_probe.py --kernel bwd [--shape self_l0|self_l1]
     python3 sm90_probe.py --kernel geglu [--shape l0|l1]
+    python3 sm90_probe.py --kernel linear_ln [--shape qkv_l0|q_l0|qkv_l1|q_l1|qkv_l0_2f]
 
 Builds copies of the kernel's source with one part of the work left out
 (``-DSM90_SKIP=<bits>`` / ``-DWIDE_SKIP=<bits>``, the kernel's
@@ -37,7 +39,13 @@ results; they only time what remains. For ``attention_sm90.cu``:
 The strip shapes run the kernel's MFR mode (#10: the 2-tile strips of a
 512x768 frame, 64 x 192 latent tokens at L0, 32 x 96 at L1) through a
 shim that exports its C++ launcher as ``sdaof_attention_mfr``, against
-SDPA with the materialized bf16 bias.
+SDPA with the materialized bf16 bias. The inject shapes run its keymask
+mode (#6: the injected inpaint's CFG pair, q [2, 6144, 8, 40] against
+12288 keys of which the uncond row sees the first 6144 at L0, q [2,
+1536, 8, 80] against 3072 at L1) through a shim that exports its
+launcher as ``sdaof_attention_keymask``, against SDPA with the boolean
+key mask. The ptxas lines (registers, spills) of the instantiation each
+shape runs are printed first.
 
 For ``attention_wide_sm90.cu`` (the shapes: the VAE mid-block attention
 of one frame and of two, and the UNet's 160-wide L2 heads at 1536
@@ -88,6 +96,25 @@ launches):
 The ptxas lines of both kernels (registers, spills) of every copy are
 printed first.
 
+For ``linear_ln_sm90_kernel`` in ``ffn_sm90.cu`` (the same
+``-DGEGLU_SKIP`` bits; the UNet's LN1 -> QKV and LN2 -> Q projections, x
+[12288, 320] at L0 of the CFG pair and x [6144, 640] at L1 of a 2-frame
+batch, dout 3 din or din, and the QKV projection at L0 of a 2-frame
+batch, x [24576, 320]; each copy against the library's ``layer_norm`` +
+``matmul`` and the library's ``matmul`` alone):
+
+* ``no_prologue``: no x load and no LN (the products read whatever the
+  xn tile holds);
+* ``no_epilogue``: no stores;
+* ``no_loads``: the W stages of the first ring only, as above;
+* ``splits_<s>``: the full copy with the column tiles split across s
+  blocks a row block (s = 1 up to 6 tiles; these compute the right
+  result), through a shim that launches the kernel at a given split
+  count, so that the port's choice (``full``) can be read against each.
+
+The ptxas lines of the kernel's instantiations of every copy are printed
+first.
+
 Nothing of the port uses these copies.
 """
 
@@ -95,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import math
 import re
 import statistics
@@ -121,7 +149,8 @@ KERNELS = {
                  "no_stores": 16, "no_turns": 32, "no_bias": 64}.items()},
              {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80),
               "cross_l0": (2, 6144, 231, 8, 40), "cross_l1": (2, 1536, 231, 8, 80),
-              "strip_l0": (2, 12288, 12288, 8, 40), "strip_l1": (2, 3072, 3072, 8, 80)}),
+              "strip_l0": (2, 12288, 12288, 8, 40), "strip_l1": (2, 3072, 3072, 8, 80),
+              "inject_l0": (2, 6144, 12288, 8, 40), "inject_l1": (2, 1536, 3072, 8, 80)}),
     # attention_wide_sm90.cu's WIDE_SKIP bits: SKIP_LOADS = 1, SKIP_QK = 2,
     # SKIP_PV = 4, SKIP_XCH = 8, SKIP_SOFTMAX = 16, SKIP_EXP = 32; and
     # WIDE_CLUSTER, the CTAs of a cluster
@@ -148,9 +177,19 @@ KERNELS = {
               {name: [f"GEGLU_SKIP={bits}"] for name, bits in {
                   "full": 0, "no_prologue": 1, "no_epilogue": 2, "no_loads": 4}.items()},
               {"l0": (12288, 320, 1280), "l1": (6144, 640, 2560)}),
+    # the same bits for linear_ln_sm90_kernel; the shapes (M, din, dout)
+    "linear_ln": ("ffn_sm90.cu",
+                  {name: [f"GEGLU_SKIP={bits}"] for name, bits in {
+                      "full": 0, "no_prologue": 1, "no_epilogue": 2, "no_loads": 4}.items()},
+                  {"qkv_l0": (12288, 320, 960), "q_l0": (12288, 320, 320),
+                   "qkv_l1": (6144, 640, 1920), "q_l1": (6144, 640, 640),
+                   "qkv_l0_2f": (24576, 320, 960)}),
 }
 # the strip shapes' geometry (h, w_tile, n_tiles)
 STRIPS = {"strip_l0": (64, 96, 2), "strip_l1": (32, 48, 2)}
+# the inject shapes' key mask (n_own, n_uncond): the CFG pair's uncond row
+# sees its own frame's keys, the first half
+INJECT = {"inject_l0": (6144, 1), "inject_l1": (1536, 1)}
 # the MFR launcher of attention_sm90.cu has C++ linkage: a shim exports
 # it under the name and arguments of sdaof_attention_mfr
 SM90_SHIM = """
@@ -171,6 +210,20 @@ extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, 
                                    vsn, vsh, scale_log2, w_strip, w_tile, radius, target_only,
                                    bias_log2, inv_sigma, device,
                                    static_cast<cudaStream_t>(stream));
+}
+cudaError_t launch_attention_sm90_keymask(const void*, const void*, const void*, void*, int, int,
+                                          int, int, int, long long, long long, long long,
+                                          long long, long long, long long, long long, long long,
+                                          long long, float, int, int, int, cudaStream_t);
+extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void* v, void* o,
+                                       int B, int H, int Nq, int Nk, int D, long long qsb,
+                                       long long qsn, long long qsh, long long ksb,
+                                       long long ksn, long long ksh, long long vsb,
+                                       long long vsn, long long vsh, float scale_log2,
+                                       int n_own, int n_uncond, int device, void* stream) {
+  return launch_attention_sm90_keymask(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
+                                       vsb, vsn, vsh, scale_log2, n_own, n_uncond, device,
+                                       static_cast<cudaStream_t>(stream));
 }
 """
 # the wide kernel's launcher has C++ linkage: a shim exports it under the
@@ -213,6 +266,25 @@ extern "C" int sdaof_geglu_down(const void* a, const void* w2, const void* b2, c
 }
 """
 
+# linear_ln_sm90_kernel at a given split count: a shim that includes
+# ffn_sm90.cu (its one translation unit) and exports a launcher taking the
+# splits that sdaof_linear_ln chooses
+LINEAR_LN_SHIM = """
+#include "ffn_sm90.cu"
+extern "C" int sdaof_linear_ln_splits(const void* x, const void* lns, const void* lnb,
+                                      const void* w, void* y, int M, int din, int dout, float eps,
+                                      int splits, int device, void* stream) {
+  Card* c;
+  cudaError_t err = card(device, c);
+  if (err != cudaSuccess) return err;
+  const LnArgs p{static_cast<const float*>(lns), static_cast<const float*>(lnb), M, din, dout,
+                 splits, 0, eps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ln_fit(din, LN_BNS[0]) >= 4) return launch_ln_bn<LN_BNS[0]>(x, w, y, p, c, 4, st);
+  return launch_ln_bn<LN_BNS[1]>(x, w, y, p, c, 5, st);
+}
+"""
+
 
 def in_band_share(h: int, w_tile: int, n_tiles: int, radius: int, target: bool,
                   bk: int) -> float:
@@ -238,15 +310,25 @@ def in_band_share(h: int, w_tile: int, n_tiles: int, radius: int, target: bool,
 
 
 def build(kernel: str, name: str) -> Path:
+    """One copy's library, named by a hash of its sources and defines (a
+    copy already built from the same ones is reused)."""
     source, variants, _ = KERNELS[kernel]
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    so = PROBE_DIR / f"{kernel}_{name}.so"
     sources = [str(_cuda.CSRC / source)]
-    shims = {"wide": WIDE_SHIM, "sm90": SM90_SHIM, "geglu": GEGLU_SHIM}
+    shims = {"wide": WIDE_SHIM, "sm90": SM90_SHIM, "geglu": GEGLU_SHIM,
+             "linear_ln": LINEAR_LN_SHIM}
     if kernel in shims:
         shim = PROBE_DIR / f"{kernel}_shim.cu"
         shim.write_text(shims[kernel])
         sources.append(str(shim))
+    h = hashlib.sha256(" ".join([*_cuda.NVCC_FLAGS, *variants[name]]).encode())
+    for src in [*sources, *map(str, sorted(_cuda.CSRC.glob("*.cuh")))]:
+        h.update(Path(src).read_bytes())
+    if kernel == "linear_ln":   # the shim includes the source
+        sources = sources[1:]
+    so = PROBE_DIR / f"{kernel}_{name}_{h.hexdigest()[:12]}.so"
+    if so.exists() and so.with_suffix(".log").exists():
+        return so
     out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I",
                           str(_cuda.CSRC), *(f"-D{d}" for d in variants[name]), "-shared",
                           *sources, "-o", str(so)],
@@ -452,6 +534,88 @@ def probe_geglu(libs, shape, args, card, label) -> int:
     return 0
 
 
+def print_ptxas(libs, match: str) -> None:
+    """Registers and spills of each copy's kernel instantiations whose
+    mangled name holds ``match``, and any serialised wgmma."""
+    for name, so in libs.items():
+        fn = ""
+        for line in so.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            elif match in fn and ("registers" in line or "spill" in line):
+                inst = re.search(r"kernelI(L\w+?)EE", fn)
+                print(f"[ptxas] {name:11s} {inst.group(1) if inst else fn[-40:]:14s} "
+                      f"{line.strip()}")
+            elif "wgmma" in line.lower() and "serializ" in line.lower():
+                print(f"[ptxas] {name:11s} {line.strip()}")
+
+
+def probe_linear_ln(libs, shape, args, card, label) -> int:
+    """Each copy of linear_ln_sm90_kernel against the library's layer_norm
+    + matmul and its matmul alone, interleaved in rounds (as ``main``)."""
+    print_ptxas(libs, "linear_ln_sm90_kernel")
+    m, din, dout = shape
+    F = torch.nn.functional
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((m, din), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((dout, din), generator=gen, device="cuda") * din ** -0.5).to(torch.bfloat16)
+    lns = 1.0 + 0.1 * torch.randn(din, generator=gen, device="cuda")
+    lnb = 0.1 * torch.randn(din, generator=gen, device="cuda")
+    y = torch.empty((m, dout), dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.cuda.current_device()
+    runs = {}
+    for name, so in libs.items():
+        fn = getattr(ctypes.CDLL(str(so)), "sdaof_linear_ln")
+        fn.argtypes = _cuda._SIGNATURES["sdaof_linear_ln"]
+        fn.restype = ctypes.c_int
+        runs[name] = lambda fn=fn: fn(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
+                                      y.data_ptr(), m, din, dout, 1e-5, dev, stream)
+    at = getattr(ctypes.CDLL(str(libs["full"])), "sdaof_linear_ln_splits")
+    at.argtypes = [*_cuda._SIGNATURES["sdaof_linear_ln"][:9], ctypes.c_int,
+                   *_cuda._SIGNATURES["sdaof_linear_ln"][9:]]
+    at.restype = ctypes.c_int
+    bn = 160 if din <= 384 else 64   # the kernel's column tile (LN_BNS)
+    nt, sms = -(-dout // bn), torch.cuda.get_device_properties(dev).multi_processor_count
+    for s in range(1, min(nt, 6) + 1):
+        runs[f"splits_{s}"] = lambda s=s: at(x.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+                                             w.data_ptr(), y.data_ptr(), m, din, dout, 1e-5, s,
+                                             dev, stream)
+    xn = F.layer_norm(x, (din,), lns.to(x.dtype), lnb.to(x.dtype))
+    runs["library"] = lambda: F.layer_norm(x, (din,), lns.to(x.dtype), lnb.to(x.dtype)) @ w.t()
+    runs["lib_matmul"] = lambda: xn @ w.t()
+    ref = runs["library"]().float()
+    outs = {}
+    for name in [*libs, *(k for k in runs if k.startswith("splits_"))]:
+        y.zero_()
+        err = runs[name]()
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+        outs[name] = y.float().clone()
+    times = {key: [] for key in runs}
+    for _ in range(args.rounds):
+        for key, run in runs.items():
+            times[key].append(_mean_ms(run, args.iters))
+    flops, nbytes = 2.0 * m * din * dout, 2.0 * (m * din + dout * din + m * dout)
+    print(f"[probe] {card}; linear_ln {label} x [{m},{din}] w [{dout},{din}]; median of "
+          f"{args.rounds} rounds of {args.iters} calls; bound "
+          f"{1e3 * max(flops / 989e12, nbytes / 3.35e12):.4f} ms; W read from L2 "
+          f"{-(-m // 128) * dout * din * 2 / 1e6:.1f} MB (once a 128-row block)")
+    ms = {key: statistics.median(ts) for key, ts in times.items()}
+    rbs = -(-m // 128)
+    for key in runs:
+        diff = "" if key not in outs else \
+            f", max |out - library's| {(outs[key] - ref).abs().max().item():.3e}"
+        grid = "" if not key.startswith("splits_") else \
+            (lambda s: f" [{rbs * s} blocks, {-(-rbs * s // sms)} waves, "
+                       f"{-(-nt // s)} tiles of {bn} a block]")(int(key[7:]))
+        print(f"[probe] {key:11s} {ms[key]:.4f} ms ({ms[key] / ms['full']:.2f} of full's, "
+              f"{ms[key] / ms['library']:.2f} of the library's){diff}{grid}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=list(KERNELS), default="sm90")
@@ -483,8 +647,14 @@ def main() -> int:
         return probe_bwd(libs, shapes[shape], args, card, shape)
     if args.kernel == "geglu":
         return probe_geglu(libs, shapes[shape], args, card, shape)
-    entry = ("sdaof_attention_mfr" if strip else "sdaof_attention_fwd_stats") \
-        if args.kernel == "sm90" else "sdaof_attention"
+    if args.kernel == "linear_ln":
+        return probe_linear_ln(libs, shapes[shape], args, card, shape)
+    inject = INJECT.get(shape)
+    if args.kernel == "sm90":   # the instantiation this shape runs
+        dp = -(-shapes[shape][4] // 16) * 16
+        print_ptxas(libs, f"attention_sm90_kernelILi{dp}ELi{1 if inject else 2 if strip else 0}E")
+    entry = ("sdaof_attention_mfr" if strip else "sdaof_attention_keymask" if inject
+             else "sdaof_attention_fwd_stats") if args.kernel == "sm90" else "sdaof_attention"
     fns = {}
     for name, so in libs.items():
         fn = getattr(ctypes.CDLL(str(so)), entry)
@@ -508,8 +678,14 @@ def main() -> int:
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream().cuda_stream
     scale_log2 = math.log2(math.e) / math.sqrt(d)
-    lse = [None] if args.kernel == "sm90" and not strip else []
+    lse = [None] if args.kernel == "sm90" and not (strip or inject) else []
     mfr, mask = [], None
+    if inject:  # the key mask, as flash_attention_keymask passes it
+        n_own, n_unc = inject
+        mfr = [n_own, n_unc]
+        mask = torch.ones((b, 1, 1, nk), dtype=torch.bool, device="cuda")
+        mask[:n_unc, ..., n_own:] = False
+        shape = f"{shape} (n_own {n_own}, n_uncond {n_unc})"
     if strip:   # the strip geometry and bias, as flash_attention_mfr passes them
         from sd_animation_optical_flow_tpu_torch.ops import attention as A
         hh, w_tile, n_tiles = strip

@@ -55,9 +55,10 @@ def _interpret():
 
 
 # n_uncond in {1, 2}, n_own < Nk, Nk not a multiple of the 64-key block,
-# d in {40, 80}
+# d in {40, 80}; n_own off the card kernel's 128-key tile at d 40
 KEYMASK_CASES = [(2, 48, 200, 2, 40, 100, 1), (4, 40, 150, 2, 80, 75, 2),
-                 (2, 64, 130, 1, 40, 64, 1), (4, 33, 96, 2, 40, 33, 2)]
+                 (2, 64, 130, 1, 40, 64, 1), (4, 33, 96, 2, 40, 33, 2),
+                 (2, 56, 300, 2, 40, 150, 1)]
 
 
 @pytest.mark.parametrize("dt", DTYPES)

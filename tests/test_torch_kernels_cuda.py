@@ -14,8 +14,11 @@ tiles), strided and misaligned q/k/v views, single-head views whose
 neighbouring columns are NaN (no read past D); for the wide kernel (#2,
 d > 128) d padded to each of its four widths, Nq off its 64-row blocks,
 Nk off its key tiles and below one, B * H > 1, the router's 160-wide
-route and its refusal under a gradient; for the keymask kernel n_own = Nk, n_own not a
-multiple of the 64-key tile and n_uncond = B / 2; for the MFR kernel
+route and its refusal under a gradient; for the keymask kernel n_own = Nk, n_own off
+the 64- and 128-key tiles, n_uncond = 0, B / 2 and B, units past the first
+and the injected inpaint's L0 at full size; for the LN projection (#3)
+M, din and dout off its row block, k panel and column tiles, both of its
+column-tile widths and a split with uneven halves; for the MFR kernel
 ragged N, 3 tiles, both modes and key tiles outside the band (both at
 SD-1.5's widest head, d = 160, and the keymask kernel at a d padded up
 to it), and the Hopper MFR mode's edges (``MFR_CASES``); for the
@@ -168,15 +171,28 @@ def test_attention_routes_wide_heads_to_the_wide_kernel(gen):
     assert TA.flash_attention.launches == n0 + 1
 
 
-@pytest.mark.parametrize("m,din,dout", [(100, 320, 960), (64, 640, 640),
-                                        (37, 64, 48)])
+# the Hopper kernel's edges (128-row blocks, 160-column tiles up to din
+# 384 and 64-column tiles above, the column tiles split across blocks,
+# 64-column k panels): M off the row block (37, 100, 4000), dout below
+# one tile (48) and off the tile (176), din off the 64-column panel (208),
+# the UNet's L0 and L1 projections (din 320 -> 960, 320; 640 -> 1920,
+# 640), at full size too (more than one wave of blocks), and 19 tiles
+# over two splits (6144 x 640 -> 1216: 10 and 9 tiles); two calls
+# bitwise equal (no atomics)
+@pytest.mark.parametrize("m,din,dout", [
+    (100, 320, 960), (64, 640, 640), (37, 64, 48), (4000, 320, 960),
+    (300, 640, 1920), (200, 208, 176), (12288, 320, 960),
+    (6144, 640, 1920), (6144, 640, 1216)])
 def test_linear_ln_kernel(gen, m, din, dout):
     x = _randn(gen, m, din)
     w = _randn(gen, dout, din, scale=din ** -0.5)
     g = 1 + 0.1 * torch.randn(din, generator=gen, device="cuda")
     bta = 0.1 * torch.randn(din, generator=gen, device="cuda")
-    _check(TF.linear_ln_fused(x, w, g, bta),
-           TF.linear_ln_plain(x, w, g, bta, 1e-5))
+    n0 = TF.linear_ln_fused.launches
+    out = TF.linear_ln_fused(x, w, g, bta)
+    _check(out, TF.linear_ln_plain(x, w, g, bta, 1e-5))
+    assert torch.equal(out, TF.linear_ln_fused(x, w, g, bta))
+    assert TF.linear_ln_fused.launches == n0 + 2
 
 
 # the two Hopper kernels' edges (128-row blocks; the up kernel's 64-wide
@@ -208,6 +224,9 @@ def test_geglu_kernel(gen, m, din, dff, ln, residual):
                                               residual=residual))
 
 
+# d <= 128 runs attention_sm90_kernel's keymask mode (128-key tiles at d
+# <= 48, 64 above; 192-row units), d = 160 attn_mma_kernel<160,
+# MODE_KEYMASK>; two calls bitwise equal
 @pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", [
     (2, 200, 400, 2, 40, 200, 1),       # the CFG batch, one reference
     (2, 100, 300, 2, 80, 300, 1),       # n_own = Nk: nothing masked
@@ -215,18 +234,26 @@ def test_geglu_kernel(gen, m, din, dff, ln, residual):
     (4, 96, 200, 2, 24, 96, 2),         # n_uncond = B / 2, ragged Nk
     (2, 64, 100, 1, 40, 30, 2),         # every row masked
     (2, 96, 200, 2, 160, 96, 1),        # SD-1.5's L2 head width
-    (2, 70, 130, 1, 152, 70, 1)])       # d padded up to 160
+    (2, 70, 130, 1, 152, 70, 1),        # d padded up to 160
+    (2, 200, 400, 2, 40, 150, 1),       # n_own off the 128-key tile
+    (2, 100, 300, 2, 80, 100, 1),       # n_own off the 64-key tile
+    (2, 96, 200, 2, 40, 50, 0),         # n_uncond = 0: nothing masked
+    (3, 80, 160, 2, 64, 70, 3),         # n_uncond = B: every row masked
+    (2, 450, 500, 2, 40, 260, 1),       # 3 units, the last ragged
+    (2, 6144, 12288, 8, 40, 6144, 1)])  # the injected inpaint's L0
 def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
                                         n_uncond):
     q = _randn(gen, b, nq, h, d)
     k = _randn(gen, b, nk, h, d)
     v = _randn(gen, b, nk, h, d)
     n0 = TA.flash_attention_keymask.launches
-    _check(TA.flash_attention_keymask(q, k, v, n_own=n_own,
-                                      n_uncond=n_uncond),
-           TA.attention_injected_plain(q, k, v, n_own=n_own,
-                                       n_uncond=n_uncond))
-    assert TA.flash_attention_keymask.launches == n0 + 1
+    out = TA.flash_attention_keymask(q, k, v, n_own=n_own, n_uncond=n_uncond)
+    again = TA.flash_attention_keymask(q, k, v, n_own=n_own,
+                                       n_uncond=n_uncond)
+    _check(out, TA.attention_injected_plain(q, k, v, n_own=n_own,
+                                            n_uncond=n_uncond))
+    assert torch.equal(out, again)
+    assert TA.flash_attention_keymask.launches == n0 + 2
 
 
 # the MFR kernel's edges: ragged N and N below one 192-row unit, 3 and 4

@@ -12,6 +12,8 @@ f32 (3e-5 for the LayerNorm-prologue kernels), 5e-2 in bf16. The
 router's choices are checked separately."""
 
 import functools
+import re
+from pathlib import Path
 from unittest import mock
 
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from jax.experimental import pallas as pl
 
 from sd_animation_optical_flow_tpu.ops import attention as JA
 from sd_animation_optical_flow_tpu.ops import ffn as JF
+from sd_animation_optical_flow_tpu_torch.ops import _cuda
 from sd_animation_optical_flow_tpu_torch.ops import attention as TA
 from sd_animation_optical_flow_tpu_torch.ops import ffn as TF
 import torch_port_common  # noqa: F401  (thread count)
@@ -147,11 +150,15 @@ def test_geglu_ff_plain_matches_jax(np_rng, dt, ln, residual, m, din, dff):
     _close(out, ref, max(tol, 3e-5))
 
 
+# din 64, and the UNet's L0 QKV width (din 320 -> 960), at which the
+# card holds kernel #3 to this plain version
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("m,dout", [(300, 192), (256, 64)])
-def test_linear_ln_plain_matches_jax(np_rng, dt, m, dout):
+@pytest.mark.parametrize("m,din,dout", [
+    pytest.param(300, 64, 192, id="300-192"),
+    pytest.param(256, 64, 64, id="256-64"),
+    pytest.param(64, 320, 960, id="64-320-960")])
+def test_linear_ln_plain_matches_jax(np_rng, dt, m, din, dout):
     jdt, tdt, tol = DTYPES[dt]
-    din = 64
     x = np_rng.standard_normal((2, m, din)).astype(np.float32) * 0.5
     w = np_rng.standard_normal((din, dout)).astype(np.float32) * 0.1
     g = np_rng.standard_normal((din,)).astype(np.float32) * 0.1 + 1.0
@@ -180,3 +187,18 @@ def test_wrappers_use_plain_version_on_cpu(np_rng):
     assert (TA.flash_attention_tpv.launches, TA.flash_attention.launches,
             TF.linear_ln_fused.launches,
             TF.geglu_ff_fused.launches) == before
+
+
+def test_wrapper_kernels_name_their_sources():
+    """Every kernel a wrapper's ``.kernel`` can name (its source and
+    design, which chip_smoke.py reports) is defined in the source it
+    names, in the mode it names."""
+    root = Path(TA.__file__).resolve().parents[2]
+    kernels = [v for mod in (TA, TF) for v in vars(mod).values()
+               if isinstance(v, _cuda.Kernel)] + list(TA._K_MMA.values())
+    assert len(kernels) == 12
+    for kern in kernels:
+        text = (root / kern.source).read_text()
+        name, mode = re.match(r"(\w+)(?:<\w+, (\w+)>)?", kern.design).groups()
+        assert re.search(rf"\b{name}\(", text), kern
+        assert mode is None or f"MODE_{mode}" in text, kern
