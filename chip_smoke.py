@@ -29,9 +29,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     pipeline's generation step with ``create_model("sd15-inpaint9")``
     beside it: K/V capture on two keyframes, an inpaint injecting both
     (kernel #6), the same batched with per-frame K/V, a 2-frame seed
-    strip and a [target | reference] strip inpaint (kernel #10), each
-    checked (output, 16-pair K/V stores, its kernel launched), timed and
-    profiled; then the ``[banded]`` phase: one full-width UNet
+    strip and a [target | reference] strip inpaint (kernel #10), a
+    4-frame seed strip (512x3072: #10 at d = 160, SD-1.5's third UNet
+    level) and a capture on two 1024x1536 keyframes with an inpaint
+    injecting both (#6 at d = 160), these two on a 20-step schedule, each
+    checked (output, 16-pair K/V stores, its kernel launched, at d = 160
+    where the step reaches it), timed and profiled; then the
+    ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
     (``attn_biases``: the plain route, as in JAX), checked against the
@@ -73,6 +77,10 @@ PEAK_EXP2_PER_S = 3.9e12
 
 H, W = 512, 768                 # image size of the main path
 STRENGTH, STEPS, CFG = 0.4, 50, 7.0
+# keyframe steps 6 and 7 (4x the 512x768 work a UNet evaluation) take a
+# 20-step schedule: the profiler's pass over their launches at 50 steps
+# took chip_smoke past half its time limit. Widths are not cut.
+L2_STEPS = 20
 SEED = 1234
 
 
@@ -248,8 +256,8 @@ def check_kernels():
 
     # kernel #6 at the injected inpaint's shapes: q sliced out of the fused
     # QKV projection, k/v the [own | reference] rows the UNet builds
-    # (contiguous), CFG batch 2, one uncond row; L2 (d 160)
-    # reaches the gate at a 1024x1536 frame (32 x 48 latent tokens)
+    # (contiguous), CFG batch 2, one uncond row; L2 (d 160) reaches the
+    # gate at a 1024x1536 frame (32 x 48 latent tokens: keyframe step 7)
     for label, (nq, d) in {"inject L0": (6144, 40),
                            "inject L1": (1536, 80),
                            "inject L2 1024x1536": (1536, 160)}.items():
@@ -277,9 +285,8 @@ def check_kernels():
 
     # kernel #10 at the strips' shapes (2 tiles of a 512x768 frame: latent
     # 64 x 192 at L0, 32 x 96 at L1; L2 (d 160) reaches the gate with 4
-    # tiles: 16 x 96), q/k/v slices of the fused QKV; d <= 128 runs
-    # attention_sm90_kernel's MFR mode, d = 160 attention.cu's older
-    # attn_mma_kernel<160, MODE_MFR>
+    # tiles: 16 x 96, keyframe step 6), q/k/v slices of the fused QKV;
+    # attention_sm90_kernel's MFR mode, 32-key tiles at d 160
     for label, (hh, w_tile, tiles, d, mode) in {
             "strip L0 mutual": (64, 96, 2, 40, "mutual"),
             "strip L0 target": (64, 96, 2, 40, "target"),
@@ -573,6 +580,21 @@ def check_unet_against_cpu(sd, gen):
     return rel
 
 
+def reset_counts(kernels):
+    """Set every wrapper's launch count to 0, and its counts by padded
+    head width where it keeps them (``launches_by_dp``)."""
+    for fn in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_dp"):
+            fn.launches_by_dp.clear()
+
+
+def dp_counts(kernels):
+    """The launches by padded head width of the wrappers that count them."""
+    return {name: dict(sorted(fn.launches_by_dp.items()))
+            for name, fn in kernels.items() if hasattr(fn, "launches_by_dp")}
+
+
 def run_main_path(sd, kernels, gen, repeats: int = 2):
     """img2img per sampler: one run with the launch counters reset just
     before it and read just after, then ``repeats`` timed runs (the
@@ -589,8 +611,7 @@ def run_main_path(sd, kernels, gen, repeats: int = 2):
 
     results = {}
     for sampler in ("ddim", "dpmpp:10"):
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         torch.cuda.synchronize()
         out = frame(sampler)
         counts = {name: fn.launches for name, fn in kernels.items()}
@@ -626,11 +647,14 @@ def run_keyframe_path(sd, sd9, kernels, gen):
     capture K/V on two keyframes (img2img), inject both into an inpaint
     on the 9-channel model, the same batched with per-frame K/V, a
     2-frame seed strip ('mutual') and a [target | reference] strip
-    inpaint ('target'). Each step runs once with the launch counters
-    reset just before it and read just after, once more timed (host
-    clock, synchronized), and once under the profiler. Returns
-    {step: (s/frame, counts, ok)}, the failures found and the two
-    keyframes' captured K/V."""
+    inpaint ('target'); then two steps at SD-1.5's third UNet level (d =
+    160 past the attention gate): a 4-frame seed strip (the JAX
+    ``generate_seed_frames`` with ``n_seed_frames = 4``, 'mutual') and,
+    at 1024x1536, K/V capture on two keyframes with an inpaint injecting
+    both. Each step runs once with the launch counters reset just before
+    it and read just after, once more timed (host clock, synchronized),
+    and once under the profiler. Returns {step: (s/frame, counts, ok)},
+    the failures found and the two 512x768 keyframes' captured K/V."""
     from sd_animation_optical_flow_tpu_torch.models.unet import \
         NUM_KV_LAYERS, StripConfig
     from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
@@ -642,20 +666,27 @@ def run_keyframe_path(sd, sd9, kernels, gen):
     keys = [rand_img(W) for _ in range(2)]
     frame, warped = rand_img(W), rand_img(W)
     mask = _blob_mask(H, W, H * 0.49, W * 0.51, H * 0.29, gen)
+    # steps 6 and 7: two more seed keyframes; 1024x1536 keyframes, frame,
+    # reference and mask
+    seeds = keys + [rand_img(W) for _ in range(2)]
+    big = lambda: torch.rand((1, 2 * H, 2 * W, 3), generator=gen,
+                             device="cuda") * 2 - 1
+    big_keys, big_frame, big_warped = [big() for _ in range(2)], big(), big()
+    big_mask = _blob_mask(2 * H, 2 * W, H * 0.98, W * 1.02, H * 0.58, gen)
     f = sd.vae_cfg.downscale
-    lat_tokens = [(H // f // s) * (W // f // s) for s in (1, 2, 4, 8)]
     failures, results = [], {}
     kv_store = {}
 
-    def kv_ok(kv, batch, width_tiles=1):
-        # 16 pairs, [batch, tokens at the layer's level, C], contiguous;
-        # the UNet level of each transformer in capture order (6 encoder,
-        # the middle one at level 3, 9 decoder)
+    def kv_ok(kv, batch, h=H, w=W):
+        # 16 pairs, [batch, tokens at the layer's level, C], contiguous,
+        # for an h x w image (a strip: w its whole width); the UNet level
+        # of each transformer in capture order (6 encoder, the middle one
+        # at level 3, 9 decoder)
         if kv is None or len(kv) != NUM_KV_LAYERS:
             return False
         for (k, v), lv in zip(kv, [0, 0, 1, 1, 2, 2, 3, 2, 2, 2, 1, 1, 1,
                                    0, 0, 0]):
-            n = lat_tokens[lv] * width_tiles
+            n = (h // f >> lv) * (w // f >> lv)
             c = sd.unet_cfg.model_channels * sd.unet_cfg.channel_mult[lv]
             if k.shape != (batch, n, c) or v.shape != k.shape \
                     or not k.is_contiguous():
@@ -705,7 +736,7 @@ def run_keyframe_path(sd, sd9, kernels, gen):
                             ddim_steps=STEPS, cfg_scale=CFG, seed=SEED,
                             strip=StripConfig(2, "mutual"), capture_kv=True)
         torch.cuda.synchronize()
-        return out, kv_ok(kv, 1, width_tiles=2), 2
+        return out, kv_ok(kv, 1, w=2 * W), 2
 
     def target_strip():
         strip_mask = torch.cat([mask, torch.zeros_like(mask)], dim=1)
@@ -718,35 +749,67 @@ def run_keyframe_path(sd, sd9, kernels, gen):
         torch.cuda.synchronize()
         return out, True, 1
 
-    steps = {"1 capture": (capture, (2, H, W, 3), ()),
-             "2 inject": (inject, (1, H, W, 3),
-                          ("flash_attention_keymask", "linear_ln_fused")),
-             "3 inject batch": (inject_batch, (2, H, W, 3),
-                                ("flash_attention_keymask", "linear_ln_fused")),
-             "4 seed strip": (seed_strip, (1, H, 2 * W, 3),
-                              ("flash_attention_mfr", "linear_ln_fused")),
-             "5 target strip": (target_strip, (1, H, 2 * W, 3),
-                                ("flash_attention_mfr", "linear_ln_fused"))}
-    for name, (run, shape, must_launch) in steps.items():
-        for fn in kernels.values():
-            fn.launches = 0
+    def seed_strip4():
+        # the 4-frame seed strip, 512x3072: L2 is 16 x 96 tokens, d = 160
+        out, kv = F.img2img(sd, torch.cat(seeds, dim=2), prompt, neg, 0.8,
+                            ddim_steps=L2_STEPS, cfg_scale=CFG, seed=SEED,
+                            strip=StripConfig(4, "mutual"), capture_kv=True)
+        torch.cuda.synchronize()
+        return out, kv_ok(kv, 1, w=4 * W), 4
+
+    def inject_big():
+        # capture on two 1024x1536 keyframes (L2: 32 x 48 tokens, d = 160),
+        # then the injected inpaint of one frame; s/frame per inpainted
+        # frame, the captures included
+        kvs = [F.img2img(sd, key, prompt, neg, 0.4, ddim_steps=L2_STEPS,
+                         cfg_scale=CFG, seed=SEED, capture_kv=True)[1]
+               for key in big_keys]
+        out, _, _, kv = F.img2img_inpaint(
+            sd9, big_frame, prompt, neg, 0.8, ddim_steps=L2_STEPS,
+            reference_img=big_warped, mask=big_mask, mask_blur=4,
+            cfg_scale=CFG, seed=SEED, reference_kv=concat_ref_kv(kvs),
+            capture_kv=True, want_init_decoded=False)
+        torch.cuda.synchronize()
+        return out, all(kv_ok(k, 1, 2 * H, 2 * W) for k in [*kvs, kv]), 1
+
+    # step: (run, output shape, kernels it must launch, the d = 160
+    # instantiation it must launch)
+    mask_kv = ("flash_attention_keymask", "linear_ln_fused")
+    mfr = ("flash_attention_mfr", "linear_ln_fused")
+    steps = {"1 capture": (capture, (2, H, W, 3), (), None),
+             "2 inject": (inject, (1, H, W, 3), mask_kv, None),
+             "3 inject batch": (inject_batch, (2, H, W, 3), mask_kv, None),
+             "4 seed strip": (seed_strip, (1, H, 2 * W, 3), mfr, None),
+             "5 target strip": (target_strip, (1, H, 2 * W, 3), mfr, None),
+             "6 4-tile seed strip": (seed_strip4, (1, H, 4 * W, 3), mfr,
+                                     "flash_attention_mfr"),
+             "7 inject at 1024x1536": (inject_big, (1, 2 * H, 2 * W, 3),
+                                       mask_kv + ("flash_attention",),
+                                       "flash_attention_keymask")}
+    for name, (run, shape, must_launch, must_160) in steps.items():
+        reset_counts(kernels)
         torch.cuda.synchronize()
         out, kv_good, frames = run()
         counts = {k: fn.launches for k, fn in kernels.items()}
+        by_dp = dp_counts(kernels)
         t0 = time.time()
         run()
         secs = (time.time() - t0) / frames
         ok_out = tuple(out.shape) == shape and bool(
             torch.isfinite(out).all()) and out.abs().max().item() <= 1.0
-        log(f"[keyframe] step {name}: {secs:.3f} s/frame, output "
+        cut = f" ({L2_STEPS}-step schedule, not {STEPS})" if must_160 else ""
+        log(f"[keyframe] step {name}{cut}: {secs:.3f} s/frame, output "
             f"{tuple(out.shape)} finite-in-range {ok_out}, std "
             f"{out.float().std().item():.4f}, K/V store ok {kv_good}, "
-            f"launches {counts}")
+            f"launches {counts}, by padded head width {by_dp}")
         if not (ok_out and kv_good):
             failures.append(f"keyframe step {name}: bad output or K/V")
         for k in must_launch:
             if counts[k] == 0:
                 failures.append(f"keyframe step {name}: {k} never launched")
+        if must_160 and not by_dp[must_160].get(160):
+            failures.append(f"keyframe step {name}: {must_160} never "
+                            "launched at d = 160")
         results[name] = (secs, counts, ok_out and kv_good)
         if name != "1 capture":
             profile_frame(run, f"step {name}")
@@ -784,8 +847,7 @@ def run_banded_phase(sd, keys_kv, kernels, gen):
                                      ref_kv=ref_kv, **kw)
     with torch.no_grad():
         call(attn_biases=biases)                 # warm-up
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -882,8 +944,7 @@ def run_train_phase(sd, kernels, gen):
     draws = [TL.sample_t_noise(sched, x0, gen) for _ in range(TRAIN_STEPS)]
 
     # step 1's gradient: kernel route (bf16) against the f32 plain route
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     t1, noise1 = draws[0]
     with mock.patch.multiple(A, flash_attention_diff=A.xla_attention,
                              shortk_attention=A.xla_attention):
@@ -916,8 +977,7 @@ def run_train_phase(sd, kernels, gen):
     step = TT.make_train_step(cfg, sched, parameterization="eps")
     losses, times, counts = [], [], []
     for i, (t, noise) in enumerate(draws):
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.time()
         loss = step(state, x0, ctx, t, noise).item()
@@ -974,22 +1034,27 @@ def run_train_phase(sd, kernels, gen):
 
 # the second template argument of attention_sm90_kernel and
 # attn_mma_kernel: the mode
-_MODES = {"Li1E": "KEYMASK", "Li2E": "MFR", "Li4E": "BANDED"}
+_MODES = {"Li0E": "PLAIN", "Li1E": "KEYMASK", "Li2E": "MFR",
+          "Li4E": "BANDED"}
 
 
 def _kernel_name(mangled: str) -> str:
     """``name<N>`` of a mangled kernel (a length-prefixed name ending in
     ``_kernel``, its first template argument an int N: DP, or BN for
     linear_ln_sm90_kernel), ``name<DP, MODE>`` where a second one names a
-    mode, else the input."""
+    mode, ``name<DP, MODE, NC>`` where a third gives attention_sm90_kernel's
+    consumer warpgroups, else the input."""
     for m in re.finditer(r"(?=(\d+)([a-z]))", mangled):
         at = m.start(2)
         name = mangled[at:at + int(m.group(1))]
         if name.endswith("_kernel"):
-            t = re.match(r"ILi(\d+)E(Li\d+E)?", mangled[at + len(name):])
-            mode = _MODES.get(t.group(2) or "") if t else None
-            return name + (f"<{t.group(1)}{', ' + mode if mode else ''}>"
-                           if t else "")
+            t = re.match(r"ILi(\d+)E(Li\d+E)?(?:Li(\d+)E)?",
+                         mangled[at + len(name):])
+            if not t:
+                return name
+            mode = _MODES.get(t.group(2) or "")
+            return name + f"<{t.group(1)}" + (f", {mode}" if mode else "") \
+                + (f", {t.group(3)}" if t.group(3) else "") + ">"
     return mangled
 
 
@@ -1104,15 +1169,16 @@ def main() -> int:
             f"sources: {sources}")
     else:
         log(f"[build] {so.name} in {time.time() - t0:.1f} s: "
-            "attention_sm90_kernel (#1 and #7: three wgmma consumer "
-            "warpgroups, cp.async K/V ring; #10 at d <= 128, the MFR "
-            "strip bias as an epilogue on the score tile; #6 at d <= 128, "
-            "the CFG key mask as a per-unit key bound, the uncond rows' "
-            "units walking min(Nk, n_own) keys; csrc/attention_sm90.cu); "
+            "attention_sm90_kernel<DP, MODE, NC> (#1 and #7: three wgmma "
+            "consumer warpgroups, cp.async K/V ring; #10, the MFR strip "
+            "bias as an epilogue on the score tile; #6, the CFG key mask "
+            "as a per-unit key bound, the uncond rows' units walking "
+            "min(Nk, n_own) keys; #6 and #10 at d = 160 on 32-key tiles; "
+            "csrc/attention_sm90.cu); "
             "attention_wide_sm90_kernel (#2: two wgmma consumer warpgroups "
             "on the two d-halves, TMA K/V ring multicast across a cluster; "
             "csrc/attention_wide_sm90.cu); attn_mma_kernel (#5, the "
-            "banded mode; #6 and #10 at d = 160; csrc/attention.cu); "
+            "banded mode; csrc/attention.cu); "
             "attention_bwd_dkv_sm90_kernel, attention_bwd_dq_sm90_kernel (#8 "
             "and #9: one wgmma skeleton, a cp.async ring of the streamed "
             "axis; csrc/attention_bwd_sm90.cu); "

@@ -1,80 +1,52 @@
-// Flash-attention forward kernels of the older mma.sync design (sm_90a),
-// plain C interface for ctypes (ops/_cuda.py builds and loads this file).
+// The older mma.sync attention kernel (sm_90a), the entry points of every
+// attention forward, and their plain C interface for ctypes (ops/_cuda.py
+// builds and loads this file).
 //
-// Computes out = softmax(q k^T / sqrt(d) + bias) v for bf16 q [B, Nq, H, D]
-// and k/v [B, Nk, H, D] (D a multiple of 8, up to 160; any strides along
-// B, N, H that are multiples of 8; unit stride along D; 16-byte tile
-// loads), writing a contiguous [B, Nq, H, D] output. Softmax in f32 with a
-// TRACKED running max (online softmax), so the result does not rely on
-// bounded logits. One block per (b*h, query tile), a loop over key tiles
-// inside the block in place of the TPU's sequential grid axis; the ragged
-// last key tile is masked to -inf.
+// Routing: sdaof_attention sends d <= 128 to attention_sm90_kernel
+// (csrc/attention_sm90.cu) and wider heads to attention_wide_sm90_kernel
+// (csrc/attention_wide_sm90.cu); sdaof_attention_keymask (the CFG K/V
+// injection) and sdaof_attention_mfr (the MFR strips) send every d up to
+// 160 to attention_sm90_kernel's keymask and MFR modes (three consumer
+// warpgroups up to d = 128, two at d = 160). This file keeps one kernel,
+// for the banded mode only: attn_mma_kernel<DP, MODE_BANDED>. It replaces
+// this Pallas TPU kernel of sd_animation_optical_flow_tpu/ops/attention.py
+// (the Python wrapper keeps its name and counter):
 //
-// The plain forward and the forward with statistics run on the Hopper
-// kernels of csrc/attention_sm90.cu (d <= 128) and csrc/
-// attention_wide_sm90.cu (d > 128); sdaof_attention routes there, and
-// sdaof_attention_mfr / sdaof_attention_keymask send the MFR strip
-// attention and the CFG key mask at d <= 128 to attention_sm90_kernel's
-// MFR and keymask modes. This file keeps the banded mode, and the MFR and
-// keymask modes at d = 160. It replaces these Pallas TPU kernels of
-// sd_animation_optical_flow_tpu/ops/attention.py (the Python wrappers
-// keep their names and counters):
-//
-// attn_mma_kernel<DP, MODE>: a warp per 16 query rows; q k^T and p v both
-// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d
-// zero-padded to a multiple of 16 in shared memory. The score tile's
-// accumulator fragments are, rounded to bf16, the A fragments of the p v
-// product, so p never leaves registers. Its modes:
-//
-//   _flash_keymask_kernel_tpv (flash_attention_keymask: the CFG K/V
-//     injection, uncond rows see their own keys only) at d = 160 only
-//     (SD-1.5's third UNet level at a 1024x1536 frame, on no tested path;
-//     d <= 128 runs attention_sm90_kernel<DP, MODE_KEYMASK>, csrc/
-//     attention_sm90.cu) -> attn_mma_kernel<160, MODE_KEYMASK>: batch
-//     rows b < n_uncond run their key loop to n_own only (the last tile
-//     masked in registers as any ragged tile), so the uncond half never
-//     reads a key past n_own; the TPU kernel masks the same scores to
-//     -1e30 and still streams them. The cond rows run all Nk.
-//   _flash_mfr_kernel (flash_attention_mfr: MFR strip self-attention)
-//     at d = 160 only (SD-1.5's third UNet level, on no tested path: a
-//     4-tile strip; attention_sm90_kernel's 192-row units, Q slots and
-//     ring do not fit 227 KB at that width, so d = 160 waits for the
-//     d-split design of attention_wide_sm90_kernel; d <= 128 runs
-//     attention_sm90_kernel<DP, MODE_MFR>, csrc/attention_sm90.cu)
-//     -> attn_mma_kernel<160, MODE_MFR>: the band bias weight * exp(-dist
-//     / sigma) (Chebyshev radius, `target` / `mutual` tile rule) is
-//     computed in registers from the token indices (y = i / w_strip,
-//     tile = (i % w_strip) / w_tile, x = (i % w_strip) % w_tile) and added
-//     in the log2 domain; no coordinate array in device memory. Only key
-//     tiles whose rows lie within the radius of the block's query rows
-//     evaluate the bias (a block-uniform test), the rest run unbiased.
 //   _flash_banded_kernel (flash_attention_banded: one frame's queries
 //     against n frames' keys joined along the token axis, banded
-//     cross-frame bias)
-//     -> attn_mma_kernel<DP, MODE_BANDED>: query i sits at (i / w, i % w)
-//     and key j at the same split of j % (h * w), both computed in
-//     registers from the indices (the TPU kernel reads precomputed
-//     qpos / kpos coordinate rows). Every key gets a bias: weight *
-//     exp(-dist / sigma) inside the |dy|, |dx| <= radius band (0 when
-//     weight = 0) and base outside, in the log2 domain. A key tile that
-//     lies in one frame, with all its rows out of the band of the block's
-//     query rows, adds base uniformly (a block-uniform test); the other
-//     tiles, those straddling a frame boundary among them, evaluate it
-//     per element. No tile is skipped: with a finite base every key
-//     counts.
+//     cross-frame bias; on no pipeline path)
+//     -> attn_mma_kernel<DP, MODE_BANDED>: out = softmax(q k^T / sqrt(d)
+//     + bias) v for bf16 q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a
+//     multiple of 8, up to 160; any strides along B, N, H that are
+//     multiples of 8; unit stride along D; 16-byte tile loads), writing a
+//     contiguous [B, Nq, H, D] output. Query i sits at (i / w, i % w) and
+//     key j at the same split of j % (h * w), both computed in registers
+//     from the indices (the TPU kernel reads precomputed qpos / kpos
+//     coordinate rows). Every key gets a bias: weight * exp(-dist /
+//     sigma) inside the |dy|, |dx| <= radius band (0 when weight = 0) and
+//     base outside, in the log2 domain. A key tile that lies in one frame,
+//     with all its rows out of the band of the block's query rows, adds
+//     base uniformly (a block-uniform test); the other tiles, those
+//     straddling a frame boundary among them, evaluate it per element. No
+//     tile is skipped: with a finite base every key counts.
 //
-// The running max of every mode starts at a finite floor (-1e30, as the
-// TPU kernels' does), not at -inf: a row whose first key tile scores all
-// -inf (the banded base = -inf) would otherwise rescale by
-// exp2(-inf - -inf) = NaN.
+// Design: a warp per 16 query rows; q k^T and p v both on the tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 accumulate), d zero-padded to a
+// multiple of 16 in shared memory. The score tile's accumulator
+// fragments are, rounded to bf16, the A fragments of the p v product, so
+// p never leaves registers. Softmax in f32 with a TRACKED running max
+// (online softmax), from a finite floor (-1e30, as the TPU kernel's), not
+// -inf: a row whose first key tile scores all -inf (base = -inf) would
+// otherwise rescale by exp2(-inf - -inf) = NaN. One block per (b*h,
+// query tile), a loop over key tiles inside the block in place of the
+// TPU's sequential grid axis; the ragged last key tile is masked to -inf.
 //
-// What bounds them on this card: at SD shapes attention is compute-bound
+// What bounds it on this card: at SD shapes attention is compute-bound
 // (4*N^2*D operations on ~4*N*D*2 bytes, and one exp2 per score on the
-// special-function units). These kernels use mma.sync without pipelining
-// the tile loads (no cp.async ring, no wgmma), so they sit several times
-// above those bounds; attention_sm90.cu's design (sm90.cuh), which runs
-// the MFR strips and the key mask at d <= 128, is the next step for the
-// banded mode.
+// special-function units). This kernel uses mma.sync without pipelining
+// the tile loads (no cp.async ring, no wgmma), so it sits several times
+// above those bounds; the bias mode of attention_sm90_kernel (the MFR
+// mode's skeleton, at every DP) is its next step.
 
 #include <math.h>
 
@@ -92,38 +64,24 @@ struct AttnArgs {
   long long ksb, ksn, ksh;
   long long vsb, vsn, vsh;
   float scale_log2;  // softmax scale * log2(e): scores live in the log2 domain
-  // MODE_KEYMASK: batch rows < n_uncond see keys < n_own only
-  int n_own, n_uncond;
-  // MODE_MFR: strip geometry, band radius and tile rule, bias weight *
-  // log2(e) and 1 / sigma
-  int w_strip, w_tile, radius, target_only;
-  float bias_log2, inv_sigma;
-  // MODE_BANDED: frame height and width (radius, bias_log2 and inv_sigma
-  // as MFR's), and the out-of-band bias * log2(e)
-  int fh, fw;
-  float base_log2;
+  // frame height and width, band radius, in-band weight * log2(e), 1 /
+  // sigma, and the out-of-band bias * log2(e)
+  int fh, fw, radius;
+  float bias_log2, inv_sigma, base_log2;
 };
 
-enum { MODE_KEYMASK = 1, MODE_MFR = 2, MODE_BANDED = 4 };
+// the kernel's one mode (attention_sm90_kernel's modes are 0-2)
+enum { MODE_BANDED = 4 };
 
 constexpr float MAX_FLOOR = -1e30f;  // the running max's start
 
 // ---------------------------------------------------------------------------
-// attn_mma_kernel: bf16, D up to 160 (the keymask, MFR and banded routes)
+// attn_mma_kernel: bf16, D up to 160, the banded mode
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_BQ = 16 * MMA_WARPS;  // query rows per block
 constexpr int MMA_BK = 64;              // keys per shared-memory tile
-
-// token i of a width-concatenated strip -> (row y, tile, column x in tile)
-__device__ __forceinline__ void strip_coords(int i, int w_strip, int w_tile, int& y, int& tile,
-                                             int& x) {
-  y = i / w_strip;
-  const int rem = i - y * w_strip;
-  tile = rem / w_tile;
-  x = rem - tile * w_tile;
-}
 
 template <int DP, int MODE>  // DP: head dim padded to a multiple of 16
 __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, int D) {
@@ -132,6 +90,7 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
   constexpr int NT = MMA_BK / 8;   // 8-key column tiles of a score tile
   constexpr int DN = DP / 8;       // 8-wide column tiles of the output
   static_assert(MMA_BQ == MMA_BK, "q is staged in the k tile");
+  static_assert(MODE == MODE_BANDED, "the banded mode only");
   __shared__ __align__(16) bf16 ks[MMA_BK * LD];  // also stages q
   __shared__ __align__(16) bf16 vs[MMA_BK * LD];
 
@@ -155,34 +114,19 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
   float m0 = MAX_FLOOR, m1 = MAX_FLOOR;  // running max of rows g, g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
 
-  // keys this batch row attends to (the keymask: the uncond rows stop at
-  // n_own; n_own >= 1, so every row sees at least one key)
-  const int nk = (MODE == MODE_KEYMASK && b < a.n_uncond) ? min(a.Nk, a.n_own) : a.Nk;
-  // MFR: strip coordinates of this thread's two query rows, and the strip
-  // rows the block's queries span
-  int qy[2] = {0, 0}, qt[2] = {0, 0}, qx[2] = {0, 0};
-  int yq_lo = 0, yq_hi = 0;
-  if (MODE == MODE_MFR) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) strip_coords(q0 + r0 + g + 8 * r, a.w_strip, a.w_tile, qy[r], qt[r], qx[r]);
-    yq_lo = q0 / a.w_strip;
-    yq_hi = (min(q0 + MMA_BQ, a.Nq) - 1) / a.w_strip;
-  }
-  // banded: frame coordinates of the two query rows, and the frame rows
+  // frame coordinates of this thread's two query rows, and the frame rows
   // the block's queries span
-  if (MODE == MODE_BANDED) {
+  int qy[2], qx[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = q0 + r0 + g + 8 * r;
-      qy[r] = i / a.fw;
-      qx[r] = i - qy[r] * a.fw;
-    }
-    yq_lo = q0 / a.fw;
-    yq_hi = (min(q0 + MMA_BQ, a.Nq) - 1) / a.fw;
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + r0 + g + 8 * r;
+    qy[r] = i / a.fw;
+    qx[r] = i - qy[r] * a.fw;
   }
+  const int yq_lo = q0 / a.fw, yq_hi = (min(q0 + MMA_BQ, a.Nq) - 1) / a.fw;
 
-  for (int k0 = 0; k0 < nk; k0 += MMA_BK) {
-    const int nvalid = min(MMA_BK, nk - k0);
+  for (int k0 = 0; k0 < a.Nk; k0 += MMA_BK) {
+    const int nvalid = min(MMA_BK, a.Nk - k0);
     __syncthreads();  // q fragments taken / previous tile consumed
     load_rows(ks, LD, k + k0 * a.ksn, a.ksn, MMA_BK, nvalid, D, DP);
     load_rows(vs, LD, v + k0 * a.vsn, a.vsn, MMA_BK, nvalid, D, DP);
@@ -203,53 +147,32 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] *= a.scale_log2;  // into the log2 domain
-    if (MODE == MODE_MFR) {
-      const int yk_lo = k0 / a.w_strip, yk_hi = (k0 + nvalid - 1) / a.w_strip;
-      if (yk_hi >= yq_lo - a.radius && yk_lo <= yq_hi + a.radius) {
+    // the banded bias, in the log2 domain
+    const int hw = a.fh * a.fw;
+    const int j0 = k0 % hw;  // frame-local index of the tile's first key
+    const int yk_lo = j0 / a.fw, yk_hi = (j0 + nvalid - 1) / a.fw;
+    if (j0 + nvalid <= hw && (yk_hi < yq_lo - a.radius || yk_lo > yq_hi + a.radius)) {
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            int ky, kt, kx;
-            strip_coords(k0 + n * 8 + 2 * t + c, a.w_strip, a.w_tile, ky, kt, kx);
+        for (int i = 0; i < 4; ++i) s[n][i] += a.base_log2;
+    } else {
 #pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int dy = qy[r] - ky, dx = qx[r] - kx;
-              const bool tiles = a.target_only ? (qt[r] == 0 && kt != 0) : (qt[r] != kt);
-              if (tiles && abs(dy) <= a.radius && abs(dx) <= a.radius)
-                s[n][2 * r + c] +=
-                    a.bias_log2 * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma);
-            }
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jl = (k0 + n * 8 + 2 * t + c) % hw;
+          const int ky = jl / a.fw, kx = jl - ky * a.fw;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int dy = qy[r] - ky, dx = qx[r] - kx;
+            if (abs(dy) > a.radius || abs(dx) > a.radius)
+              s[n][2 * r + c] += a.base_log2;
+            else if (a.bias_log2 != 0.f)
+              s[n][2 * r + c] +=
+                  a.bias_log2 * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma);
           }
-      }
-    }
-    if (MODE == MODE_BANDED) {
-      const int hw = a.fh * a.fw;
-      const int j0 = k0 % hw;  // frame-local index of the tile's first key
-      const int yk_lo = j0 / a.fw, yk_hi = (j0 + nvalid - 1) / a.fw;
-      if (j0 + nvalid <= hw && (yk_hi < yq_lo - a.radius || yk_lo > yq_hi + a.radius)) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[n][i] += a.base_log2;
-      } else {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int jl = (k0 + n * 8 + 2 * t + c) % hw;
-            const int ky = jl / a.fw, kx = jl - ky * a.fw;
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int dy = qy[r] - ky, dx = qx[r] - kx;
-              if (abs(dy) > a.radius || abs(dx) > a.radius)
-                s[n][2 * r + c] += a.base_log2;
-              else if (a.bias_log2 != 0.f)
-                s[n][2 * r + c] +=
-                    a.bias_log2 * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma);
-            }
-          }
-      }
+        }
     }
     // mask the ragged tile (nvalid >= 1), running max from the floor
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -333,8 +256,7 @@ __global__ void __launch_bounds__(32 * MMA_WARPS) attn_mma_kernel(AttnArgs a, in
 // launchers
 // ---------------------------------------------------------------------------
 
-// the banded mode at every DP (the keymask and MFR modes run here at d =
-// 160 only, launched by their entry points)
+// the banded mode at every DP
 cudaError_t launch_banded(const AttnArgs& a, int D, cudaStream_t st) {
   const dim3 grid((a.Nq + MMA_BQ - 1) / MMA_BQ, a.B * a.H);
   const int threads = 32 * MMA_WARPS;
@@ -444,9 +366,8 @@ extern "C" int sdaof_attention(const void* q, const void* k, const void* v, void
 }
 
 // The CFG K/V-injection attention (bf16, D a multiple of 8 up to 160):
-// batch rows < n_uncond attend to keys < n_own only (1 <= n_own). d <= 128
-// runs attention_sm90_kernel<DP, MODE_KEYMASK> (csrc/attention_sm90.cu),
-// d > 128 attn_mma_kernel<160, MODE_KEYMASK>.
+// batch rows < n_uncond attend to keys < n_own only (1 <= n_own), on
+// attention_sm90_kernel<DP, MODE_KEYMASK, NC> (csrc/attention_sm90.cu).
 extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void* v, void* o,
                                        int B, int H, int Nq, int Nk, int D, long long qsb,
                                        long long qsn, long long qsh, long long ksb,
@@ -457,26 +378,15 @@ extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void*
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 128)
-    return launch_attention_sm90_keymask(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn,
-                                         ksh, vsb, vsn, vsh, scale_log2, n_own, n_uncond, device,
-                                         st);
-  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
-                         scale_log2);
-  a.n_own = n_own;
-  a.n_uncond = n_uncond;
-  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
-  const dim3 grid((Nq + MMA_BQ - 1) / MMA_BQ, B * H);
-  attn_mma_kernel<160, MODE_KEYMASK><<<grid, 32 * MMA_WARPS, 0, st>>>(a, D);
-  return cudaGetLastError();
+  return launch_attention_sm90_keymask(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
+                                       vsb, vsn, vsh, scale_log2, n_own, n_uncond, device,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // MFR strip self-attention (bf16, D a multiple of 8 up to 160, Nq = Nk =
 // h * w_strip, w_strip = n_tiles * w_tile): scores of in-band pairs of
-// distinct tiles gain bias_log2 * exp(-dist * inv_sigma). d <= 128 runs
-// attention_sm90_kernel<DP, MODE_MFR> (csrc/attention_sm90.cu), d = 160
-// attn_mma_kernel<160, MODE_MFR>.
+// distinct tiles gain bias_log2 * exp(-dist * inv_sigma), on
+// attention_sm90_kernel<DP, MODE_MFR, NC> (csrc/attention_sm90.cu).
 extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, void* o, int B,
                                    int H, int Nq, int Nk, int D, long long qsb, long long qsn,
                                    long long qsh, long long ksb, long long ksn, long long ksh,
@@ -489,23 +399,9 @@ extern "C" int sdaof_attention_mfr(const void* q, const void* k, const void* v, 
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 128)
-    return launch_attention_sm90_mfr(q, k, v, o, B, H, Nq, D, qsb, qsn, qsh, ksb, ksn, ksh, vsb,
-                                     vsn, vsh, scale_log2, w_strip, w_tile, radius, target_only,
-                                     bias_log2, inv_sigma, device, st);
-  AttnArgs a = make_args(q, k, v, o, B, H, Nq, Nk, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh,
-                         scale_log2);
-  a.w_strip = w_strip;
-  a.w_tile = w_tile;
-  a.radius = radius;
-  a.target_only = target_only;
-  a.bias_log2 = bias_log2;
-  a.inv_sigma = inv_sigma;
-  if (!aligned(a, D)) return cudaErrorMisalignedAddress;
-  const dim3 grid((Nq + MMA_BQ - 1) / MMA_BQ, B * H);
-  attn_mma_kernel<160, MODE_MFR><<<grid, 32 * MMA_WARPS, 0, st>>>(a, D);
-  return cudaGetLastError();
+  return launch_attention_sm90_mfr(q, k, v, o, B, H, Nq, D, qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn,
+                                   vsh, scale_log2, w_strip, w_tile, radius, target_only, bias_log2,
+                                   inv_sigma, device, static_cast<cudaStream_t>(stream));
 }
 
 // Banded multi-frame attention (bf16, D a multiple of 8 up to 160, Nq =

@@ -4,12 +4,12 @@
 // for ctypes (ops/_cuda.py builds and loads this file).
 //
 // attention_sm90_kernel computes out = softmax(q k^T * scale) v for bf16
-// q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a multiple of 8 up to 128; any
+// q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a multiple of 8 up to 160; any
 // strides along B, N, H that are multiples of 8 elements; unit stride
 // along D), writing a contiguous [B, Nq, H, D] out, and, where lse is
 // given, each query row's base-2 log-sum-exp m + log2(l) of the scaled
 // scores (f32 [B*H, Nq]) for the backward (csrc/attention_bwd_sm90.cu). It
-// replaces two Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
+// replaces four Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
 // attention.py, whose Python wrappers keep their names and counters:
 //
 //   _flash_kernel_tpv (flash_attention_tpv: the UNet self-attention at
@@ -20,17 +20,14 @@
 //     The TPU kernel is max-free and returns the denominator l; with a
 //     tracked max the LSE is the statistic that stays finite.
 //   _flash_mfr_kernel (flash_attention_mfr, via strip_attention: the MFR
-//     strip self-attention, d <= 128; sdaof_attention_mfr in
-//     attention.cu routes here, d = 160 stays on attention.cu's
-//     attn_mma_kernel<160, MODE_MFR>: 192-row units, their Q slots and
-//     the ring do not fit 227 KB there) -> attention_sm90_kernel<DP,
-//     MODE_MFR>, the same kernel with an epilogue on the score tile
-//     (below).
+//     strip self-attention, every d up to 160; sdaof_attention_mfr in
+//     attention.cu routes here) -> attention_sm90_kernel<DP, MODE_MFR,
+//     NC>, the same kernel with an epilogue on the score tile (below).
 //   _flash_keymask_kernel_tpv (flash_attention_keymask, via
-//     attention_injected: the CFG K/V injection, d <= 128;
-//     sdaof_attention_keymask in attention.cu routes here, d = 160 stays
-//     on attn_mma_kernel<160, MODE_KEYMASK>) -> attention_sm90_kernel<DP,
-//     MODE_KEYMASK>: the batch rows b < n_uncond (the uncond half) see
+//     attention_injected: the CFG K/V injection, every d up to 160;
+//     sdaof_attention_keymask in attention.cu routes here) ->
+//     attention_sm90_kernel<DP, MODE_KEYMASK, NC>: the batch rows b <
+//     n_uncond (the uncond half) see
 //     keys < n_own only. A unit of such a row walks min(Nk, n_own) keys
 //     instead of Nk, its last tile masked and its loads past that bound
 //     zero-filled exactly as the ragged last tile of Nk is, so the uncond
@@ -50,8 +47,8 @@
 // 0.155 ms at 3.9e12 / s. At d = 40 the exponentials, not the matrix
 // products, are the floor, so the design overlaps the two:
 //
-// * Persistent blocks, one per SM, of NC = 3 consumer warpgroups and a
-//   producer warpgroup, walk the work units (BQ = 192 query rows of one
+// * Persistent blocks, one per SM, of NC consumer warpgroups and a
+//   producer warpgroup, walk the work units (BQ = 64 NC query rows of one
 //   batch row and head). The producer loads each unit's Q into one of
 //   QSLOTS slots and streams the K/V tiles of BK keys (128 for d <= 48,
 //   else 64) into a ring of STAGES shared-memory stages with 16-byte
@@ -69,7 +66,17 @@
 //   producer drops to 56 (setmaxnreg) and the consumers take 152: a
 //   consumer holds s (BK / 2 f32), p (BK / 4 bf16 pairs) and o (DP / 2
 //   f32), 120 of them at d = 48, BK = 128, and at 128 ptxas spills and
-//   serialises the wgmma.
+//   serialises the wgmma. NC, the consumer count, is a template
+//   argument. At d 136-160 (DP = 160, SD-1.5's third UNet level) o alone
+//   takes 80 registers; the port keeps three consumers there on 32-key
+//   tiles (4 stages of 20 KB beside 2 x 60 KB of Q slots: 200 KB), so
+//   the 1536-token level is one wave of 128 units; in the MFR mode the
+//   consumers take 160 registers and leave the producer 32 (at 152 its
+//   band state spills 8 bytes). Two consumers (-DSM90_NC160=2: 128-row
+//   units, 384 threads, 224 / 56 registers, 64-key tiles, 3 stages) make
+//   192 units, 1.45 waves, and read K/V from L2 half as often again: on
+//   the H100 they took 1.47-1.77x the time at the L2 shapes, held by
+//   their loads (sm90_probe.py, which builds both).
 // * q k^T: wgmma m64nBKk16, A = Q and B = K both from shared memory,
 //   K-major (K's natural [key, d] rows), DP / 16 k-steps. d is padded to
 //   DP, a multiple of 16: the padded 16-byte chunks of every tile are
@@ -162,23 +169,23 @@ struct Sm90Args {
 // the per-row key bound of the CFG key mask, with the MFR strip bias
 enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2 };
 
-constexpr int NC = 3;                   // consumer warpgroups
-constexpr int BQ = 64 * NC;             // query rows per work unit
 constexpr int WG_THREADS = 128;         // a warpgroup
 constexpr int PRODUCER = WG_THREADS;    // the producer warpgroup
-constexpr int THREADS = NC * WG_THREADS + PRODUCER;
-constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 152;  // a thread, after the hand-over
-static_assert(PRODUCER_REGS * PRODUCER + CONSUMER_REGS * NC * WG_THREADS <= 65536, "registers");
-constexpr int STAGES = 4;               // K/V ring depth
-constexpr int QSLOTS = 2;               // Q slots: the units loaded ahead + 1
-constexpr int SCHED_BAR = 1 + NC;       // named barriers of the turns (1 .. NC: the epilogues)
 constexpr float MAX_FLOOR = -1e30f;     // the running max's start
 
 // sm90_probe.py times copies of this kernel built with parts of the work
-// left out, the bits of SM90_SKIP (0, nothing left out, in the port)
+// left out, the bits of SM90_SKIP (0, nothing left out, in the port), and
+// with SM90_NC160 consumers at DP = 160 (3 in the port; 2 beside it)
 #ifndef SM90_SKIP
 #define SM90_SKIP 0
 #endif
+#ifndef SM90_NC160
+#define SM90_NC160 3
+#endif
+
+// consumer warpgroups of an instantiation at head dim DP (padded): three
+// everywhere in the port (at DP = 160 on 32-key tiles)
+__host__ __device__ constexpr int consumers(int dp) { return dp > 128 ? SM90_NC160 : 3; }
 constexpr int SKIP_EXP = 1, SKIP_LOADS = 2, SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16,
               SKIP_TURNS = 32, SKIP_BIAS = 64;
 __host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) != 0; }
@@ -187,11 +194,34 @@ __host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) !=
 // dx + radius) each clamped to BIAS_SIDE - 1; entries past 2 radius are 0
 constexpr int BIAS_SIDE = 16, BIAS_MAX_R = (BIAS_SIDE - 2) / 2;
 
-template <int DP, int MODE = MODE_PLAIN>  // head dim padded to a multiple of 16
+// the shape of an instantiation: DP the head dim padded to a multiple of
+// 16, NC consumer warpgroups of 64 query rows each
+template <int DP, int MODE, int NC>
 struct Tiles {
-  // keys per tile; the MFR mode's state leaves a consumer too few
-  // registers for o at DP = 128 beside 64-key score tiles
-  static constexpr int BK = DP <= 48 ? 128 : MODE == MODE_MFR && DP > 112 ? 32 : 64;
+  static constexpr int BQ = 64 * NC;  // query rows per work unit
+  static constexpr int THREADS = NC * WG_THREADS + PRODUCER;
+  // a thread's registers after the hand-over, within what the launch
+  // gives the block: 65536 / THREADS a thread in steps of 8 (128 of 512
+  // threads, 168 of 384). Three consumers take 152 and leave the
+  // producer 56; at DP = 160 the MFR mode's band state beside o (80 a
+  // thread) spills 8 bytes at 152, so there they take all but 32 (which
+  // cost the other modes' loads ~4% there)
+  static constexpr bool WIDE_MFR = NC == 3 && DP > 128 && MODE == MODE_MFR;
+  static constexpr int PRODUCER_REGS = WIDE_MFR ? 32 : 56;
+  static constexpr int CONSUMER_REGS = NC == 2 ? 224 : WIDE_MFR ? 160 : 152;
+  static_assert(PRODUCER_REGS * PRODUCER + CONSUMER_REGS * NC * WG_THREADS <=
+                    65536 / THREADS / 8 * 8 * THREADS,
+                "registers");
+  static constexpr int SCHED_BAR = 1 + NC;  // named barriers of the turns (1 .. NC: the epilogues)
+  // keys per tile; three consumers' registers hold o beside 32-key
+  // score tiles only, in the MFR mode at DP = 128 and in any at DP = 160
+  static constexpr int BK = DP <= 48 ? 128
+                            : NC == 3 && (DP > 128 || (MODE == MODE_MFR && DP > 112)) ? 32
+                            : 64;
+  // K/V ring depth; Q slots (the units loaded ahead + 1). At DP = 160
+  // with two consumers, 2 x 40 KB of Q and 3 x 40 KB of K/V fill 200 KB
+  static constexpr int STAGES = NC == 2 && DP > 128 ? 3 : 4;
+  static constexpr int QSLOTS = 2;
   static constexpr uint32_t Q_BYTES = BQ * DP * 2;   // one Q slot
   static constexpr uint32_t KV_BYTES = BK * DP * 2;  // one of K, V
   static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
@@ -205,10 +235,10 @@ struct Tiles {
   static_assert(MFR_SMEM <= 232448, "shared memory of one block");
 };
 
-// work unit u of a block: BQ query rows of one (batch, head)
+// work unit u of a block: bq query rows of one (batch, head)
 struct Unit {
   int bh, q0;
-  __device__ Unit(int u, int nqt) : bh(u / nqt), q0((u % nqt) * BQ) {}
+  __device__ Unit(int u, int nqt, int bq) : bh(u / nqt), q0((u % nqt) * bq) {}
 };
 
 // the keys a unit attends to: all Nk, or in MODE_KEYMASK for the uncond
@@ -220,10 +250,10 @@ __device__ __forceinline__ int unit_keys(const Sm90Args& a, const Unit& un) {
 }
 
 // zero 16-byte chunks [ch, DP / 8) of a tile of `rows` rows (contiguous
-// in the chunk-major layout)
-__device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp8) {
+// in the chunk-major layout), the block's `threads` threads together
+__device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp8, int threads) {
   for (uint32_t off = ch * rows * 16 + threadIdx.x * 16; off < static_cast<uint32_t>(dp8 * rows * 16);
-       off += THREADS * 16)
+       off += threads * 16)
     asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(tile + off), "r"(0) : "memory");
 }
 
@@ -231,11 +261,11 @@ __device__ __forceinline__ void zero_pad(uint32_t tile, int rows, int ch, int dp
 // its K/V tiles through the ring; it runs ahead of the consumers by up to
 // STAGES tiles and QSLOTS - 1 units' Q, so the next units' loads overlap this
 // unit's math and epilogue
-template <int DP, int MODE>
+template <int DP, int MODE, int NC>
 __device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, uint32_t sm,
                                         int tid) {
-  using T = Tiles<DP, MODE>;
-  constexpr int BK = T::BK;
+  using T = Tiles<DP, MODE, NC>;
+  constexpr int BK = T::BK, BQ = T::BQ, STAGES = T::STAGES, QSLOTS = T::QSLOTS;
   constexpr int NE = (BK * DP / 8 + PRODUCER - 1) / PRODUCER;  // copies per tile
   const int ch = a.D / 8, rq = 8 * ch;  // 16-byte chunks of a row, of a row group
   // a thread's copies of a K/V tile are elements e = tid + i * PRODUCER:
@@ -274,7 +304,7 @@ __device__ __forceinline__ void produce(const Sm90Args& a, int units, int nqt, u
     mbar_wait(bar, parity);
   };
   for (int li = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x) {
-    const Unit un(u, nqt);
+    const Unit un(u, nqt, BQ);
     const int b = un.bh / a.H, h = un.bh % a.H, slot = li % QSLOTS;
     const int nk = unit_keys<MODE>(a, un), nt = (nk + BK - 1) / BK;
     const bf16* q = a.q + b * a.qsb + h * a.qsh;
@@ -439,12 +469,13 @@ struct StripBias {
 // last): query rows [q0 + 64 wg, q0 + 64 wg + 64) against its nk keys;
 // the unit's tiles are the ring's T0 .. T0 + nt - 1 (the tiles of the
 // block's earlier units come first); MFR: tab is the bias table
-template <int DP, int MODE>
+template <int DP, int MODE, int NC>
 __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int li, bool last,
                                         int T0, int nt, int nk, uint32_t sm, int wg, int tid,
                                         const float* tab) {
-  using T = Tiles<DP, MODE>;
-  constexpr int BK = T::BK;
+  using T = Tiles<DP, MODE, NC>;
+  constexpr int BK = T::BK, BQ = T::BQ, STAGES = T::STAGES, QSLOTS = T::QSLOTS;
+  constexpr int SCHED_BAR = T::SCHED_BAR;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const int slot = li % QSLOTS;
   const uint32_t qs = sm + slot * T::Q_BYTES, qa = qs + tile_offset(64 * wg, 0, BQ);
@@ -589,9 +620,11 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
 // B * H * ceil(Nq / BQ) units (neighbouring blocks share a head's K/V in
 // L2); MODE_MFR: with the strip bias; MODE_KEYMASK: the uncond batch rows'
 // units walk min(Nk, n_own) keys, the others Nk
-template <int DP, int MODE>
-__global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, int B) {
-  using T = Tiles<DP, MODE>;
+template <int DP, int MODE, int NC>
+__global__ void __launch_bounds__(Tiles<DP, MODE, NC>::THREADS, 1)
+    attention_sm90_kernel(Sm90Args a, int B) {
+  using T = Tiles<DP, MODE, NC>;
+  constexpr int BQ = T::BQ, STAGES = T::STAGES, QSLOTS = T::QSLOTS, THREADS = T::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sm = smem_u32(smem);
   const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
@@ -599,10 +632,10 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
 
   // zero the padded chunks once (no load writes them), then the barriers
   const int ch = a.D / 8;
-  for (int s = 0; s < QSLOTS; ++s) zero_pad(sm + s * T::Q_BYTES, BQ, ch, DP / 8);
+  for (int s = 0; s < QSLOTS; ++s) zero_pad(sm + s * T::Q_BYTES, BQ, ch, DP / 8, THREADS);
   for (int s = 0; s < STAGES; ++s) {
-    zero_pad(sm + T::RING + s * T::STAGE_BYTES, T::BK, ch, DP / 8);
-    zero_pad(sm + T::RING + s * T::STAGE_BYTES + T::KV_BYTES, T::BK, ch, DP / 8);
+    zero_pad(sm + T::RING + s * T::STAGE_BYTES, T::BK, ch, DP / 8, THREADS);
+    zero_pad(sm + T::RING + s * T::STAGE_BYTES + T::KV_BYTES, T::BK, ch, DP / 8, THREADS);
   }
   fence_proxy_async();
   // MFR: the bias table, weight * exp(-dist / sigma) in f32 as the plain
@@ -634,16 +667,16 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
   // one branch a role to the kernel's end, so ptxas can hold each to its
   // setmaxnreg count
   if (wg == NC) {  // the producer, after the consumers' warpgroups
-    setmaxnreg_dec<PRODUCER_REGS>();
-    produce<DP, MODE>(a, units, nqt, sm, tid);
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    produce<DP, MODE, NC>(a, units, nqt, sm, tid);
   } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
+    setmaxnreg_inc<T::CONSUMER_REGS>();
     if (!skip(SKIP_TURNS) && wg == NC - 1)
-      named_bar_arrive(SCHED_BAR, 2 * WG_THREADS);  // consumer 0 first
+      named_bar_arrive(T::SCHED_BAR, 2 * WG_THREADS);  // consumer 0 first
     for (int li = 0, T0 = 0, u = blockIdx.x; u < units; ++li, u += gridDim.x) {
-      const Unit un(u, nqt);
+      const Unit un(u, nqt, BQ);
       const int nk = unit_keys<MODE>(a, un), nt = (nk + T::BK - 1) / T::BK;
-      consume<DP, MODE>(a, un, li, u + gridDim.x >= units, T0, nt, nk, sm, wg, tid, tab);
+      consume<DP, MODE, NC>(a, un, li, u + gridDim.x >= units, T0, nt, nk, sm, wg, tid, tab);
       T0 += nt;
     }
   }
@@ -651,13 +684,15 @@ __global__ void __launch_bounds__(THREADS, 1) attention_sm90_kernel(Sm90Args a, 
 
 template <int DP, int MODE>
 cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
-  constexpr uint32_t smem = MODE == MODE_MFR ? Tiles<DP, MODE>::MFR_SMEM : Tiles<DP, MODE>::SMEM;
+  constexpr int NC = consumers(DP);
+  using T = Tiles<DP, MODE, NC>;
+  constexpr uint32_t smem = MODE == MODE_MFR ? T::MFR_SMEM : T::SMEM;
   // the opt-in above 48 KB and the SM count, once per card
   static unsigned opted = 0;
   static int sms[32];
   if (device >= 32 || !(opted >> device & 1u)) {
     cudaError_t err =
-        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP, MODE>),
+        cudaFuncSetAttribute(reinterpret_cast<const void*>(attention_sm90_kernel<DP, MODE, NC>),
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int n = 0;
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
@@ -666,10 +701,10 @@ cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
     sms[device] = n;
     opted |= 1u << device;
   }
-  const long long units = static_cast<long long>(B) * a.H * ((a.Nq + BQ - 1) / BQ);
+  const long long units = static_cast<long long>(B) * a.H * ((a.Nq + T::BQ - 1) / T::BQ);
   if (units >= (1LL << 31)) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(units < sms[device] ? units : sms[device]);
-  attention_sm90_kernel<DP, MODE><<<grid, THREADS, smem, st>>>(a, B);
+  attention_sm90_kernel<DP, MODE, NC><<<grid, T::THREADS, smem, st>>>(a, B);
   return cudaGetLastError();
 }
 
@@ -683,7 +718,8 @@ cudaError_t launch(const Sm90Args& a, int B, int device, cudaStream_t st) {
     case 5: return launch_dp<80, MODE>(a, B, device, st);
     case 6: return launch_dp<96, MODE>(a, B, device, st);
     case 7: return launch_dp<112, MODE>(a, B, device, st);
-    default: return launch_dp<128, MODE>(a, B, device, st);
+    case 8: return launch_dp<128, MODE>(a, B, device, st);
+    default: return launch_dp<160, MODE>(a, B, device, st);  // SD-1.5's third UNet level
   }
 }
 
@@ -692,7 +728,7 @@ cudaError_t make_args(Sm90Args& a, const void* q, const void* k, const void* v, 
                       float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
                       long long qsn, long long qsh, long long ksb, long long ksn, long long ksh,
                       long long vsb, long long vsn, long long vsh, float scale_log2) {
-  if (D < 8 || D > 128 || D % 8 || B < 1 || H < 1 || Nq < 1 || Nk < 1)
+  if (D < 8 || D > 160 || D % 8 || B < 1 || H < 1 || Nq < 1 || Nk < 1)
     return cudaErrorInvalidValue;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -706,9 +742,11 @@ cudaError_t make_args(Sm90Args& a, const void* q, const void* k, const void* v, 
 
 }  // namespace
 
-// Launch attention_sm90_kernel (bf16, D a multiple of 8 up to 128, 16-byte
+// Launch attention_sm90_kernel (bf16, D a multiple of 8 up to 160, 16-byte
 // aligned bases, strides multiples of 8 elements); lse may be null. Used
-// by sdaof_attention (csrc/attention.cu) and sdaof_attention_fwd_stats.
+// by sdaof_attention (csrc/attention.cu) and sdaof_attention_fwd_stats for
+// d <= 128 (d = 160 only by sm90_probe.py: the port's 160-wide plain
+// attention is attention_wide_sm90_kernel).
 cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                   float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
                                   long long qsn, long long qsh, long long ksb, long long ksn,
@@ -720,12 +758,12 @@ cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, v
   return err != cudaSuccess ? err : launch<MODE_PLAIN>(a, B, device, st);
 }
 
-// Launch the MFR strip self-attention, attention_sm90_kernel<DP, MODE_MFR>
-// (as launch_attention_sm90, with N = Nq = Nk = h * w_strip and w_strip =
-// n_tiles * w_tile): scores of in-band pairs of distinct tiles (all, or
-// from tile-0 queries with target_only) gain bias_log2 * exp(-dist *
-// inv_sigma) in the log2 domain. Used by sdaof_attention_mfr
-// (csrc/attention.cu) for d <= 128.
+// Launch the MFR strip self-attention, attention_sm90_kernel<DP, MODE_MFR,
+// NC> (as launch_attention_sm90, with N = Nq = Nk = h * w_strip and
+// w_strip = n_tiles * w_tile): scores of in-band pairs of distinct tiles
+// (all, or from tile-0 queries with target_only) gain bias_log2 *
+// exp(-dist * inv_sigma) in the log2 domain. Used by sdaof_attention_mfr
+// (csrc/attention.cu).
 cudaError_t launch_attention_sm90_mfr(const void* q, const void* k, const void* v, void* o, int B,
                                       int H, int N, int D, long long qsb, long long qsn,
                                       long long qsh, long long ksb, long long ksn, long long ksh,
@@ -753,9 +791,9 @@ cudaError_t launch_attention_sm90_mfr(const void* q, const void* k, const void* 
 }
 
 // Launch the CFG K/V-injection attention, attention_sm90_kernel<DP,
-// MODE_KEYMASK> (as launch_attention_sm90, without lse): batch rows <
+// MODE_KEYMASK, NC> (as launch_attention_sm90, without lse): batch rows <
 // n_uncond attend to keys < n_own only (n_own >= 1), the others to all
-// Nk. Used by sdaof_attention_keymask (csrc/attention.cu) for d <= 128.
+// Nk. Used by sdaof_attention_keymask (csrc/attention.cu).
 cudaError_t launch_attention_sm90_keymask(const void* q, const void* k, const void* v, void* o,
                                           int B, int H, int Nq, int Nk, int D, long long qsb,
                                           long long qsn, long long qsh, long long ksb,
@@ -781,6 +819,7 @@ extern "C" int sdaof_attention_fwd_stats(const void* q, const void* k, const voi
                                          long long ksb, long long ksn, long long ksh,
                                          long long vsb, long long vsn, long long vsh,
                                          float scale_log2, int device, void* stream) {
+  if (D > 128) return cudaErrorInvalidValue;  // the backward's widest
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return launch_attention_sm90(q, k, v, o, lse, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,

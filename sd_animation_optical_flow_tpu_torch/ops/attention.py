@@ -35,16 +35,20 @@ version beside it:
 * :func:`flash_attention_keymask` replaces the TPU's
   ``_flash_keymask_kernel_tpv`` (launched by ``flash_attention_keymask``
   via ``attention_injected``): the CFG K/V-injection attention, plain
-  version :func:`attention_injected_plain`.
+  version :func:`attention_injected_plain`. Its kernel is
+  ``attention_sm90_kernel`` whose uncond rows' units walk only their
+  own keys.
 * :func:`flash_attention_mfr` replaces the TPU's ``_flash_mfr_kernel``
   (launched by ``flash_attention_mfr`` via ``strip_attention``): strip
   self-attention with the MFR band bias, plain version
-  :func:`strip_attention_plain`. At d <= 128 its kernel is
-  ``attention_sm90_kernel`` with the bias as an epilogue on the score
-  tile: only key tiles whose strip rows lie within the radius of a
-  warpgroup's query rows take it, from a table in shared memory. At
-  d = 160 (on no tested path) it is ``csrc/attention.cu``'s older
-  ``attn_mma_kernel<160, MODE_MFR>``.
+  :func:`strip_attention_plain`. Its kernel is ``attention_sm90_kernel``
+  with the bias as an epilogue on the score tile: only key tiles whose
+  strip rows lie within the radius of a warpgroup's query rows take it,
+  from a table in shared memory.
+  Both run every head width up to 160: three consumer warpgroups of 64
+  query rows, on 32-key tiles at SD-1.5's 160-wide third UNet level.
+  Each counts its launches by padded head width too
+  (``<wrapper>.launches_by_dp``).
 * :func:`flash_attention_banded` replaces the TPU's
   ``_flash_banded_kernel`` (launched by ``flash_attention_banded``):
   one frame's queries against ``n`` frames' keys with the banded
@@ -102,16 +106,18 @@ _K_STATS = _cuda.kernel(
     "storing each row's log-sum-exp")
 _K_KEYMASK = _cuda.kernel(
     "attention_sm90.cu", "attention_sm90_kernel<DP, KEYMASK> (#1's "
-    "design): an uncond row's units walk min(Nk, n_own) keys")
+    "design, 32-key tiles at d 160): an uncond row's units walk "
+    "min(Nk, n_own) keys")
 _K_MFR = _cuda.kernel(
-    "attention_sm90.cu", "attention_sm90_kernel<DP, MFR> (#1's design): "
-    "the band bias added to the score tiles in band")
+    "attention_sm90.cu", "attention_sm90_kernel<DP, MFR> (#1's design, "
+    "32-key tiles at d 160): the band bias added to the score tiles in "
+    "band")
 _K_WIDE = _cuda.kernel(
     "attention_wide_sm90.cu", "attention_wide_sm90_kernel: two wgmma "
     "warpgroups on the d-halves, a TMA K/V ring multicast to a cluster")
-_K_MMA = {mode: _cuda.kernel(
-    "attention.cu", f"attn_mma_kernel<DP, {mode}>: mma.sync with ldmatrix, "
-    "synchronous loads") for mode in ("KEYMASK", "MFR", "BANDED")}
+_K_BANDED = _cuda.kernel(
+    "attention.cu", "attn_mma_kernel<DP, BANDED>: mma.sync with ldmatrix, "
+    "synchronous loads")
 _K_BWD_DKV = _cuda.kernel(
     "attention_bwd_sm90.cu", "attention_bwd_dkv_sm90_kernel: wgmma "
     "warpgroups own 64 key rows each, q and dO through a cp.async ring")
@@ -526,10 +532,17 @@ def attention_injected_plain(q, k, v, *, n_own: int, n_uncond: int):
     return xla_attention(q, k, v, bias=bias[:, None, None, :])
 
 
+def _count_launch(wrapper, d: int) -> None:
+    """One launch of ``wrapper``'s kernel at head dim ``d``: its count,
+    and its count at d padded to a multiple of 16 (the kernel's DP)."""
+    wrapper.launches += 1
+    dp = -(-d // 16) * 16
+    wrapper.launches_by_dp[dp] = wrapper.launches_by_dp.get(dp, 0) + 1
+
+
 def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
     """Attention of the CFG K/V-injection path (kernel #6,
-    ``attention_sm90_kernel<DP, MODE_KEYMASK>`` for d <= 128,
-    ``attn_mma_kernel<160, MODE_KEYMASK>`` above): batch rows
+    ``attention_sm90_kernel<DP, MODE_KEYMASK, NC>``): batch rows
     ``< n_uncond`` see keys ``< n_own`` only, the other rows see all keys.
     The uncond rows' units walk ``min(Nk, n_own)`` keys. bf16 on the
     card, d a multiple of 8 up to 160 (SD-1.5's widest head); q [B, Nq,
@@ -544,13 +557,13 @@ def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
     _cuda.refuse_grad("flash_attention_keymask", q, k, v)
     out = _launch("sdaof_attention_keymask", q, k, v, int(n_own),
                   int(n_uncond), max_d=160)
-    flash_attention_keymask.launches += 1
-    flash_attention_keymask.kernel = _K_KEYMASK if q.shape[-1] <= 128 \
-        else _K_MMA["KEYMASK"]
+    _count_launch(flash_attention_keymask, q.shape[-1])
+    flash_attention_keymask.kernel = _K_KEYMASK
     return out
 
 
 flash_attention_keymask.launches = 0
+flash_attention_keymask.launches_by_dp = {}
 flash_attention_keymask.kernel = None
 
 
@@ -628,10 +641,9 @@ def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
                         radius: int = MFR_RADIUS, weight: float = MFR_WEIGHT,
                         sigma: float | None = None, mode: str = "target"):
     """Strip self-attention with the MFR band bias computed in the kernel
-    (kernel #10: ``attention_sm90_kernel<DP, MODE_MFR>`` for d <= 128,
-    ``attn_mma_kernel<160, MODE_MFR>`` above) from the token indices;
-    q/k/v [B, N, H, D] with N = h * n_tiles * w_tile. bf16 on the card,
-    d a multiple of 8 up to 160."""
+    (kernel #10, ``attention_sm90_kernel<DP, MODE_MFR, NC>``) from the
+    token indices; q/k/v [B, N, H, D] with N = h * n_tiles * w_tile.
+    bf16 on the card, d a multiple of 8 up to 160."""
     if sigma is None:
         sigma = mfr_sigma(h)
     if mode not in ("target", "mutual"):
@@ -650,13 +662,13 @@ def flash_attention_mfr(q, k, v, *, h: int, w_tile: int, n_tiles: int,
     out = _launch("sdaof_attention_mfr", q, k, v, n_tiles * w_tile, w_tile,
                   int(radius), int(mode == "target"), float(weight) * _LOG2E,
                   1.0 / float(sigma), max_d=160)
-    flash_attention_mfr.launches += 1
-    flash_attention_mfr.kernel = _K_MFR if q.shape[-1] <= 128 \
-        else _K_MMA["MFR"]
+    _count_launch(flash_attention_mfr, q.shape[-1])
+    flash_attention_mfr.kernel = _K_MFR
     return out
 
 
 flash_attention_mfr.launches = 0
+flash_attention_mfr.launches_by_dp = {}
 flash_attention_mfr.kernel = None
 
 
@@ -744,7 +756,7 @@ def flash_attention_banded(q, k, v, *, h: int, w: int, radius: int = 8,
                   int(radius), float(weight) * _LOG2E, float(base) * _LOG2E,
                   1.0 / float(sigma), max_d=160)
     flash_attention_banded.launches += 1
-    flash_attention_banded.kernel = _K_MMA["BANDED"]
+    flash_attention_banded.kernel = _K_BANDED
     return out
 
 

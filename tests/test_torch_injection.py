@@ -55,10 +55,11 @@ def _interpret():
 
 
 # n_uncond in {1, 2}, n_own < Nk, Nk not a multiple of the 64-key block,
-# d in {40, 80}; n_own off the card kernel's 128-key tile at d 40
+# d in {40, 80, 160}; n_own off the card kernel's 128-key tile at d 40
+# and off its 64-key tile at d 160 (SD-1.5's third UNet level)
 KEYMASK_CASES = [(2, 48, 200, 2, 40, 100, 1), (4, 40, 150, 2, 80, 75, 2),
                  (2, 64, 130, 1, 40, 64, 1), (4, 33, 96, 2, 40, 33, 2),
-                 (2, 56, 300, 2, 40, 150, 1)]
+                 (2, 56, 300, 2, 40, 150, 1), (2, 40, 96, 2, 160, 48, 1)]
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -129,7 +130,7 @@ def test_mfr_bias_radius_clamp(h, w_tile, n_tiles, mode):
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("mode", ["target", "mutual"])
-@pytest.mark.parametrize("n_tiles,d", [(2, 40), (3, 80)])
+@pytest.mark.parametrize("n_tiles,d", [(2, 40), (3, 80), (4, 160)])
 def test_mfr_plain_matches_jax(np_rng, dt, mode, n_tiles, d):
     jdt, tdt, tol = DTYPES[dt]
     h, w_tile, heads = 6, 7, 2

@@ -16,12 +16,15 @@ d > 128) d padded to each of its four widths, Nq off its 64-row blocks,
 Nk off its key tiles and below one, B * H > 1, the router's 160-wide
 route and its refusal under a gradient; for the keymask kernel n_own = Nk, n_own off
 the 64- and 128-key tiles, n_uncond = 0, B / 2 and B, units past the first
-and the injected inpaint's L0 at full size; for the LN projection (#3)
+and the injected inpaint's L0 at full size, and at DP = 160 (32-key
+tiles) Nq off the 192-row unit and off 128 rows, d 136 and 152, the
+fused-QKV strides and the injected inpaint's L2 (``KEYMASK_CASES``); for
+the LN projection (#3)
 M, din and dout off its row block, k panel and column tiles, both of its
 column-tile widths and a split with uneven halves; for the MFR kernel
-ragged N, 3 tiles, both modes and key tiles outside the band (both at
-SD-1.5's widest head, d = 160, and the keymask kernel at a d padded up
-to it), and the Hopper MFR mode's edges (``MFR_CASES``); for the
+ragged N, 3 and 4 tiles, both modes and key tiles outside the band, the
+table and the per-pair bias, at d <= 128 and at DP = 160 (N off 128 and
+192 rows, d 136, 152 and 160, the 4-tile strip's L2) (``MFR_CASES``); for the
 banded kernel the three UNet levels' frame geometries at weight 0 and
 0.7, frames whose h * w is not a multiple of the 64-key tile (tiles
 straddling a frame boundary) and base = -inf; for the
@@ -224,10 +227,11 @@ def test_geglu_kernel(gen, m, din, dff, ln, residual):
                                               residual=residual))
 
 
-# d <= 128 runs attention_sm90_kernel's keymask mode (128-key tiles at d
-# <= 48, 64 above; 192-row units), d = 160 attn_mma_kernel<160,
-# MODE_KEYMASK>; two calls bitwise equal
-@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", [
+# attention_sm90_kernel's keymask mode: three consumers, 192-row units,
+# 128-key tiles at d <= 48, 64 up to d = 128, 32 at d 136-160 (the
+# probe's two-consumer build has 128-row units: N off both); two calls
+# bitwise equal
+KEYMASK_CASES = [
     (2, 200, 400, 2, 40, 200, 1),       # the CFG batch, one reference
     (2, 100, 300, 2, 80, 300, 1),       # n_own = Nk: nothing masked
     (2, 130, 390, 3, 40, 130, 1),       # n_own not a multiple of 64
@@ -240,7 +244,19 @@ def test_geglu_kernel(gen, m, din, dff, ln, residual):
     (2, 96, 200, 2, 40, 50, 0),         # n_uncond = 0: nothing masked
     (3, 80, 160, 2, 64, 70, 3),         # n_uncond = B: every row masked
     (2, 450, 500, 2, 40, 260, 1),       # 3 units, the last ragged
-    (2, 6144, 12288, 8, 40, 6144, 1)])  # the injected inpaint's L0
+    (2, 6144, 12288, 8, 40, 6144, 1),   # the injected inpaint's L0
+    # DP = 160: Nq off 128 rows, n_own off the 32- and 64-key tiles,
+    # ragged Nk; Nq off 192 and 128 with n_uncond = B and B * H = 6; d 136
+    # and 152 padded to 160, Nk one key past two tiles and below one; the
+    # injected inpaint's L2 at a 1024x1536 frame
+    (2, 130, 300, 2, 160, 100, 1),
+    (2, 200, 390, 3, 160, 200, 2),
+    (3, 257, 129, 2, 136, 65, 3),
+    (2, 64, 63, 4, 152, 63, 1),
+    (2, 1536, 3072, 8, 160, 1536, 1)]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", KEYMASK_CASES)
 def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
                                         n_uncond):
     q = _randn(gen, b, nq, h, d)
@@ -256,6 +272,27 @@ def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
     assert TA.flash_attention_keymask.launches == n0 + 2
 
 
+@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", [
+    (2, 200, 390, 2, 160, 130, 1), (2, 130, 200, 3, 152, 70, 2),
+    (2, 1536, 3072, 8, 160, 1536, 1)])
+def test_flash_attention_keymask_kernel_fused(gen, b, nq, nk, h, d, n_own,
+                                              n_uncond):
+    """The keymask kernel at DP = 160 on the UNet's strides: q a slice of
+    the fused QKV projection, k / v slices of one [B, Nk, 2 H D] tensor;
+    two calls bitwise equal, one launch each at DP 160."""
+    q = _randn(gen, b, nq, 3 * h * d)[..., :h * d].reshape(b, nq, h, d)
+    k, v = (t.reshape(b, nk, h, d) for t in
+            _randn(gen, b, nk, 2 * h * d).chunk(2, dim=-1))
+    n0 = TA.flash_attention_keymask.launches_by_dp.get(160, 0)
+    out = TA.flash_attention_keymask(q, k, v, n_own=n_own, n_uncond=n_uncond)
+    again = TA.flash_attention_keymask(q, k, v, n_own=n_own,
+                                       n_uncond=n_uncond)
+    _check(out, TA.attention_injected_plain(q, k, v, n_own=n_own,
+                                            n_uncond=n_uncond))
+    assert torch.equal(out, again)
+    assert TA.flash_attention_keymask.launches_by_dp[160] == n0 + 2
+
+
 # the MFR kernel's edges: ragged N and N below one 192-row unit, 3 and 4
 # tiles, both modes, key tiles outside the band, units straddling strip
 # rows (w_strip = 80, 100), `target` with a warpgroup wholly outside tile
@@ -263,9 +300,11 @@ def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
 # clamped to the table's widest (100 -> 7) and one past the table (10),
 # fused-QKV column slices, the 512x768 strips' L0 / L1 shapes at B = 2,
 # H = 8; w_tile a multiple of 8 with radius <= 7 takes the table, the
-# rest (w_tile 5, 7, 12, 50; radius 10) the per-pair branch; d <= 128
-# runs attention_sm90_kernel's MFR mode, d = 160 attn_mma_kernel<160,
-# MODE_MFR>
+# rest (w_tile 5, 7, 12, 13, 25, 50; radius 10) the per-pair branch;
+# attention_sm90_kernel's MFR mode, 32-key tiles at d 136-160: N off 128
+# (130) and off 192 and 128 (200), d 136 and 152, both modes with the
+# table and per pair, and the 4-tile seed strip's L2 (16 x 96 tokens) at
+# B = 2, H = 8
 MFR_CASES = [
     (1, 5, 7, 2, 2, 40, "target", 6, False),    # ragged N = 70
     (2, 5, 7, 2, 2, 40, "mutual", 6, False),
@@ -287,7 +326,13 @@ MFR_CASES = [
     (1, 8, 24, 3, 4, 128, "target", 6, True),
     (2, 64, 96, 2, 8, 40, "mutual", 6, True),   # strip L0, 512x768
     (2, 64, 96, 2, 8, 40, "target", 6, True),
-    (2, 32, 48, 2, 8, 80, "mutual", 6, True)]   # strip L1
+    (2, 32, 48, 2, 8, 80, "mutual", 6, True),   # strip L1
+    (1, 5, 13, 2, 3, 160, "mutual", 6, False),  # N = 130, per pair
+    (2, 4, 25, 2, 2, 152, "target", 10, True),  # N = 200, per pair
+    (1, 6, 16, 3, 2, 136, "mutual", 7, False),  # the table
+    (1, 8, 24, 2, 2, 160, "target", 10, False),  # past the table
+    (2, 16, 24, 4, 8, 160, "mutual", 6, True),  # strip L2, 4 tiles
+    (2, 16, 24, 4, 8, 160, "target", 6, True)]
 
 
 @pytest.mark.parametrize("b,hh,w_tile,n_tiles,heads,d,mode,radius,fused",

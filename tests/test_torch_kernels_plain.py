@@ -195,8 +195,8 @@ def test_wrapper_kernels_name_their_sources():
     names, in the mode it names."""
     root = Path(TA.__file__).resolve().parents[2]
     kernels = [v for mod in (TA, TF) for v in vars(mod).values()
-               if isinstance(v, _cuda.Kernel)] + list(TA._K_MMA.values())
-    assert len(kernels) == 12
+               if isinstance(v, _cuda.Kernel)]
+    assert len(kernels) == 10
     for kern in kernels:
         text = (root / kern.source).read_text()
         name, mode = re.match(r"(\w+)(?:<\w+, (\w+)>)?", kern.design).groups()
