@@ -7,10 +7,10 @@
 // (csrc/attention_wide_sm90.cu); sdaof_attention_keymask (the CFG K/V
 // injection) and sdaof_attention_mfr (the MFR strips) send every d up to
 // 160 to attention_sm90_kernel's keymask and MFR modes (three consumer
-// warpgroups up to d = 128, two at d = 160). This file keeps one kernel,
-// for the banded mode only: attn_mma_kernel<DP, MODE_BANDED>. It replaces
-// this Pallas TPU kernel of sd_animation_optical_flow_tpu/ops/attention.py
-// (the Python wrapper keeps its name and counter):
+// warpgroups at every d, 32-key tiles at d = 160). This file keeps one
+// kernel, for the banded mode only: attn_mma_kernel<DP, MODE_BANDED>. It
+// replaces this Pallas TPU kernel of sd_animation_optical_flow_tpu/ops/
+// attention.py (the Python wrapper keeps its name and counter):
 //
 //   _flash_banded_kernel (flash_attention_banded: one frame's queries
 //     against n frames' keys joined along the token axis, banded

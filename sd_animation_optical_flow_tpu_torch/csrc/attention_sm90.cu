@@ -4,9 +4,10 @@
 // for ctypes (ops/_cuda.py builds and loads this file).
 //
 // attention_sm90_kernel computes out = softmax(q k^T * scale) v for bf16
-// q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a multiple of 8 up to 160; any
-// strides along B, N, H that are multiples of 8 elements; unit stride
-// along D), writing a contiguous [B, Nq, H, D] out, and, where lse is
+// q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a multiple of 8 up to 128, up
+// to 160 in the keymask and MFR modes below; any strides along B, N, H
+// that are multiples of 8 elements; unit stride along D), writing a
+// contiguous [B, Nq, H, D] out, and, where lse is
 // given, each query row's base-2 log-sum-exp m + log2(l) of the scaled
 // scores (f32 [B*H, Nq]) for the backward (csrc/attention_bwd_sm90.cu). It
 // replaces four Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
@@ -67,16 +68,15 @@
 //   consumer holds s (BK / 2 f32), p (BK / 4 bf16 pairs) and o (DP / 2
 //   f32), 120 of them at d = 48, BK = 128, and at 128 ptxas spills and
 //   serialises the wgmma. NC, the consumer count, is a template
-//   argument. At d 136-160 (DP = 160, SD-1.5's third UNet level) o alone
-//   takes 80 registers; the port keeps three consumers there on 32-key
-//   tiles (4 stages of 20 KB beside 2 x 60 KB of Q slots: 200 KB), so
-//   the 1536-token level is one wave of 128 units; in the MFR mode the
-//   consumers take 160 registers and leave the producer 32 (at 152 its
-//   band state spills 8 bytes). Two consumers (-DSM90_NC160=2: 128-row
-//   units, 384 threads, 224 / 56 registers, 64-key tiles, 3 stages) make
-//   192 units, 1.45 waves, and read K/V from L2 half as often again: on
-//   the H100 they took 1.47-1.77x the time at the L2 shapes, held by
-//   their loads (sm90_probe.py, which builds both).
+//   argument (CONSUMERS, 3, at every DP). At d 136-160 (DP = 160,
+//   SD-1.5's third UNet level) o alone takes 80 registers; three
+//   consumers fit there on 32-key tiles (4 stages of 20 KB beside 2 x 60
+//   KB of Q slots: 200 KB), so the 1536-token level is one wave of 128
+//   units; in the MFR mode the consumers take 160 registers and leave
+//   the producer 32 (at 152 its band state spills 8 bytes). Two
+//   consumers on 64-key tiles (128-row units, 1.45 waves, K/V read from
+//   L2 half as often again) took 1.47-1.77x the time at the L2 shapes on
+//   the H100, held by their loads.
 // * q k^T: wgmma m64nBKk16, A = Q and B = K both from shared memory,
 //   K-major (K's natural [key, d] rows), DP / 16 k-steps. d is padded to
 //   DP, a multiple of 16: the padded 16-byte chunks of every tile are
@@ -174,18 +174,13 @@ constexpr int PRODUCER = WG_THREADS;    // the producer warpgroup
 constexpr float MAX_FLOOR = -1e30f;     // the running max's start
 
 // sm90_probe.py times copies of this kernel built with parts of the work
-// left out, the bits of SM90_SKIP (0, nothing left out, in the port), and
-// with SM90_NC160 consumers at DP = 160 (3 in the port; 2 beside it)
+// left out, the bits of SM90_SKIP (0, nothing left out, in the port)
 #ifndef SM90_SKIP
 #define SM90_SKIP 0
 #endif
-#ifndef SM90_NC160
-#define SM90_NC160 3
-#endif
 
-// consumer warpgroups of an instantiation at head dim DP (padded): three
-// everywhere in the port (at DP = 160 on 32-key tiles)
-__host__ __device__ constexpr int consumers(int dp) { return dp > 128 ? SM90_NC160 : 3; }
+// consumer warpgroups of every instantiation (at DP = 160 on 32-key tiles)
+constexpr int CONSUMERS = 3;
 constexpr int SKIP_EXP = 1, SKIP_LOADS = 2, SKIP_PV = 4, SKIP_SOFTMAX = 8, SKIP_STORES = 16,
               SKIP_TURNS = 32, SKIP_BIAS = 64;
 __host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) != 0; }
@@ -202,25 +197,22 @@ struct Tiles {
   static constexpr int THREADS = NC * WG_THREADS + PRODUCER;
   // a thread's registers after the hand-over, within what the launch
   // gives the block: 65536 / THREADS a thread in steps of 8 (128 of 512
-  // threads, 168 of 384). Three consumers take 152 and leave the
-  // producer 56; at DP = 160 the MFR mode's band state beside o (80 a
-  // thread) spills 8 bytes at 152, so there they take all but 32 (which
-  // cost the other modes' loads ~4% there)
-  static constexpr bool WIDE_MFR = NC == 3 && DP > 128 && MODE == MODE_MFR;
+  // threads). Three consumers take 152 and leave the producer 56; at DP
+  // = 160 the MFR mode's band state beside o (80 a thread) spills 8 bytes
+  // at 152, so there they take all but 32 (which cost the other modes'
+  // loads ~4% there)
+  static constexpr bool WIDE_MFR = DP > 128 && MODE == MODE_MFR;
   static constexpr int PRODUCER_REGS = WIDE_MFR ? 32 : 56;
-  static constexpr int CONSUMER_REGS = NC == 2 ? 224 : WIDE_MFR ? 160 : 152;
+  static constexpr int CONSUMER_REGS = WIDE_MFR ? 160 : 152;
   static_assert(PRODUCER_REGS * PRODUCER + CONSUMER_REGS * NC * WG_THREADS <=
                     65536 / THREADS / 8 * 8 * THREADS,
                 "registers");
   static constexpr int SCHED_BAR = 1 + NC;  // named barriers of the turns (1 .. NC: the epilogues)
   // keys per tile; three consumers' registers hold o beside 32-key
   // score tiles only, in the MFR mode at DP = 128 and in any at DP = 160
-  static constexpr int BK = DP <= 48 ? 128
-                            : NC == 3 && (DP > 128 || (MODE == MODE_MFR && DP > 112)) ? 32
-                            : 64;
-  // K/V ring depth; Q slots (the units loaded ahead + 1). At DP = 160
-  // with two consumers, 2 x 40 KB of Q and 3 x 40 KB of K/V fill 200 KB
-  static constexpr int STAGES = NC == 2 && DP > 128 ? 3 : 4;
+  static constexpr int BK = DP <= 48 ? 128 : DP > 128 || (MODE == MODE_MFR && DP > 112) ? 32 : 64;
+  // K/V ring depth; Q slots (the units loaded ahead + 1)
+  static constexpr int STAGES = 4;
   static constexpr int QSLOTS = 2;
   static constexpr uint32_t Q_BYTES = BQ * DP * 2;   // one Q slot
   static constexpr uint32_t KV_BYTES = BK * DP * 2;  // one of K, V
@@ -684,7 +676,7 @@ __global__ void __launch_bounds__(Tiles<DP, MODE, NC>::THREADS, 1)
 
 template <int DP, int MODE>
 cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
-  constexpr int NC = consumers(DP);
+  constexpr int NC = CONSUMERS;
   using T = Tiles<DP, MODE, NC>;
   constexpr uint32_t smem = MODE == MODE_MFR ? T::MFR_SMEM : T::SMEM;
   // the opt-in above 48 KB and the SM count, once per card
@@ -719,7 +711,11 @@ cudaError_t launch(const Sm90Args& a, int B, int device, cudaStream_t st) {
     case 6: return launch_dp<96, MODE>(a, B, device, st);
     case 7: return launch_dp<112, MODE>(a, B, device, st);
     case 8: return launch_dp<128, MODE>(a, B, device, st);
-    default: return launch_dp<160, MODE>(a, B, device, st);  // SD-1.5's third UNet level
+    default:  // SD-1.5's third UNet level: the keymask and MFR modes only
+      if constexpr (MODE == MODE_PLAIN)
+        return cudaErrorInvalidValue;  // attention_wide_sm90_kernel's heads
+      else
+        return launch_dp<160, MODE>(a, B, device, st);
   }
 }
 
@@ -742,11 +738,9 @@ cudaError_t make_args(Sm90Args& a, const void* q, const void* k, const void* v, 
 
 }  // namespace
 
-// Launch attention_sm90_kernel (bf16, D a multiple of 8 up to 160, 16-byte
+// Launch attention_sm90_kernel (bf16, D a multiple of 8 up to 128, 16-byte
 // aligned bases, strides multiples of 8 elements); lse may be null. Used
-// by sdaof_attention (csrc/attention.cu) and sdaof_attention_fwd_stats for
-// d <= 128 (d = 160 only by sm90_probe.py: the port's 160-wide plain
-// attention is attention_wide_sm90_kernel).
+// by sdaof_attention (csrc/attention.cu) and sdaof_attention_fwd_stats.
 cudaError_t launch_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                   float* lse, int B, int H, int Nq, int Nk, int D, long long qsb,
                                   long long qsn, long long qsh, long long ksb, long long ksn,
@@ -819,7 +813,6 @@ extern "C" int sdaof_attention_fwd_stats(const void* q, const void* k, const voi
                                          long long ksb, long long ksn, long long ksh,
                                          long long vsb, long long vsn, long long vsh,
                                          float scale_log2, int device, void* stream) {
-  if (D > 128) return cudaErrorInvalidValue;  // the backward's widest
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return launch_attention_sm90(q, k, v, o, lse, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,

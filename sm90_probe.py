@@ -5,7 +5,7 @@ attention forwards #1 / #7, #6 and #10 (``csrc/attention_sm90.cu``) and
 (``csrc/attention_bwd_sm90.cu``), the GEGLU tail #4 and the LN-prologue
 projection #3 (``csrc/ffn_sm90.cu``):
 
-    python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1|self_l2]
+    python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
     python3 sm90_probe.py --shape strip_l0|strip_l1|strip_l2 [--mode mutual|target]
     python3 sm90_probe.py --shape inject_l0|inject_l1|inject_l2
     python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
@@ -34,12 +34,7 @@ results; they only time what remains. For ``attention_sm90.cu``:
   taking turns (this one computes the right result);
 * ``no_bias`` (the strip shapes only): the MFR mode without its bias
   epilogue (no band test, no table reads), so its time against the full
-  kernel's is what the bias costs;
-* ``nc2_bk64`` (the L2 shapes only, d = 160): the kernel with two
-  consumer warpgroups at DP = 160 (``-DSM90_NC160=2``: 128-row units,
-  64-key tiles, 3 stages, 224 registers a consumer) in place of the
-  port's three (192-row units, 32-key tiles, 4 stages, 160 registers);
-  it computes the right result.
+  kernel's is what the bias costs.
 
 The strip shapes run the kernel's MFR mode (#10: the 2-tile strips of a
 512x768 frame, 64 x 192 latent tokens at L0, 32 x 96 at L1; the 4-tile
@@ -51,12 +46,8 @@ which the uncond row sees the first 6144 at L0, q [2, 1536, 8, 80]
 against 3072 at L1, q [2, 1536, 8, 160] against 3072 at L2 of a
 1024x1536 frame) through a shim that exports its launcher as
 ``sdaof_attention_keymask``, against SDPA with the boolean key mask.
-``self_l2`` runs the plain mode at DP = 160 (the UNet's L2
-self-attention of a 1024x1536 frame, through a shim exporting the plain
-launcher as ``sdaof_attention_sm90``), for the record only: the port
-sends that shape to #2, ``attention_wide_sm90_kernel``, timed beside it
-as ``port_wide`` (the port's own library). The ptxas lines (registers,
-spills) of the instantiation each shape runs are printed first.
+The ptxas lines (registers, spills) of the instantiation each shape runs
+are printed first.
 
 For ``attention_wide_sm90.cu`` (the shapes: the VAE mid-block attention
 of one frame and of two, and the UNet's 160-wide L2 heads at 1536
@@ -157,11 +148,9 @@ KERNELS = {
     "sm90": ("attention_sm90.cu",
              {name: [f"SM90_SKIP={bits}"] for name, bits in {
                  "full": 0, "no_exp": 1, "no_loads": 2, "no_pv": 4, "no_softmax": 8,
-                 "no_stores": 16, "no_turns": 32, "no_bias": 64}.items()}
-             | {"nc2_bk64": ["SM90_NC160=2"]},
+                 "no_stores": 16, "no_turns": 32, "no_bias": 64}.items()},
              {"self_l0": (2, 6144, 6144, 8, 40), "self_l1": (2, 1536, 1536, 8, 80),
               "cross_l0": (2, 6144, 231, 8, 40), "cross_l1": (2, 1536, 231, 8, 80),
-              "self_l2": (2, 1536, 1536, 8, 160),
               "strip_l0": (2, 12288, 12288, 8, 40), "strip_l1": (2, 3072, 3072, 8, 80),
               "strip_l2": (2, 1536, 1536, 8, 160),
               "inject_l0": (2, 6144, 12288, 8, 40), "inject_l1": (2, 1536, 3072, 8, 80),
@@ -239,19 +228,6 @@ extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void*
   return launch_attention_sm90_keymask(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
                                        vsb, vsn, vsh, scale_log2, n_own, n_uncond, device,
                                        static_cast<cudaStream_t>(stream));
-}
-cudaError_t launch_attention_sm90(const void*, const void*, const void*, void*, float*, int, int,
-                                  int, int, int, long long, long long, long long, long long,
-                                  long long, long long, long long, long long, long long, float,
-                                  int, cudaStream_t);
-extern "C" int sdaof_attention_sm90(const void* q, const void* k, const void* v, void* o, int B,
-                                    int H, int Nq, int Nk, int D, long long qsb, long long qsn,
-                                    long long qsh, long long ksb, long long ksn, long long ksh,
-                                    long long vsb, long long vsn, long long vsh, float scale_log2,
-                                    int device, void* stream) {
-  return launch_attention_sm90(q, k, v, o, nullptr, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
-                               vsb, vsn, vsh, scale_log2, device,
-                               static_cast<cudaStream_t>(stream));
 }
 """
 # the wide kernel's launcher has C++ linkage: a shim exports it under the
@@ -666,8 +642,6 @@ def main() -> int:
     strip = STRIPS.get(shape)
     if not strip:   # the bias epilogue exists on the strips only
         variants = {n: v for n, v in variants.items() if n != "no_bias"}
-    if shapes[shape][4] <= 128:   # the consumer count differs at d = 160 only
-        variants = {n: v for n, v in variants.items() if n != "nc2_bk64"}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -683,18 +657,14 @@ def main() -> int:
     if args.kernel == "sm90":   # the instantiation this shape runs
         dp = -(-shapes[shape][4] // 16) * 16
         print_ptxas(libs, f"attention_sm90_kernelILi{dp}ELi{1 if inject else 2 if strip else 0}E")
-    plain160 = args.kernel == "sm90" and not (strip or inject) and shapes[shape][4] > 128
     entry = ("sdaof_attention_mfr" if strip else "sdaof_attention_keymask" if inject
-             else "sdaof_attention_sm90" if plain160
              else "sdaof_attention_fwd_stats") if args.kernel == "sm90" else "sdaof_attention"
     fns = {}
     for name, so in libs.items():
         fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes = _cuda._SIGNATURES["sdaof_attention" if plain160 else entry]
+        fn.argtypes = _cuda._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         fns[name] = fn
-    if plain160:    # the port's route for this shape: #2, the wide kernel
-        fns["port_wide"] = _cuda.library().sdaof_attention
 
     b, nq, nk, h, d = shapes[shape]
     self_attn = nq == nk
@@ -712,7 +682,7 @@ def main() -> int:
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream().cuda_stream
     scale_log2 = math.log2(math.e) / math.sqrt(d)
-    lse = [None] if args.kernel == "sm90" and not (strip or inject or plain160) else []
+    lse = [None] if args.kernel == "sm90" and not (strip or inject) else []
     mfr, mask = [], None
     if inject:  # the key mask, as flash_attention_keymask passes it
         n_own, n_unc = inject

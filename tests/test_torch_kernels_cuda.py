@@ -228,41 +228,52 @@ def test_geglu_kernel(gen, m, din, dff, ln, residual):
 
 
 # attention_sm90_kernel's keymask mode: three consumers, 192-row units,
-# 128-key tiles at d <= 48, 64 up to d = 128, 32 at d 136-160 (the
-# probe's two-consumer build has 128-row units: N off both); two calls
-# bitwise equal
+# 128-key tiles at d <= 48, 64 up to d = 128, 32 at d 136-160; q, k and v
+# apart, or slices of the fused projections as the UNet passes them; two
+# calls bitwise equal, each one launch at the padded head width
 KEYMASK_CASES = [
-    (2, 200, 400, 2, 40, 200, 1),       # the CFG batch, one reference
-    (2, 100, 300, 2, 80, 300, 1),       # n_own = Nk: nothing masked
-    (2, 130, 390, 3, 40, 130, 1),       # n_own not a multiple of 64
-    (4, 96, 200, 2, 24, 96, 2),         # n_uncond = B / 2, ragged Nk
-    (2, 64, 100, 1, 40, 30, 2),         # every row masked
-    (2, 96, 200, 2, 160, 96, 1),        # SD-1.5's L2 head width
-    (2, 70, 130, 1, 152, 70, 1),        # d padded up to 160
-    (2, 200, 400, 2, 40, 150, 1),       # n_own off the 128-key tile
-    (2, 100, 300, 2, 80, 100, 1),       # n_own off the 64-key tile
-    (2, 96, 200, 2, 40, 50, 0),         # n_uncond = 0: nothing masked
-    (3, 80, 160, 2, 64, 70, 3),         # n_uncond = B: every row masked
-    (2, 450, 500, 2, 40, 260, 1),       # 3 units, the last ragged
-    (2, 6144, 12288, 8, 40, 6144, 1),   # the injected inpaint's L0
+    (2, 200, 400, 2, 40, 200, 1, False),       # the CFG batch, one reference
+    (2, 100, 300, 2, 80, 300, 1, False),       # n_own = Nk: nothing masked
+    (2, 130, 390, 3, 40, 130, 1, False),       # n_own not a multiple of 64
+    (4, 96, 200, 2, 24, 96, 2, False),         # n_uncond = B / 2, ragged Nk
+    (2, 64, 100, 1, 40, 30, 2, False),         # every row masked
+    (2, 96, 200, 2, 160, 96, 1, False),        # SD-1.5's L2 head width
+    (2, 70, 130, 1, 152, 70, 1, False),        # d padded up to 160
+    (2, 200, 400, 2, 40, 150, 1, False),       # n_own off the 128-key tile
+    (2, 100, 300, 2, 80, 100, 1, False),       # n_own off the 64-key tile
+    (2, 96, 200, 2, 40, 50, 0, False),         # n_uncond = 0: nothing masked
+    (3, 80, 160, 2, 64, 70, 3, False),         # n_uncond = B: every row masked
+    (2, 450, 500, 2, 40, 260, 1, False),       # 3 units, the last ragged
+    (2, 6144, 12288, 8, 40, 6144, 1, False),   # the injected inpaint's L0
     # DP = 160: Nq off 128 rows, n_own off the 32- and 64-key tiles,
     # ragged Nk; Nq off 192 and 128 with n_uncond = B and B * H = 6; d 136
     # and 152 padded to 160, Nk one key past two tiles and below one; the
-    # injected inpaint's L2 at a 1024x1536 frame
-    (2, 130, 300, 2, 160, 100, 1),
-    (2, 200, 390, 3, 160, 200, 2),
-    (3, 257, 129, 2, 136, 65, 3),
-    (2, 64, 63, 4, 152, 63, 1),
-    (2, 1536, 3072, 8, 160, 1536, 1)]
+    # injected inpaint's L2 at a 1024x1536 frame; then the same on the
+    # fused strides
+    (2, 130, 300, 2, 160, 100, 1, False),
+    (2, 200, 390, 3, 160, 200, 2, False),
+    (3, 257, 129, 2, 136, 65, 3, False),
+    (2, 64, 63, 4, 152, 63, 1, False),
+    (2, 1536, 3072, 8, 160, 1536, 1, False),
+    (2, 200, 390, 2, 160, 130, 1, True),
+    (2, 130, 200, 3, 152, 70, 2, True),
+    (2, 1536, 3072, 8, 160, 1536, 1, True)]
 
 
-@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", KEYMASK_CASES)
+@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond,fused", KEYMASK_CASES)
 def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
-                                        n_uncond):
-    q = _randn(gen, b, nq, h, d)
-    k = _randn(gen, b, nk, h, d)
-    v = _randn(gen, b, nk, h, d)
+                                        n_uncond, fused):
+    if fused:   # q a slice of the QKV projection, k / v of one [B, Nk, 2 H D]
+        q = _randn(gen, b, nq, 3 * h * d)[..., :h * d].reshape(b, nq, h, d)
+        k, v = (t.reshape(b, nk, h, d) for t in
+                _randn(gen, b, nk, 2 * h * d).chunk(2, dim=-1))
+    else:
+        q = _randn(gen, b, nq, h, d)
+        k = _randn(gen, b, nk, h, d)
+        v = _randn(gen, b, nk, h, d)
+    dp = -(-d // 16) * 16
     n0 = TA.flash_attention_keymask.launches
+    n0_dp = TA.flash_attention_keymask.launches_by_dp.get(dp, 0)
     out = TA.flash_attention_keymask(q, k, v, n_own=n_own, n_uncond=n_uncond)
     again = TA.flash_attention_keymask(q, k, v, n_own=n_own,
                                        n_uncond=n_uncond)
@@ -270,27 +281,7 @@ def test_flash_attention_keymask_kernel(gen, b, nq, nk, h, d, n_own,
                                             n_uncond=n_uncond))
     assert torch.equal(out, again)
     assert TA.flash_attention_keymask.launches == n0 + 2
-
-
-@pytest.mark.parametrize("b,nq,nk,h,d,n_own,n_uncond", [
-    (2, 200, 390, 2, 160, 130, 1), (2, 130, 200, 3, 152, 70, 2),
-    (2, 1536, 3072, 8, 160, 1536, 1)])
-def test_flash_attention_keymask_kernel_fused(gen, b, nq, nk, h, d, n_own,
-                                              n_uncond):
-    """The keymask kernel at DP = 160 on the UNet's strides: q a slice of
-    the fused QKV projection, k / v slices of one [B, Nk, 2 H D] tensor;
-    two calls bitwise equal, one launch each at DP 160."""
-    q = _randn(gen, b, nq, 3 * h * d)[..., :h * d].reshape(b, nq, h, d)
-    k, v = (t.reshape(b, nk, h, d) for t in
-            _randn(gen, b, nk, 2 * h * d).chunk(2, dim=-1))
-    n0 = TA.flash_attention_keymask.launches_by_dp.get(160, 0)
-    out = TA.flash_attention_keymask(q, k, v, n_own=n_own, n_uncond=n_uncond)
-    again = TA.flash_attention_keymask(q, k, v, n_own=n_own,
-                                       n_uncond=n_uncond)
-    _check(out, TA.attention_injected_plain(q, k, v, n_own=n_own,
-                                            n_uncond=n_uncond))
-    assert torch.equal(out, again)
-    assert TA.flash_attention_keymask.launches_by_dp[160] == n0 + 2
+    assert TA.flash_attention_keymask.launches_by_dp[dp] == n0_dp + 2
 
 
 # the MFR kernel's edges: ragged N and N below one 192-row unit, 3 and 4
