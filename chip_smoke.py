@@ -48,8 +48,8 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     and profiled. No pipeline path runs kernel #5 (none does in JAX):
     its launches are those of one call per check shape through
     ``flash_attention_banded``, made apart from the comparisons;
- 6. print the kernel table as one JSON line, the card line, and the
-    result line.
+ 6. print the kernel table as one JSON line, each phase's wall seconds
+    and their total, the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -207,14 +207,14 @@ def check_kernels():
         log(f"[kernel] {name}: max|err| {err:.3e} (tol {tol * scale:.3e} ="
             f" {tol:g} * max|plain| {scale:.3e}; rms(plain) {rms:.3e}; worst "
             f"output) "
-            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
             f"{plain_ms:.3f} ms  library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}"
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             f"{'' if lib_ms is None else f' (kernel / library {ms / lib_ms:.2f})'}"
             f"  bound {bound_ms:.4f} ms ({row['bound_by']})"
             f"{'' if exp_ms is None else f'  exp floor {exp_ms:.4f} ms'}"
-            f"  unqueued: kernel {ms_unq:.3f} ms"
-            f"{'' if lib_unq is None else f'  library {lib_unq:.3f} ms (kernel / library {ms_unq / lib_unq:.2f})'}"
+            f"  unqueued: kernel {ms_unq:.4f} ms"
+            f"{'' if lib_unq is None else f'  library {lib_unq:.4f} ms (kernel / library {ms_unq / lib_unq:.2f})'}"
             f"{note}")
         rows.append(row)
 
@@ -385,8 +385,9 @@ def check_banded_kernel(gen, record, rows, tol):
     frames' keys (q a slice of the fused QKV projection, k/v the
     contiguous joined reference rows the UNet injects), weight 0 and 0.7,
     and L0 with base = -inf. Before each comparison one call through
-    ``flash_attention_banded`` with its counter reset drives the op; its
-    count is the row's ``drive_launches``. The bound counts every key
+    ``flash_attention_banded`` with its counters reset drives the op; its
+    counts are the row's ``drive_launches`` and ``launches_by_dp`` (by
+    padded head width; null for a tree whose wrapper keeps none). The bound counts every key
     (with a finite base every key weighs); the log line adds the bound of
     the in-band pairs alone, the floor an exact tile skip could reach."""
     from sd_animation_optical_flow_tpu_torch.ops import attention as A
@@ -414,8 +415,12 @@ def check_banded_kernel(gen, record, rows, tol):
         band_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
                             band_flops / PEAK_BF16_FLOPS)
         A.flash_attention_banded.launches = 0
+        by_dp = getattr(A.flash_attention_banded, "launches_by_dp", None)
+        if by_dp is not None:
+            by_dp.clear()
         A.flash_attention_banded(q, k, v, **kw)
         drive = A.flash_attention_banded.launches
+        drive_dp = None if by_dp is None else dict(by_dp)
         record(f"flash_attention_banded [{label}]",
                lambda: A.flash_attention_banded(q, k, v, **kw),
                lambda: _by_head(A.flash_attention_banded_plain, q, k, v,
@@ -427,6 +432,9 @@ def check_banded_kernel(gen, record, rows, tol):
                iters=5, note=f"; in-band pairs only {band_ms:.4f} ms",
                exps=b * h * nq * nk)
         rows[-1]["drive_launches"] = drive
+        rows[-1]["launches_by_dp"] = drive_dp
+        log(f"[kernel]   drive: {drive} launch(es), by padded head width "
+            f"{rows[-1]['launches_by_dp']}")
         del q, k, v, qt, kt, vt, bias16
 
 
@@ -1032,8 +1040,7 @@ def run_train_phase(sd, kernels, gen):
     return summary, counts, failures
 
 
-# the second template argument of attention_sm90_kernel and
-# attn_mma_kernel: the mode
+# the second template argument of attention_sm90_kernel: the mode
 _MODES = {"Li0E": "PLAIN", "Li1E": "KEYMASK", "Li2E": "MFR",
           "Li4E": "BANDED"}
 
@@ -1159,7 +1166,8 @@ def main() -> int:
     log(f"[precision] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
         f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    t0 = time.time()
+    phases = {}     # wall seconds of each phase
+    start = t0 = time.time()
     so = _cuda.build()
     _cuda.library()
     sources = ", ".join(sorted(p.name for p in _cuda.CSRC.glob("*.cu")))
@@ -1173,12 +1181,13 @@ def main() -> int:
             "consumer warpgroups, cp.async K/V ring; #10, the MFR strip "
             "bias as an epilogue on the score tile; #6, the CFG key mask "
             "as a per-unit key bound, the uncond rows' units walking "
-            "min(Nk, n_own) keys; #6 and #10 at d = 160 on 32-key tiles; "
-            "csrc/attention_sm90.cu); "
+            "min(Nk, n_own) keys; #5, attention_sm90_kernel<DP, BANDED, 3>, "
+            "the banded bias: base on the key tiles out of band, each "
+            "pair's from a table on the others; #5, #6 and #10 at d = 160 "
+            "on 32-key tiles; csrc/attention_sm90.cu); "
             "attention_wide_sm90_kernel (#2: two wgmma consumer warpgroups "
             "on the two d-halves, TMA K/V ring multicast across a cluster; "
-            "csrc/attention_wide_sm90.cu); attn_mma_kernel (#5, the "
-            "banded mode; csrc/attention.cu); "
+            "csrc/attention_wide_sm90.cu); "
             "attention_bwd_dkv_sm90_kernel, attention_bwd_dq_sm90_kernel (#8 "
             "and #9: one wgmma skeleton, a cp.async ring of the streamed "
             "axis; csrc/attention_bwd_sm90.cu); "
@@ -1192,8 +1201,11 @@ def main() -> int:
             "epilogue); csrc/ffn_sm90.cu")
     for line in ptxas_report(so.with_suffix(".log").read_text()):
         log(f"[ptxas] {line}")
+    phases["build"] = time.time() - t0
 
+    t0 = time.time()
     rows = check_kernels()
+    phases["kernels"] = time.time() - t0
     failures += [r["name"] for r in rows if not r["ok"]]
     if args.kernels:
         for f in failures:
@@ -1214,6 +1226,7 @@ def main() -> int:
     perturb_zero_convs(sd9.unet_params, gen)
     log(f"[model] sd15 and sd15-inpaint9 random init on the card in "
         f"{time.time() - t0:.1f} s")
+    phases["models"] = time.time() - t0
 
     kernels = {"flash_attention_tpv": A.flash_attention_tpv,
                "flash_attention": A.flash_attention,
@@ -1226,26 +1239,34 @@ def main() -> int:
                "flash_bwd_dq": A.flash_bwd_dq,
                "flash_attention_banded": A.flash_attention_banded}
     img2img_kernels = list(kernels)[:4]
+    t0 = time.time()
     unet_rel = check_unet_against_cpu(sd, gen)
+    phases["unet_vs_cpu"] = time.time() - t0
     # bf16 through 16 transformer blocks and 25 resblocks of random
     # weights against f32: a few percent of the output's norm
     if not math.isfinite(unet_rel) or unet_rel > 0.1:
         failures.append(f"unet card-vs-cpu rel err {unet_rel:.3e} > 0.1")
 
+    t0 = time.time()
     main = run_main_path(sd, kernels, gen)
+    phases["img2img"] = time.time() - t0
     for sampler, (secs, counts, ok) in main.items():
         if not ok:
             failures.append(f"img2img {sampler}: bad output")
         for name in img2img_kernels:
             if counts[name] == 0:
                 failures.append(f"img2img {sampler}: {name} never launched")
+    t0 = time.time()
     keyframe, kf_failures, keys_kv = run_keyframe_path(sd, sd9, kernels, gen)
+    phases["keyframe"] = time.time() - t0
     failures += kf_failures
     log(f"[main] peak device memory, both bundles and the K/V stores "
         f"resident: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del sd9
     torch.cuda.empty_cache()
+    t0 = time.time()
     banded, banded_failures = run_banded_phase(sd, keys_kv, kernels, gen)
+    phases["banded"] = time.time() - t0
     failures += banded_failures
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
@@ -1254,7 +1275,9 @@ def main() -> int:
     for name in TRAIN_KERNELS:
         if any(c[name] for _, c, _ in inference):
             failures.append(f"{name} launched on an inference path")
+    t0 = time.time()
     train, train_counts, train_failures = run_train_phase(sd, kernels, gen)
+    phases["train"] = time.time() - t0
     failures += train_failures
 
     table = []
@@ -1271,12 +1294,16 @@ def main() -> int:
                 | {"launches": launches}
                 | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms",
-                                     "design")})
+                                     "design")}
+                | ({"launches_by_dp": r["launches_by_dp"]}
+                   if "launches_by_dp" in r else {}))
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
                     "banded": banded, "train": train, "unet_rel_err": unet_rel,
                     "card": card}))
+    log(f"[time] wall s by phase {json.dumps({k: round(v, 1) for k, v in phases.items()})}"
+        f", total {time.time() - start:.1f} s")
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

@@ -5,12 +5,12 @@
 //
 // attention_sm90_kernel computes out = softmax(q k^T * scale) v for bf16
 // q [B, Nq, H, D] and k/v [B, Nk, H, D] (D a multiple of 8 up to 128, up
-// to 160 in the keymask and MFR modes below; any strides along B, N, H
+// to 160 in the keymask, MFR and banded modes below; any strides along B, N, H
 // that are multiples of 8 elements; unit stride along D), writing a
 // contiguous [B, Nq, H, D] out, and, where lse is
 // given, each query row's base-2 log-sum-exp m + log2(l) of the scaled
 // scores (f32 [B*H, Nq]) for the backward (csrc/attention_bwd_sm90.cu). It
-// replaces four Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
+// replaces five Pallas TPU kernels of sd_animation_optical_flow_tpu/ops/
 // attention.py, whose Python wrappers keep their names and counters:
 //
 //   _flash_kernel_tpv (flash_attention_tpv: the UNet self-attention at
@@ -40,6 +40,12 @@
 //     the 512 units take 48 or 96 key tiles; round-robin over 132 blocks
 //     the busiest block walks 288 tiles against a mean of 279 (an order
 //     of the units heaviest first gives the same 288).
+//   _flash_banded_kernel (flash_attention_banded: one frame's queries
+//     against n frames' keys joined along the token axis, with the
+//     banded cross-frame bias; on no pipeline path; sdaof_attention_banded
+//     in attention.cu routes every d up to 160 here) ->
+//     attention_sm90_kernel<DP, MODE_BANDED, NC>: Nq = h * w, Nk a whole
+//     number of frames, every unit walking all Nk keys; the bias below.
 //
 // What bounds it on the H100: at SD's self-attention (self L0: 2 x 8
 // heads, 6144 tokens, d = 40) the tensor-core work takes 0.098 ms at the
@@ -132,6 +138,34 @@
 //   first key (divided out once a tile in band) and step by its column
 //   offsets, wrapping at w_tile and w_strip; the query rows' are divided
 //   out once a unit.
+// * The banded bias (MODE_BANDED): query i sits at (i / w, i % w) of
+//   its frame, key j at the same split of j % (h * w); a pair gains
+//   weight * exp(-dist / sigma) inside the |dy|, |dx| <= radius band (0
+//   at weight 0) and base outside (-1000 by default, or -inf), added to
+//   s before the softmax and divided by scale_log2 as the MFR bias is.
+//   With a finite base every key counts, so no tile is skipped, as the
+//   TPU kernel skips none. A key tile that lies in one frame and holds
+//   no row within the radius of the warpgroup's 64 query rows' frame
+//   rows adds base to every score (a warpgroup-uniform test of the
+//   tile's first frame-local key against a key range taken once a unit;
+//   of the 512 x 768 frame's two-frame check shapes' tiles 26% are in
+//   band at L0, 51% at L1, 89% at L2). The other tiles, those
+//   straddling a frame's end among them, work per pair: where w is a
+//   multiple of 8 (each 8-key column block then lies in one frame row)
+//   and the radius is at most 8 (the TPU kernel's default), from an 18
+//   x 18 f32 table in shared memory indexed by (dy + radius, dx +
+//   radius), each clamped to 17, whose entries past 2 radius (the
+//   sentinel row and column among them) hold base; else from the
+//   formula per pair, on the special-function unit (rsqrt, ex2) and
+//   without a branch. The banded mode at DP <= 48 (128-key tiles) takes
+//   160 / 32 registers, as a bias mode at DP = 160 does. The host
+//   clamps the radius to max(h, w) - 1, which gives the same bias. A
+//   key tile's first frame-local key steps on by BK a tile and wraps at
+//   the frame's end; a thread's keys step from it by its column
+//   offsets, wrapping at w and at h * w; the query rows' coordinates
+//   are divided out once a unit. base = -inf gives -inf scores, never
+//   NaN: the running max starts at -1e30, and no 0 * base or base -
+//   base is formed (every row has its own position of frame 0 in band).
 //
 // Shared memory uses the no-swizzle core-matrix layout of sm90.cuh
 // (tile_offset): one layout serves as the K-major operand (Q, K) and the
@@ -163,11 +197,16 @@ struct Sm90Args {
   // the CFG key mask (attention_sm90_kernel<DP, MODE_KEYMASK> only): batch
   // rows < n_uncond attend to keys < n_own only
   int n_own, n_uncond;
+  // the banded bias (attention_sm90_kernel<DP, MODE_BANDED> only; with
+  // radius, bias_log2 and inv_sigma above): frame height and width in
+  // tokens, the out-of-band bias * log2(e)
+  int fh, fw;
+  float base_log2;
 };
 
-// the kernel's modes (as attn_mma_kernel's in attention.cu): plain, with
-// the per-row key bound of the CFG key mask, with the MFR strip bias
-enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2 };
+// the kernel's modes: plain, with the per-row key bound of the CFG key
+// mask, with the MFR strip bias, with the banded cross-frame bias
+enum { MODE_PLAIN = 0, MODE_KEYMASK = 1, MODE_MFR = 2, MODE_BANDED = 4 };
 
 constexpr int WG_THREADS = 128;         // a warpgroup
 constexpr int PRODUCER = WG_THREADS;    // the producer warpgroup
@@ -188,6 +227,26 @@ __host__ __device__ constexpr bool skip(int part) { return (SM90_SKIP & part) !=
 // the MFR bias table: BIAS_SIDE x BIAS_SIDE f32, indexed by (dy + radius,
 // dx + radius) each clamped to BIAS_SIDE - 1; entries past 2 radius are 0
 constexpr int BIAS_SIDE = 16, BIAS_MAX_R = (BIAS_SIDE - 2) / 2;
+// the banded table: BAND_SIDE x BAND_SIDE f32, indexed the same way;
+// entries past 2 radius hold base, the last row and column always. Two
+// more floats follow it: BAND_SCALE, weight * log2(e) / scale_log2, and
+// BAND_DECAY, log2(e) / sigma (the per-pair formula's factors)
+constexpr int BAND_SIDE = 18, BAND_MAX_R = (BAND_SIDE - 2) / 2;
+constexpr int BAND_BASE = BAND_SIDE * BAND_SIDE - 1, BAND_SCALE = BAND_BASE + 1,
+              BAND_DECAY = BAND_BASE + 2;
+
+// fill a side x side bias table, the block's threads together: entry (uy,
+// ux) is scale * exp(-dist / sigma) at (dy, dx) = (uy, ux) - radius where
+// uy, ux <= 2 radius (the plain versions' f32 formula), else `outside`
+__device__ __forceinline__ void fill_band_table(float* tab, int side, int radius, float scale,
+                                                float outside, float inv_sigma, int threads) {
+  for (int i = threadIdx.x; i < side * side; i += threads) {
+    const int uy = i / side, ux = i % side, dy = uy - radius, dx = ux - radius;
+    tab[i] = uy <= 2 * radius && ux <= 2 * radius
+                 ? scale * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * inv_sigma)
+                 : outside;
+  }
+}
 
 // the shape of an instantiation: DP the head dim padded to a multiple of
 // 16, NC consumer warpgroups of 64 query rows each
@@ -198,19 +257,21 @@ struct Tiles {
   // a thread's registers after the hand-over, within what the launch
   // gives the block: 65536 / THREADS a thread in steps of 8 (128 of 512
   // threads). Three consumers take 152 and leave the producer 56; at DP
-  // = 160 the MFR mode's band state beside o (80 a thread) spills 8 bytes
-  // at 152, so there they take all but 32 (which cost the other modes'
-  // loads ~4% there)
-  static constexpr bool WIDE_MFR = DP > 128 && MODE == MODE_MFR;
-  static constexpr int PRODUCER_REGS = WIDE_MFR ? 32 : 56;
-  static constexpr int CONSUMER_REGS = WIDE_MFR ? 160 : 152;
+  // = 160 a bias mode's band state beside o (80 a thread) spills at 152
+  // (the MFR mode 8 bytes), and so does the banded mode's per-pair bias
+  // beside 128-key score tiles (DP <= 48: 8 bytes at 48), so there they
+  // take all but 32 (which cost the other modes' loads ~4% at DP = 160)
+  static constexpr bool BIASED = MODE == MODE_MFR || MODE == MODE_BANDED;
+  static constexpr bool WIDE_BIAS = BIASED && (DP > 128 || (MODE == MODE_BANDED && DP <= 48));
+  static constexpr int PRODUCER_REGS = WIDE_BIAS ? 32 : 56;
+  static constexpr int CONSUMER_REGS = WIDE_BIAS ? 160 : 152;
   static_assert(PRODUCER_REGS * PRODUCER + CONSUMER_REGS * NC * WG_THREADS <=
                     65536 / THREADS / 8 * 8 * THREADS,
                 "registers");
   static constexpr int SCHED_BAR = 1 + NC;  // named barriers of the turns (1 .. NC: the epilogues)
   // keys per tile; three consumers' registers hold o beside 32-key
-  // score tiles only, in the MFR mode at DP = 128 and in any at DP = 160
-  static constexpr int BK = DP <= 48 ? 128 : DP > 128 || (MODE == MODE_MFR && DP > 112) ? 32 : 64;
+  // score tiles only, in a bias mode at DP = 128 and in any at DP = 160
+  static constexpr int BK = DP <= 48 ? 128 : DP > 128 || (BIASED && DP > 112) ? 32 : 64;
   // K/V ring depth; Q slots (the units loaded ahead + 1)
   static constexpr int STAGES = 4;
   static constexpr int QSLOTS = 2;
@@ -224,7 +285,8 @@ struct Tiles {
   static constexpr uint32_t QEMPTY = QFULL + 8 * QSLOTS;
   static constexpr uint32_t SMEM = QEMPTY + 8 * QSLOTS;
   static constexpr uint32_t MFR_SMEM = SMEM + BIAS_SIDE * BIAS_SIDE * 4;  // the bias table
-  static_assert(MFR_SMEM <= 232448, "shared memory of one block");
+  static constexpr uint32_t BAND_SMEM = SMEM + (BAND_DECAY + 1) * 4;
+  static_assert(BAND_SMEM <= 232448, "shared memory of one block");
 };
 
 // work unit u of a block: bq query rows of one (batch, head)
@@ -457,10 +519,115 @@ struct StripBias {
   }
 };
 
+// a key's place in its frame (row y, column x of frame-local key j),
+// moved along the keys without a division: it wraps at the frame width
+// and at the frame's end, where the next frame's first key sits at (0, 0)
+struct FramePos {
+  int y, x;
+  __device__ __forceinline__ FramePos(int j, const Sm90Args& a) {
+    y = j / a.fw;
+    x = j - y * a.fw;
+  }
+  // n keys on; steps shorter than a frame row run the loop once or not
+  __device__ __forceinline__ void advance(int n, const Sm90Args& a) {
+    x += n;
+    while (x >= a.fw) {
+      x -= a.fw;
+      if (++y == a.fh) y = 0;
+    }
+  }
+};
+
+// the banded bias of one consumer thread on one work unit: its two query
+// rows' frame coordinates (rows g and g + 8 of its warp), the frame-local
+// keys whose rows lie within the radius of its warpgroup's frame rows, and
+// the first frame-local key of the unit's next key tile (apply takes the
+// tiles in order, so no tile divides its index)
+struct BandBias {
+  uint32_t qy[2], qx[2];  // row, column + radius: dy + radius = qy - ky (unsigned, out of band wraps high)
+  int klo, khi;           // frame-local keys [klo, khi) may be in band
+  int j0;                 // the next tile's first key, frame-local
+
+  // row: the thread's first query row; wg_row: its warpgroup's first
+  __device__ __forceinline__ void init(const Sm90Args& a, int row, int wg_row) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int y = (row + 8 * r) / a.fw;
+      qy[r] = static_cast<uint32_t>(y + a.radius);
+      qx[r] = static_cast<uint32_t>(row + 8 * r - y * a.fw + a.radius);
+    }
+    // the keys of frame rows [ylo - radius, yhi + radius] (a warpgroup
+    // past Nq gets some range: its rows are never stored)
+    const int ylo = wg_row / a.fw, yhi = min(wg_row + 63, a.Nq - 1) / a.fw;
+    klo = max(ylo - a.radius, 0) * a.fw;
+    khi = min(yhi + a.radius + 1, a.fh) * a.fw;
+    j0 = 0;
+  }
+
+  // add the bias of the unit's next key tile to the scores s of the two
+  // rows (keys past Nk get some, and the softmax masks them); tab is the
+  // table, base and the formula's factors (in the scores' domain)
+  template <int BK>
+  __device__ __forceinline__ void apply(float (&s)[BK / 2], const Sm90Args& a, int tq,
+                                        const float* tab) {
+    const int k0 = j0, hw = a.Nq;  // Nq = h * w: one frame
+    j0 += BK;
+    if (j0 >= hw) j0 %= hw;
+    if (skip(SKIP_BIAS)) return;
+    if (k0 + BK <= hw && (k0 + BK <= klo || k0 >= khi)) {
+      // in one frame, no row within the radius: base on every score
+      const float base = tab[BAND_BASE];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] += base;
+      return;
+    }
+    FramePos key(k0, a);
+    if (a.radius <= BAND_MAX_R && a.fw % 8 == 0) {
+      // each 8-key column block lies in one frame row (w and h * w are
+      // multiples of 8): its row is taken once for a row of the thread
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t row = min(qy[r] - key.y, BAND_SIDE - 1u);
+          const uint32_t ux = qx[r] - key.x - 2 * tq;  // + radius - the key's column
+          s[4 * j + 2 * r] += tab[row * BAND_SIDE + min(ux, BAND_SIDE - 1u)];
+          s[4 * j + 2 * r + 1] += tab[row * BAND_SIDE + min(ux - 1, BAND_SIDE - 1u)];
+        }
+        key.advance(8, a);
+      }
+      return;
+    }
+    // any frame, any radius: each pair's bias, a key at a time, without a
+    // branch and on the special-function unit (rsqrt, ex2): the IEEE sqrt,
+    // exp and division call slow paths, and those calls and the branches
+    // spilled the score tile; dist = d2 / sqrt(d2), 0 at d2 = 0
+    const uint32_t span = 2 * a.radius;
+    const float scale = tab[BAND_SCALE], decay = tab[BAND_DECAY], base = tab[BAND_BASE];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      FramePos p = key;  // key 8 j + 2 tq + c of the tile
+      p.advance(2 * tq + c, a);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t uy = qy[r] - p.y, ux = qx[r] - p.x;
+          const int dy = static_cast<int>(uy) - a.radius, dx = static_cast<int>(ux) - a.radius;
+          const float d2 = static_cast<float>(dy * dy + dx * dx);
+          const float v = scale * fast_exp2(-d2 * rsqrtf(fmaxf(d2, 1.f)) * decay);
+          s[4 * j + 2 * r + c] += max(uy, ux) <= span ? v : base;
+        }
+        p.advance(8, a);
+      }
+    }
+  }
+};
+
 // a consumer warpgroup on work unit `un` (its li-th; `last`: the block's
 // last): query rows [q0 + 64 wg, q0 + 64 wg + 64) against its nk keys;
 // the unit's tiles are the ring's T0 .. T0 + nt - 1 (the tiles of the
-// block's earlier units come first); MFR: tab is the bias table
+// block's earlier units come first); MFR, banded: tab is the bias table
 template <int DP, int MODE, int NC>
 __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int li, bool last,
                                         int T0, int nt, int nk, uint32_t sm, int wg, int tid,
@@ -506,11 +673,14 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m0 = MAX_FLOOR, m1 = MAX_FLOOR, l0 = 0.f, l1 = 0.f, al0, al1;
-  // MFR: the strip bias of each key tile, added to s before its softmax
+  // MFR, banded: the bias of each key tile, added to s before its softmax
   StripBias sb{};
+  BandBias bb{};
   if constexpr (MODE == MODE_MFR) sb.init<BK>(a, un.q0 + 64 * wg + 16 * warp + g, un.q0 + 64 * wg);
+  if constexpr (MODE == MODE_BANDED) bb.init(a, un.q0 + 64 * wg + 16 * warp + g, un.q0 + 64 * wg);
   auto add_bias = [&](int t) {
     if constexpr (MODE == MODE_MFR) sb.apply<BK>(s, a, t, tq, tab);
+    if constexpr (MODE == MODE_BANDED) bb.apply<BK>(s, a, tq, tab);
   };
 
   mbar_wait(sm + T::QFULL + 8 * slot, (li / QSLOTS) & 1);
@@ -611,7 +781,8 @@ __device__ __forceinline__ void consume(const Sm90Args& a, const Unit& un, int l
 // persistent: block i takes work units i, i + gridDim.x, ... of the
 // B * H * ceil(Nq / BQ) units (neighbouring blocks share a head's K/V in
 // L2); MODE_MFR: with the strip bias; MODE_KEYMASK: the uncond batch rows'
-// units walk min(Nk, n_own) keys, the others Nk
+// units walk min(Nk, n_own) keys, the others Nk; MODE_BANDED: with the
+// banded bias
 template <int DP, int MODE, int NC>
 __global__ void __launch_bounds__(Tiles<DP, MODE, NC>::THREADS, 1)
     attention_sm90_kernel(Sm90Args a, int B) {
@@ -630,17 +801,21 @@ __global__ void __launch_bounds__(Tiles<DP, MODE, NC>::THREADS, 1)
     zero_pad(sm + T::RING + s * T::STAGE_BYTES + T::KV_BYTES, T::BK, ch, DP / 8, THREADS);
   }
   fence_proxy_async();
-  // MFR: the bias table, weight * exp(-dist / sigma) in f32 as the plain
-  // version computes it, times log2(e) / scale_log2 (the scores' domain)
-  const float* tab = reinterpret_cast<const float*>(smem + T::SMEM);
-  if constexpr (MODE == MODE_MFR) {
-    const float scale = a.bias_log2 / a.scale_log2;
-    for (int i = threadIdx.x; i < BIAS_SIDE * BIAS_SIDE; i += THREADS) {
-      const int uy = i / BIAS_SIDE, ux = i % BIAS_SIDE, dy = uy - a.radius, dx = ux - a.radius;
-      reinterpret_cast<float*>(smem + T::SMEM)[i] =
-          uy <= 2 * a.radius && ux <= 2 * a.radius
-              ? scale * expf(-sqrtf(static_cast<float>(dy * dy + dx * dx)) * a.inv_sigma)
-              : 0.f;
+  // MFR: the bias table, weight * exp(-dist / sigma) times log2(e) /
+  // scale_log2 (the scores' domain), 0 out of band; banded: the same, base
+  // (in that domain) out of band, a radius past the table's filling it as
+  // its widest (apply then reads only its last entry, base), and after it
+  // the per-pair formula's factors
+  float* tab = reinterpret_cast<float*>(smem + T::SMEM);
+  if constexpr (MODE == MODE_MFR)
+    fill_band_table(tab, BIAS_SIDE, a.radius, a.bias_log2 / a.scale_log2, 0.f, a.inv_sigma,
+                    THREADS);
+  if constexpr (MODE == MODE_BANDED) {
+    fill_band_table(tab, BAND_SIDE, min(a.radius, BAND_MAX_R), a.bias_log2 / a.scale_log2,
+                    a.base_log2 / a.scale_log2, a.inv_sigma, THREADS);
+    if (threadIdx.x == 0) {
+      tab[BAND_SCALE] = a.bias_log2 / a.scale_log2;
+      tab[BAND_DECAY] = a.inv_sigma * 1.44269504f;  // log2(e) / sigma
     }
   }
   if (threadIdx.x == 0) {
@@ -678,7 +853,8 @@ template <int DP, int MODE>
 cudaError_t launch_dp(const Sm90Args& a, int B, int device, cudaStream_t st) {
   constexpr int NC = CONSUMERS;
   using T = Tiles<DP, MODE, NC>;
-  constexpr uint32_t smem = MODE == MODE_MFR ? T::MFR_SMEM : T::SMEM;
+  constexpr uint32_t smem =
+      MODE == MODE_MFR ? T::MFR_SMEM : MODE == MODE_BANDED ? T::BAND_SMEM : T::SMEM;
   // the opt-in above 48 KB and the SM count, once per card
   static unsigned opted = 0;
   static int sms[32];
@@ -711,7 +887,7 @@ cudaError_t launch(const Sm90Args& a, int B, int device, cudaStream_t st) {
     case 6: return launch_dp<96, MODE>(a, B, device, st);
     case 7: return launch_dp<112, MODE>(a, B, device, st);
     case 8: return launch_dp<128, MODE>(a, B, device, st);
-    default:  // SD-1.5's third UNet level: the keymask and MFR modes only
+    default:  // SD-1.5's third UNet level: the keymask, MFR and banded modes only
       if constexpr (MODE == MODE_PLAIN)
         return cudaErrorInvalidValue;  // attention_wide_sm90_kernel's heads
       else
@@ -802,6 +978,37 @@ cudaError_t launch_attention_sm90_keymask(const void* q, const void* k, const vo
   a.n_own = n_own;
   a.n_uncond = n_uncond;
   return launch<MODE_KEYMASK>(a, B, device, st);
+}
+
+// Launch the banded multi-frame attention, attention_sm90_kernel<DP,
+// MODE_BANDED, NC> (as launch_attention_sm90, without lse; Nq = fh * fw,
+// Nk a whole number of frames): key j sits at frame-local position j %
+// (fh * fw); in-band pairs (|dy|, |dx| <= radius) gain bias_log2 *
+// exp(-dist * inv_sigma) (nothing when bias_log2 = 0), the others
+// base_log2 (which may be -inf), in the log2 domain. Used by
+// sdaof_attention_banded (csrc/attention.cu).
+cudaError_t launch_attention_sm90_banded(const void* q, const void* k, const void* v, void* o,
+                                         int B, int H, int Nq, int Nk, int D, long long qsb,
+                                         long long qsn, long long qsh, long long ksb,
+                                         long long ksn, long long ksh, long long vsb,
+                                         long long vsn, long long vsh, float scale_log2, int fh,
+                                         int fw, int radius, float bias_log2, float base_log2,
+                                         float inv_sigma, int device, cudaStream_t st) {
+  if (fh < 1 || fw < 1 || Nq != fh * fw || Nk % Nq || radius < 0) return cudaErrorInvalidValue;
+  Sm90Args a;
+  const cudaError_t err = make_args(a, q, k, v, o, nullptr, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb,
+                                    ksn, ksh, vsb, vsn, vsh, scale_log2);
+  if (err != cudaSuccess) return err;
+  a.fh = fh;
+  a.fw = fw;
+  // every pair has |dy| <= fh - 1 and |dx| <= fw - 1, so a wider radius
+  // gives the same bias as this one
+  const int widest = (fh > fw ? fh : fw) - 1;
+  a.radius = radius < widest ? radius : widest;
+  a.bias_log2 = bias_log2;
+  a.base_log2 = base_log2;
+  a.inv_sigma = inv_sigma;
+  return launch<MODE_BANDED>(a, B, device, st);
 }
 
 // Attention with statistics (bf16, D a multiple of 8 up to 128): out as

@@ -3,9 +3,9 @@
 // cp.async copies and groups, TMA copies (multicast too) and the host's
 // tensor-map encoder, transaction mbarriers and clusters, proxy fences,
 // named barriers and register hand-over (setmaxnreg), and the online
-// softmax of a score tile in registers. Header-only, on top of mma.cuh
-// (bf16, pack_bf16, smem_u32); every helper is __forceinline__ (the
-// encoder inline) in an anonymous namespace per translation unit.
+// softmax of a score tile in registers, with bf16 packing and shared
+// addresses. Header-only; every helper is __forceinline__ (the encoder
+// inline) in an anonymous namespace per translation unit.
 //
 // Shared-memory layout of the wgmma operands here: the canonical
 // no-swizzle ("interleave") layout, and for #3's kernel the 128-byte
@@ -23,11 +23,25 @@
 
 #include <cuda.h>          // CUtensorMap
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
-
-#include "mma.cuh"
+#include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// two floats -> a bf16 pair (round to nearest), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a generic pointer into shared memory -> its 32-bit shared address
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 // byte offset of (row, 16-byte chunk) in a tile of `rows` rows
 __device__ __forceinline__ uint32_t tile_offset(int row, int chunk, int rows) {

@@ -6,8 +6,8 @@ keep the JAX package's layout: q [B, Nq, H, D], k/v [B, Nk, H, D] ->
 out [B, Nq, H, D].
 
 Kernels (``csrc/attention_sm90.cu``, ``csrc/attention_wide_sm90.cu``,
-``csrc/attention.cu``, ``csrc/attention_bwd_sm90.cu``), each with its plain
-version beside it:
+``csrc/attention_bwd_sm90.cu``; ``csrc/attention.cu`` holds their C entry
+points), each with its plain version beside it:
 
 * :func:`flash_attention_tpv` replaces the TPU's ``_flash_kernel_tpv``
   (launched there by ``flash_attention_tpv`` / ``shortk_attention`` /
@@ -45,20 +45,25 @@ version beside it:
   with the bias as an epilogue on the score tile: only key tiles whose
   strip rows lie within the radius of a warpgroup's query rows take it,
   from a table in shared memory.
-  Both run every head width up to 160: three consumer warpgroups of 64
-  query rows, on 32-key tiles at SD-1.5's 160-wide third UNet level.
-  Each counts its launches by padded head width too
+  Both run every head width up to 160, as #5 below does: three consumer
+  warpgroups of 64 query rows, on 32-key tiles at SD-1.5's 160-wide
+  third UNet level. Each of the three, and :func:`flash_attention`,
+  counts its launches by padded head width too
   (``<wrapper>.launches_by_dp``).
 * :func:`flash_attention_banded` replaces the TPU's
   ``_flash_banded_kernel`` (launched by ``flash_attention_banded``):
   one frame's queries against ``n`` frames' keys with the banded
   cross-frame bias computed in the kernel; plain version
   :func:`flash_attention_banded_plain` (:func:`xla_attention` with the
-  materialized :func:`banded_strip_bias`). Unlike the TPU kernel it takes
-  no ``qpos`` / ``kpos`` coordinate inputs (the kernel derives each
-  token's frame coordinates from its index in registers), and its
-  running max starts at a finite floor, as the TPU kernel's does, so a
-  ``base`` of -inf gives no NaN.
+  materialized :func:`banded_strip_bias`). Its kernel is
+  ``attention_sm90_kernel`` with the bias added to the score tile before
+  the softmax: a key tile out of the band of a warpgroup's query rows
+  takes ``base`` on every score, the others each pair's bias, from a
+  table in shared memory. Unlike the TPU kernel it takes no ``qpos`` /
+  ``kpos`` coordinate inputs (the kernel steps each token's frame
+  coordinates along the keys in registers), and its running max starts
+  at a finite floor, as the TPU kernel's does, so a ``base`` of -inf
+  gives no NaN.
 * :func:`flash_fwd_stats` (``_flash_kernel_tpv_stats``, the same
   ``attention_sm90_kernel`` writing the LSE too),
   :func:`flash_bwd_dkv` (``_flash_bwd_dkv_kernel``) and
@@ -116,8 +121,9 @@ _K_WIDE = _cuda.kernel(
     "attention_wide_sm90.cu", "attention_wide_sm90_kernel: two wgmma "
     "warpgroups on the d-halves, a TMA K/V ring multicast to a cluster")
 _K_BANDED = _cuda.kernel(
-    "attention.cu", "attn_mma_kernel<DP, BANDED>: mma.sync with ldmatrix, "
-    "synchronous loads")
+    "attention_sm90.cu", "attention_sm90_kernel<DP, BANDED> (#1's design, "
+    "32-key tiles at d 160): base added to the key tiles out of band, the "
+    "band bias per pair from a table on the others")
 _K_BWD_DKV = _cuda.kernel(
     "attention_bwd_sm90.cu", "attention_bwd_dkv_sm90_kernel: wgmma "
     "warpgroups own 64 key rows each, q and dO through a cp.async ring")
@@ -191,6 +197,14 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _count_launch(wrapper, d: int) -> None:
+    """One launch of ``wrapper``'s kernel at head dim ``d``: its count,
+    and its count at d padded to a multiple of 16 (the kernel's DP)."""
+    wrapper.launches += 1
+    dp = -(-d // 16) * 16
+    wrapper.launches_by_dp[dp] = wrapper.launches_by_dp.get(dp, 0) + 1
+
+
 def flash_attention_tpv(q, k, v):
     """Online-softmax attention (kernel #1, ``attention_sm90_kernel`` in
     ``csrc/attention_sm90.cu``, replacing the TPU's ``_flash_kernel_tpv``:
@@ -236,12 +250,13 @@ def flash_attention(q, k, v):
         return xla_attention(q, k, v)
     _cuda.refuse_grad("flash_attention", q, k, v)
     out = _launch("sdaof_attention", q, k, v)
-    flash_attention.launches += 1
+    _count_launch(flash_attention, q.shape[-1])
     flash_attention.kernel = _K_PLAIN if q.shape[-1] <= 128 else _K_WIDE
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dp = {}
 flash_attention.kernel = None
 
 
@@ -532,14 +547,6 @@ def attention_injected_plain(q, k, v, *, n_own: int, n_uncond: int):
     return xla_attention(q, k, v, bias=bias[:, None, None, :])
 
 
-def _count_launch(wrapper, d: int) -> None:
-    """One launch of ``wrapper``'s kernel at head dim ``d``: its count,
-    and its count at d padded to a multiple of 16 (the kernel's DP)."""
-    wrapper.launches += 1
-    dp = -(-d // 16) * 16
-    wrapper.launches_by_dp[dp] = wrapper.launches_by_dp.get(dp, 0) + 1
-
-
 def flash_attention_keymask(q, k, v, *, n_own: int, n_uncond: int):
     """Attention of the CFG K/V-injection path (kernel #6,
     ``attention_sm90_kernel<DP, MODE_KEYMASK, NC>``): batch rows
@@ -739,13 +746,18 @@ def flash_attention_banded(q, k, v, *, h: int, w: int, radius: int = 8,
                            weight: float = 0.0, sigma: float = 1.6,
                            base: float = -1000.0):
     """Multi-frame attention with the banded strip bias computed in the
-    kernel (kernel #5, ``attn_mma_kernel<DP, MODE_BANDED>``): q [B, h*w,
-    H, D] is one frame's tokens, k/v [B, n*h*w, H, D] the tokens of n
-    frames joined along the token axis; key j sits at frame-local
-    position j % (h*w). A block-uniform test adds ``base`` to a key tile
-    whose rows all lie outside the band of the block's query rows; the
-    other tiles evaluate the bias per element. bf16 on the card, d a
-    multiple of 8 up to 160. No backward (neither has the JAX kernel)."""
+    kernel (kernel #5, ``attention_sm90_kernel<DP, MODE_BANDED, NC>``):
+    q [B, h*w, H, D] is one frame's tokens, k/v [B, n*h*w, H, D] the
+    tokens of n frames joined along the token axis; key j sits at
+    frame-local position j % (h*w). Every work unit of 192 query rows
+    walks all n*h*w keys (no tile is skipped: with a finite ``base``
+    every key counts). A warpgroup-uniform test adds ``base`` to a key
+    tile that lies in one frame with no row within ``radius`` of the
+    warpgroup's 64 query rows; the other tiles take each pair's bias,
+    from a table in shared memory where w is a multiple of 8 and the
+    radius at most 8, else from the formula. bf16 on the card, d a
+    multiple of 8 up to 160 (32-key tiles at d 136-160). No backward
+    (neither has the JAX kernel)."""
     if q.device.type != "cuda":
         return flash_attention_banded_plain(q, k, v, h=h, w=w, radius=radius,
                                             weight=weight, sigma=sigma,
@@ -755,10 +767,11 @@ def flash_attention_banded(q, k, v, *, h: int, w: int, radius: int = 8,
     out = _launch("sdaof_attention_banded", q, k, v, int(h), int(w),
                   int(radius), float(weight) * _LOG2E, float(base) * _LOG2E,
                   1.0 / float(sigma), max_d=160)
-    flash_attention_banded.launches += 1
+    _count_launch(flash_attention_banded, q.shape[-1])
     flash_attention_banded.kernel = _K_BANDED
     return out
 
 
 flash_attention_banded.launches = 0
+flash_attention_banded.launches_by_dp = {}
 flash_attention_banded.kernel = None

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the time of the Hopper kernels goes, on one NVIDIA card: the
-attention forwards #1 / #7, #6 and #10 (``csrc/attention_sm90.cu``) and
+attention forwards #1 / #7, #5, #6 and #10 (``csrc/attention_sm90.cu``) and
 #2 (``csrc/attention_wide_sm90.cu``), the backward pair #8 / #9
 (``csrc/attention_bwd_sm90.cu``), the GEGLU tail #4 and the LN-prologue
 projection #3 (``csrc/ffn_sm90.cu``):
@@ -8,6 +8,7 @@ projection #3 (``csrc/ffn_sm90.cu``):
     python3 sm90_probe.py [--shape self_l0|self_l1|cross_l0|cross_l1]
     python3 sm90_probe.py --shape strip_l0|strip_l1|strip_l2 [--mode mutual|target]
     python3 sm90_probe.py --shape inject_l0|inject_l1|inject_l2
+    python3 sm90_probe.py --shape banded_l0|banded_l1|banded_l2 [--weight 0|0.7]
     python3 sm90_probe.py --kernel wide [--shape vae_mid|vae_mid2|l2]
     python3 sm90_probe.py --kernel bwd [--shape self_l0|self_l1]
     python3 sm90_probe.py --kernel geglu [--shape l0|l1]
@@ -32,9 +33,9 @@ results; they only time what remains. For ``attention_sm90.cu``:
   shared memory stays);
 * ``no_turns``: the consumer warpgroups issue their products without
   taking turns (this one computes the right result);
-* ``no_bias`` (the strip shapes only): the MFR mode without its bias
-  epilogue (no band test, no table reads), so its time against the full
-  kernel's is what the bias costs.
+* ``no_bias`` (the strip and banded shapes only): the MFR or banded mode
+  without its bias (no band test, no table reads, no base), so its time
+  against the full kernel's is what the bias costs.
 
 The strip shapes run the kernel's MFR mode (#10: the 2-tile strips of a
 512x768 frame, 64 x 192 latent tokens at L0, 32 x 96 at L1; the 4-tile
@@ -46,8 +47,14 @@ which the uncond row sees the first 6144 at L0, q [2, 1536, 8, 80]
 against 3072 at L1, q [2, 1536, 8, 160] against 3072 at L2 of a
 1024x1536 frame) through a shim that exports its launcher as
 ``sdaof_attention_keymask``, against SDPA with the boolean key mask.
-The ptxas lines (registers, spills) of the instantiation each shape runs
-are printed first.
+The banded shapes run its banded mode (#5: one 512x768 frame's queries
+against two frames' keys, q [2, 6144, 8, 40] against 12288 keys at L0,
+q [2, 1536, 8, 80] against 3072 at L1, q [2, 384, 8, 160] against 768 at
+L2; radius 8, base -1000, ``--weight`` in band) through a shim that
+exports its launcher as ``sdaof_attention_banded``, against SDPA with
+the materialized bf16 bias, in the copies ``full``, ``no_bias``,
+``no_loads`` and ``no_exp``. The ptxas lines (registers, spills) of the
+instantiation each shape runs are printed first.
 
 For ``attention_wide_sm90.cu`` (the shapes: the VAE mid-block attention
 of one frame and of two, and the UNet's 160-wide L2 heads at 1536
@@ -154,7 +161,9 @@ KERNELS = {
               "strip_l0": (2, 12288, 12288, 8, 40), "strip_l1": (2, 3072, 3072, 8, 80),
               "strip_l2": (2, 1536, 1536, 8, 160),
               "inject_l0": (2, 6144, 12288, 8, 40), "inject_l1": (2, 1536, 3072, 8, 80),
-              "inject_l2": (2, 1536, 3072, 8, 160)}),
+              "inject_l2": (2, 1536, 3072, 8, 160),
+              "banded_l0": (2, 6144, 12288, 8, 40), "banded_l1": (2, 1536, 3072, 8, 80),
+              "banded_l2": (2, 384, 768, 8, 160)}),
     # attention_wide_sm90.cu's WIDE_SKIP bits: SKIP_LOADS = 1, SKIP_QK = 2,
     # SKIP_PV = 4, SKIP_XCH = 8, SKIP_SOFTMAX = 16, SKIP_EXP = 32; and
     # WIDE_CLUSTER, the CTAs of a cluster
@@ -194,6 +203,9 @@ STRIPS = {"strip_l0": (64, 96, 2), "strip_l1": (32, 48, 2), "strip_l2": (16, 24,
 # the inject shapes' key mask (n_own, n_uncond): the CFG pair's uncond row
 # sees its own frame's keys, the first half
 INJECT = {"inject_l0": (6144, 1), "inject_l1": (1536, 1), "inject_l2": (1536, 1)}
+# the banded shapes' frame (h, w): one frame of queries, two of keys
+BANDED = {"banded_l0": (64, 96), "banded_l1": (32, 48), "banded_l2": (16, 24)}
+BANDED_COPIES = ("full", "no_bias", "no_loads", "no_exp")
 # the MFR launcher of attention_sm90.cu has C++ linkage: a shim exports
 # it under the name and arguments of sdaof_attention_mfr
 SM90_SHIM = """
@@ -228,6 +240,23 @@ extern "C" int sdaof_attention_keymask(const void* q, const void* k, const void*
   return launch_attention_sm90_keymask(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
                                        vsb, vsn, vsh, scale_log2, n_own, n_uncond, device,
                                        static_cast<cudaStream_t>(stream));
+}
+cudaError_t launch_attention_sm90_banded(const void*, const void*, const void*, void*, int, int,
+                                         int, int, int, long long, long long, long long,
+                                         long long, long long, long long, long long, long long,
+                                         long long, float, int, int, int, float, float, float, int,
+                                         cudaStream_t);
+extern "C" int sdaof_attention_banded(const void* q, const void* k, const void* v, void* o,
+                                      int B, int H, int Nq, int Nk, int D, long long qsb,
+                                      long long qsn, long long qsh, long long ksb, long long ksn,
+                                      long long ksh, long long vsb, long long vsn, long long vsh,
+                                      float scale_log2, int fh, int fw, int radius,
+                                      float bias_log2, float base_log2, float inv_sigma,
+                                      int device, void* stream) {
+  return launch_attention_sm90_banded(q, k, v, o, B, H, Nq, Nk, D, qsb, qsn, qsh, ksb, ksn, ksh,
+                                      vsb, vsn, vsh, scale_log2, fh, fw, radius, bias_log2,
+                                      base_log2, inv_sigma, device,
+                                      static_cast<cudaStream_t>(stream));
 }
 """
 # the wide kernel's launcher has C++ linkage: a shim exports it under the
@@ -310,6 +339,23 @@ def in_band_share(h: int, w_tile: int, n_tiles: int, radius: int, target: bool,
         tlo = max(ylo - radius, 0) * w_strip // bk
         thi = (min((yhi + radius + 1) * w_strip, n) - 1) // bk
         taken += thi - tlo + 1
+    return taken / total
+
+
+def banded_in_band_share(h: int, w: int, frames: int, radius: int, bk: int) -> float:
+    """The share of (warpgroup, key tile) pairs of one head that work per
+    pair in the banded mode, by the kernel's test (``BandBias::apply``):
+    tiles straddling a frame's end or holding keys of the frame rows
+    within ``radius`` of the warpgroup's 64 query rows. 192-row units."""
+    hw = h * w
+    taken = total = 0
+    for wg_row in range(0, hw, 64):
+        ylo, yhi = wg_row // w, min(wg_row + 63, hw - 1) // w
+        klo, khi = max(ylo - radius, 0) * w, min(yhi + radius + 1, h) * w
+        for t in range(-(-frames * hw // bk)):
+            k0 = t * bk % hw
+            total += 1
+            taken += not (k0 + bk <= hw and (k0 + bk <= klo or k0 >= khi))
     return taken / total
 
 
@@ -629,6 +675,8 @@ def main() -> int:
                     help="query tokens in place of the shape's")
     ap.add_argument("--mode", choices=["mutual", "target"], default="mutual",
                     help="the strip shapes' tile rule")
+    ap.add_argument("--weight", type=float, default=0.0,
+                    help="the banded shapes' in-band weight")
     ap.add_argument("--rounds", type=int, default=7)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
@@ -639,8 +687,10 @@ def main() -> int:
     shape = args.shape or next(iter(shapes))
     if shape not in shapes:
         ap.error(f"--shape: one of {sorted(shapes)} for --kernel {args.kernel}")
-    strip = STRIPS.get(shape)
-    if not strip:   # the bias epilogue exists on the strips only
+    strip, banded = STRIPS.get(shape), BANDED.get(shape)
+    if banded:
+        variants = {n: v for n, v in variants.items() if n in BANDED_COPIES}
+    elif not strip:   # the bias exists on the strips and banded shapes only
         variants = {n: v for n, v in variants.items() if n != "no_bias"}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -656,8 +706,10 @@ def main() -> int:
     inject = INJECT.get(shape)
     if args.kernel == "sm90":   # the instantiation this shape runs
         dp = -(-shapes[shape][4] // 16) * 16
-        print_ptxas(libs, f"attention_sm90_kernelILi{dp}ELi{1 if inject else 2 if strip else 0}E")
+        mode = 1 if inject else 2 if strip else 4 if banded else 0
+        print_ptxas(libs, f"attention_sm90_kernelILi{dp}ELi{mode}E")
     entry = ("sdaof_attention_mfr" if strip else "sdaof_attention_keymask" if inject
+             else "sdaof_attention_banded" if banded
              else "sdaof_attention_fwd_stats") if args.kernel == "sm90" else "sdaof_attention"
     fns = {}
     for name, so in libs.items():
@@ -682,7 +734,7 @@ def main() -> int:
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream().cuda_stream
     scale_log2 = math.log2(math.e) / math.sqrt(d)
-    lse = [None] if args.kernel == "sm90" and not (strip or inject) else []
+    lse = [None] if args.kernel == "sm90" and not (strip or inject or banded) else []
     mfr, mask = [], None
     if inject:  # the key mask, as flash_attention_keymask passes it
         n_own, n_unc = inject
@@ -702,6 +754,19 @@ def main() -> int:
         bk = 128 if d <= 48 else 64 if d <= 128 else 32
         share = in_band_share(hh, w_tile, n_tiles, A.MFR_RADIUS, args.mode == "target", bk)
         shape = f"{shape} {args.mode} (bias pass on {share:.3f} of the warpgroups' key tiles)"
+    if banded:  # the frame and bias, as flash_attention_banded passes them
+        from sd_animation_optical_flow_tpu_torch.ops import attention as A
+        hh, ww = banded
+        if nq != hh * ww:
+            ap.error("--nq: the banded shapes keep their token count")
+        log2e = math.log2(math.e)
+        mfr = [hh, ww, 8, args.weight * log2e, -1000.0 * log2e, 1.0 / 1.6]
+        mask = A.banded_strip_bias(hh, ww, nk // nq, weight=args.weight, dtype=torch.bfloat16,
+                                   device="cuda")[None, None]
+        bk = 128 if d <= 48 else 64 if d <= 112 else 32
+        share = banded_in_band_share(hh, ww, nk // nq, 8, bk)
+        shape = (f"{shape} weight {args.weight:g} (per-pair pass on {share:.3f} of the "
+                 "warpgroups' key tiles)")
 
     def call(fn):
         return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -61,12 +61,15 @@ def test_banded_strip_bias_matches_jax(h, w, n, kw):
         == torch.bfloat16
 
 
+# the defaults are radius 8 at weight 0; "radius 8" weighs the band too;
+# d = 160 is SD-1.5's widest head (the port's kernel pads it to DP 160)
 BANDS = {"band": dict(radius=3, weight=0.7, sigma=1.6),
-         "defaults": dict()}
+         "defaults": dict(),
+         "radius 8": dict(radius=8, weight=0.7, sigma=1.6)}
 
 
 @pytest.mark.parametrize("band", BANDS)
-@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("d", [16, 40, 160])
 @pytest.mark.parametrize("h,w,n", [(8, 16, 2), (3, 5, 3)])
 def test_banded_plain_matches_pallas(np_rng, h, w, n, d, band):
     kw = BANDS[band]

@@ -25,9 +25,13 @@ column-tile widths and a split with uneven halves; for the MFR kernel
 ragged N, 3 and 4 tiles, both modes and key tiles outside the band, the
 table and the per-pair bias, at d <= 128 and at DP = 160 (N off 128 and
 192 rows, d 136, 152 and 160, the 4-tile strip's L2) (``MFR_CASES``); for the
-banded kernel the three UNet levels' frame geometries at weight 0 and
-0.7, frames whose h * w is not a multiple of the 64-key tile (tiles
-straddling a frame boundary) and base = -inf; for the
+banded kernel (``BANDED_CASES``, weight 0 and 0.7) the three UNet
+levels' frame geometries, frames whose h * w is not a multiple of the
+key tile (tiles straddling a frame boundary), base = -inf, d 136 and 152
+(DP = 160), Nq off the 192-row unit, 4 frames, radius 0, 3, 9 (past the
+table) and past max(h, w) (every pair in band), w off a multiple of 8
+(the per-pair bias) and q a slice of the fused QKV projection, two calls
+bitwise equal; for the
 forward with statistics and the two backward kernels (#7-#9) ragged
 query and key tiles, Nq and Nk off the backward's 128- and 192-row work
 units and its 32- and 64-row streamed tiles, one key, d from 8 to 128,
@@ -101,21 +105,28 @@ def test_flash_attention_tpv_strided_qkv(gen, offset):
 
 
 @pytest.mark.parametrize("fwd,d", [("tpv", 40), ("stats", 40), ("wide", 512),
-                                   ("wide", 136), ("bwd", 40), ("bwd", 128)])
+                                   ("wide", 136), ("bwd", 40), ("bwd", 128),
+                                   ("banded", 40), ("banded", 152)])
 def test_attention_reads_no_column_past_d(gen, fwd, d):
     """A single-head q/k/v view [..., :d] of [B, N, 2 d] tensors whose
     columns d.. are NaN (the next head of a fused projection): the
     kernels read no column past D, so out (and lse, and the backward's
     dQ, dK, dV, with dO such a view too) stay finite and match the plain
     version on the clean columns. d = 136 leaves the wide kernel's second
-    d-half 7 of its 10 chunks."""
+    d-half 7 of its 10 chunks; the banded kernel takes one 10 x 20 frame
+    of queries against two frames of keys (d = 152: DP 160)."""
     def view(n):
         t = _randn(gen, 2, n, 2 * d)
         t[..., d:] = float("nan")
         return t[..., :d].unsqueeze(2)
-    q, k, v = view(200), view(231), view(231)
+    q, k, v = view(200), view(400 if fwd == "banded" else 231), \
+        view(400 if fwd == "banded" else 231)
     clean = [t.contiguous() for t in (q, k, v)]
-    if fwd == "tpv":
+    if fwd == "banded":
+        kw = dict(h=10, w=20, weight=0.7)
+        _check(TA.flash_attention_banded(q, k, v, **kw),
+               TA.flash_attention_banded_plain(*clean, **kw))
+    elif fwd == "tpv":
         _check(TA.flash_attention_tpv(q, k, v), TA.xla_attention(*clean))
     elif fwd == "wide":
         _check(TA.flash_attention(q, k, v), TA.xla_attention(*clean))
@@ -353,23 +364,53 @@ def test_flash_attention_mfr_kernel(gen, b, hh, w_tile, n_tiles, heads, d,
     assert TA.flash_attention_mfr.launches == n0 + 2
 
 
+# attention_sm90_kernel's banded mode: 192-row units, 128-key tiles at
+# d <= 48, 64 up to d = 112, 32 at 128-160; the table where w % 8 == 0 and
+# the radius (clamped to max(h, w) - 1) is at most 8, else per pair
+BANDED_CASES = [
+    (1, 64, 96, 2, 1, 40, -1000.0, 8, False),    # SD-1.5's L0 frame at 512x768
+    (1, 32, 48, 2, 2, 80, -1000.0, 8, False),    # L1
+    (2, 16, 24, 2, 2, 160, -1000.0, 8, False),   # L2, the widest head
+    (1, 3, 5, 3, 2, 40, -1000.0, 8, False),      # h*w = 15: tiles span frames
+    (2, 9, 11, 2, 1, 24, -30.0, 8, False),       # h*w = 99: a tile straddles
+    (1, 64, 96, 2, 1, 40, -float("inf"), 8, False),  # first tiles out of band
+    (2, 9, 15, 2, 2, 136, -1000.0, 8, False),    # d 136, Nq = 135 < 192, per pair
+    (1, 10, 24, 2, 3, 152, -float("inf"), 8, False),  # d 152, Nq = 240
+    (2, 13, 16, 4, 2, 64, -1000.0, 8, False),    # 4 frames, Nq = 208
+    (1, 12, 16, 2, 2, 40, -1000.0, 0, False),    # radius 0
+    (1, 12, 16, 2, 2, 80, -1000.0, 3, False),    # radius 3
+    (1, 20, 32, 2, 2, 40, -1000.0, 9, False),    # past the table: per pair
+    (1, 24, 40, 2, 1, 128, -1000.0, 9, False),
+    (1, 6, 8, 2, 2, 40, -float("inf"), 100, False),  # every pair in band (table)
+    (1, 7, 9, 3, 2, 152, -1000.0, 9, False),     # every pair in band (per pair)
+    (2, 32, 48, 2, 8, 80, -1000.0, 8, True),     # L1, q a fused-QKV slice
+    (2, 16, 24, 2, 8, 160, -1000.0, 8, True)]    # L2, q a fused-QKV slice
+
+
 @pytest.mark.parametrize("weight", [0.0, 0.7])
-@pytest.mark.parametrize("b,hh,ww,n,heads,d,base", [
-    (1, 64, 96, 2, 1, 40, -1000.0),     # SD-1.5's L0 frame at 512x768
-    (1, 32, 48, 2, 2, 80, -1000.0),     # L1
-    (2, 16, 24, 2, 2, 160, -1000.0),    # L2, the widest head
-    (1, 3, 5, 3, 2, 40, -1000.0),       # h*w = 15: tiles span frames
-    (2, 9, 11, 2, 1, 24, -30.0),        # h*w = 99: a tile straddles
-    (1, 64, 96, 2, 1, 40, -float("inf"))])  # first tiles out of band
+@pytest.mark.parametrize("b,hh,ww,n,heads,d,base,radius,fused", BANDED_CASES)
 def test_flash_attention_banded_kernel(gen, weight, b, hh, ww, n, heads, d,
-                                       base):
-    q = _randn(gen, b, hh * ww, heads, d)
-    k, v = (_randn(gen, b, n * hh * ww, heads, d) for _ in range(2))
-    kw = dict(h=hh, w=ww, weight=weight, base=base)
+                                       base, radius, fused):
+    """Against the plain version; two calls bitwise equal (each block
+    writes only its own rows), each one launch at the padded head
+    width."""
+    nq = hh * ww
+    if fused:   # q a slice of the QKV projection, k / v the joined frames
+        q = _randn(gen, b, nq, 3 * heads * d)[..., :heads * d].reshape(
+            b, nq, heads, d)
+    else:
+        q = _randn(gen, b, nq, heads, d)
+    k, v = (_randn(gen, b, n * nq, heads, d) for _ in range(2))
+    kw = dict(h=hh, w=ww, weight=weight, base=base, radius=radius)
+    dp = -(-d // 16) * 16
     n0 = TA.flash_attention_banded.launches
-    _check(TA.flash_attention_banded(q, k, v, **kw),
-           TA.flash_attention_banded_plain(q, k, v, **kw))
-    assert TA.flash_attention_banded.launches == n0 + 1
+    n0_dp = TA.flash_attention_banded.launches_by_dp.get(dp, 0)
+    out = TA.flash_attention_banded(q, k, v, **kw)
+    again = TA.flash_attention_banded(q, k, v, **kw)
+    _check(out, TA.flash_attention_banded_plain(q, k, v, **kw))
+    assert torch.equal(out, again)
+    assert TA.flash_attention_banded.launches == n0 + 2
+    assert TA.flash_attention_banded.launches_by_dp[dp] == n0_dp + 2
 
 
 @pytest.mark.parametrize("d", [40, 80, 160])
