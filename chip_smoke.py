@@ -34,8 +34,14 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     level) and a capture on two 1024x1536 keyframes with an inpaint
     injecting both (#6 at d = 160), these two on a 20-step schedule, each
     checked (output, 16-pair K/V stores, its kernel launched, at d = 160
-    where the step reaches it), timed and profiled; then the
-    ``[banded]`` phase: one full-width UNet
+    where the step reaches it), timed and profiled; then the ``[pixel]``
+    phase, with both bundles: the flow estimator from the committed
+    artifacts, RAFT + fb confidence on the card against the CPU (256x384),
+    a known translation (gated at 128x192, the artifact's training size;
+    read at 512x768), RAFT's time a fb pair, and
+    ``pixel_inpaint.run`` on five 512x768 frames (its PNGs, masks and
+    launches checked, each frame timed, a non-key frame profiled); then
+    the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
     (``attn_biases``: the plain route, as in JAX), checked against the
@@ -824,6 +830,309 @@ def run_keyframe_path(sd, sd9, kernels, gen):
     return results, failures, kv_store["keys"]
 
 
+# ---------------------------------------------------------------------------
+# the pixel-inpaint pipeline
+# ---------------------------------------------------------------------------
+
+PIXEL_FRAMES = 5                 # frame 0 a key frame, 1-4 not
+PIXEL_KERNELS = ("flash_attention_tpv", "flash_attention", "linear_ln_fused",
+                 "geglu_ff_fused")
+
+
+def _texture(rng, h, w, octaves=(4, 8, 16, 32)):
+    """[h, w, 3] float32 0..255: seeded noise bilinearly upsampled from
+    grids 1/4 .. 1/32 of the size, summed with falling weights (blurred
+    noise with structure at several scales)."""
+    img = torch.zeros((1, 3, h, w))
+    amp = 1.0
+    for sc in octaves:
+        grid = torch.from_numpy(rng.standard_normal(
+            (1, 3, max(h // sc, 2), max(w // sc, 2))).astype("float32"))
+        img += amp * torch.nn.functional.interpolate(
+            grid, size=(h, w), mode="bilinear", align_corners=True)
+        amp *= 0.7
+    img = img[0].permute(1, 2, 0)
+    img -= img.min()
+    return (img * (255.0 / img.max())).numpy()
+
+
+def _shifted_pair(rng, h, w, dx, dy):
+    """(src, tgt) RGB float32 [h, w, 3]: tgt(x, y) = src(x + dx, y + dy),
+    so the flow target -> source is (dx, dy) everywhere."""
+    tex = _texture(rng, h + 32, w + 32)
+    src = tex[16:16 + h, 16:16 + w]
+    tgt = tex[16 + dy:16 + dy + h, 16 + dx:16 + dx + w]
+    return src.copy(), tgt.copy()
+
+
+def _pan_frames(rng, n, h, w):
+    """n BGR uint8 frames: a textured scene panning 2 px a frame to the
+    left, and a textured rectangle (a quarter of each side) moving 4 px
+    right and 3 px down a frame over it."""
+    import numpy as np
+    bg = _texture(rng, h, w + 2 * n)
+    fg = _texture(rng, h // 4, w // 4)
+    frames = []
+    for k in range(n):
+        f = bg[:, 2 * k:2 * k + w].copy()
+        y, x = h // 3 + 3 * k, w // 3 + 4 * k
+        f[y:y + h // 4, x:x + w // 4] = fg
+        frames.append(np.ascontiguousarray(
+            np.clip(np.round(f), 0, 255).astype(np.uint8)[..., ::-1]))
+    return frames
+
+
+def _epe(flow, dx, dy, border=16):
+    """Mean endpoint error of flow [B, H, W, 2] against the constant flow
+    (dx, dy) over the interior (a border cut off)."""
+    f = flow[:, border:-border, border:-border]
+    return float(((f[..., 0] - dx) ** 2 + (f[..., 1] - dy) ** 2)
+                 .sqrt().mean())
+
+
+def run_pixel_phase(sd, sd9, kernels):
+    """The pixel-inpaint pipeline (``pipelines/pixel_inpaint.run``) at
+    512x768 with its flow front end:
+
+    1. the flow estimator from the committed artifacts
+       (``load_flow_estimator``: RAFT ``raft_synth.npz``, the uncertainty
+       head ``uncertainty_head_synth.npz``);
+    2. RAFT + fb confidence on the card against the same weights on the
+       CPU, one seeded 256x384 pair, f32 correlation storage, 20
+       iterations: flow mean |diff| <= 1e-2 px, confidence max |diff| <=
+       2e-2;
+    3. a known translation, flow (-3, +2) px, default config (bf16
+       storage, 20 iterations, fb): at 128x192, the size the artifact was
+       trained at, interior EPE <= 0.5 px; at 192x288 .. 512x768 EPE and
+       the confident share are read and printed (the artifact does not
+       generalize past its size, in JAX as here); the learned confidence
+       once at 512x768, finite in [0, 1]; RAFT's ms a fb pair at 512x768
+       (CUDA events) and its device busy time (profiler);
+    4. ``run`` on 5 seeded 512x768 frames (a panning scene with an
+       occluder; frame 0 a key frame) with ``sd15`` / ``sd15-inpaint9``,
+       ddim, 50 steps, strength 0.4, ``write_vis``: every converted_ /
+       vis_ / pixel_confidence_ PNG written and decoded to its shape, the
+       flow, confidence and images finite, each non-key frame's mask
+       neither empty nor whole, kernels #1-#4 launched and #5-#10 not
+       (counters reset just before the run, read just after); a second
+       run timed frame by frame (host clock, synchronized), a third with
+       frame 1 profiled.
+    Returns (summary dict, launch counts of the counted run, failures)."""
+    import contextlib
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from sd_animation_optical_flow_tpu_torch.models import flowconf as FC
+    from sd_animation_optical_flow_tpu_torch.models import raft as RF
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        pixel_inpaint as PI
+    from sd_animation_optical_flow_tpu_torch.utils.images import \
+        read_png_bgr
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
+        load_flow_estimator
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
+    rng = np.random.default_rng(SEED)
+    failures, summary = [], {}
+
+    t0 = time.time()
+    est = load_flow_estimator(device="cuda")
+    torch.cuda.synchronize()
+    summary["load_s"] = time.time() - t0
+    n_raft = sum(t.numel() for t in tree_leaves(est.params))
+    log(f"[pixel] flow estimator from artifacts/raft_synth.npz ({n_raft} "
+        f"RAFT parameters) and uncertainty_head_synth.npz on the card in "
+        f"{summary['load_s']:.2f} s")
+
+    # 2. the card against the CPU, f32 storage (TF32 is off)
+    cfg32 = FC.FlowConfidenceConfig(raft=RF.RAFTConfig(corr_dtype="float32"))
+    card = FC.FlowConfidenceEstimator(est.params, cfg32, device="cuda")
+    cpu = FC.FlowConfidenceEstimator(to_cpu_f32(est.params), cfg32,
+                                     device="cpu")
+    src, tgt = _shifted_pair(rng, 256, 384, -3, 2)
+    t0 = time.time()
+    fg, cg, _ = card.calc_batch_device(src[None], tgt[None])
+    fc, cc, _ = cpu.calc_batch_device(src[None], tgt[None])
+    flow_d = (fg.cpu() - fc).abs().mean().item()
+    conf_d = (cg.cpu() - cc).abs().max().item()
+    summary["card_vs_cpu"] = {"flow_mean_abs_px": flow_d,
+                              "conf_max_abs": conf_d}
+    log(f"[pixel] RAFT + fb confidence, 256x384, f32 storage, 20 "
+        f"iterations: card vs CPU flow mean |diff| {flow_d:.3e} px (limit "
+        f"1e-2), confidence max |diff| {conf_d:.3e} (limit 2e-2); CPU "
+        f"{time.time() - t0:.1f} s")
+    if not (flow_d <= 1e-2 and conf_d <= 2e-2):
+        failures.append(f"pixel: RAFT card vs CPU flow {flow_d:.3e} px, "
+                        f"confidence {conf_d:.3e}")
+    del cpu
+
+    # 3. the known translation, at the artifact's training size (gated)
+    # and at sizes up to the pipeline's (read)
+    summary["translation"] = {}
+    for h, w in ((128, 192), (192, 288), (256, 384), (384, 576), (H, W)):
+        src, tgt = _shifted_pair(rng, h, w, -3, 2)
+        flow, conf, _ = est.calc_batch_device(src[None], tgt[None])
+        epe = _epe(flow, -3.0, 2.0)
+        c95 = (conf[:, 16:-16, 16:-16] > 0.95).float().mean().item()
+        med = flow[0, 16:-16, 16:-16].reshape(-1, 2).median(0).values
+        summary["translation"][f"{h}x{w}"] = {"epe_px": epe,
+                                              "conf_gt_095": c95}
+        log(f"[pixel] known translation (-3, +2) px at {h}x{w}, default "
+            f"config (bf16 storage, 20 iterations, fb): interior EPE "
+            f"{epe:.3f} px, median flow ({med[0]:.3f}, {med[1]:.3f}), "
+            f"confidence > 0.95 on {c95:.3f} of the interior"
+            + (" (gate: EPE <= 0.5 px)" if h == 128 else
+               " (read, not gated: the artifact was trained at 128x192)"))
+        if not math.isfinite(epe) or (h == 128 and epe > 0.5):
+            failures.append(f"pixel: known translation at {h}x{w} EPE "
+                            f"{epe:.3f} px")
+    learned = FC.FlowConfidenceEstimator(
+        est.params, FC.FlowConfidenceConfig(uncertainty="learned"),
+        head_params=est.head_params, device="cuda")
+    _, conf_l, _ = learned.calc_batch_device(src[None], tgt[None])
+    lo, hi = conf_l.min().item(), conf_l.max().item()
+    ok_l = bool(torch.isfinite(conf_l).all()) and 0.0 <= lo and hi <= 1.0
+    summary["learned_conf_range"] = [lo, hi]
+    log(f"[pixel] learned confidence at {H}x{W}: range [{lo:.4f}, {hi:.4f}]"
+        f", finite in [0, 1] {ok_l}")
+    if not ok_l:
+        failures.append(f"pixel: learned confidence range [{lo}, {hi}]")
+
+    # RAFT's time a fb pair at 512x768: CUDA events around back-to-back
+    # pairs, unqueued (its ~6000 launches a pair overflow the launch
+    # queue, so a spin kernel ahead of them would hold the host too), and
+    # the profiler's device busy time of one pair
+    src_d = torch.as_tensor(src, device="cuda")[None]
+    tgt_d = torch.as_tensor(tgt, device="cuda")[None]
+    pair = lambda: est.calc_batch_device(src_d, tgt_d)
+    raft_ms = cuda_ms(pair, iters=2, warmup=1, queued=False)
+    prof = profile_frame(lambda: (pair(), torch.cuda.synchronize()),
+                         f"RAFT fb pair {H}x{W}", top=10)
+    summary["raft_fb_pair_ms"] = raft_ms
+    summary["raft_profile_busy_wall_ms"] = prof
+    log(f"[pixel] RAFT + fb confidence a pair at {H}x{W} (bf16 storage, 20 "
+        f"iterations, both directions): {raft_ms:.2f} ms a pair (CUDA "
+        f"events, 2 back-to-back pairs, unqueued); device busy "
+        + (f"{prof[0]:.2f} ms" if prof else "not measured")
+        + " (profiler, one pair)")
+    del src_d, tgt_d
+
+    # 4. the pipeline
+    frames = _pan_frames(rng, PIXEL_FRAMES, H, W)
+    triples = [(f, i == 0, i) for i, f in enumerate(frames)]
+    cfg = PI.PixelInpaintConfig(name="smoke", denoising_strength=STRENGTH,
+                                ddim_steps=STEPS, sampler="ddim",
+                                write_vis=True)
+    # recorded as device tensors, read after each run: the spies add no
+    # host sync inside the pipeline
+    seen = {"mask": [], "finite": [], "submit_t": []}
+    hook = {"fn": None}
+
+    class Writer(PI.PngWriter):
+        def submit(self, path, img):
+            super().submit(path, img)
+            if "converted_" in path:
+                torch.cuda.synchronize()
+                seen["submit_t"].append(time.time())
+                if hook["fn"] is not None:
+                    hook["fn"]()
+
+    def spy(fn, outputs):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            seen["finite"].append(torch.isfinite(outputs(out)).all())
+            return out
+        return wrapped
+
+    warp_mask_fused = PI.warp_mask_fused
+
+    def warp_mask(*a, **k):
+        warped, mask = warp_mask_fused(*a, **k)
+        seen["mask"].append(mask.mean())
+        seen["finite"].append(torch.isfinite(warped).all())
+        return warped, mask
+    patches = [mock.patch.object(PI, "PngWriter", Writer),
+               mock.patch.object(PI, "warp_mask_fused", warp_mask),
+               mock.patch.object(F, "img2img", spy(F.img2img,
+                                                   lambda o: o[0])),
+               mock.patch.object(F, "img2img_inpaint",
+                                 spy(F.img2img_inpaint, lambda o: o[0])),
+               mock.patch.object(est, "calc_batch_device", spy(
+                   est.calc_batch_device,
+                   lambda o: torch.cat([o[0].flatten(), o[1].flatten()])))]
+    out_root = Path(__file__).resolve().parent / "build"
+    out_root.mkdir(parents=True, exist_ok=True)
+
+    def pipeline(tmp):
+        seen["mask"], seen["finite"], seen["submit_t"] = [], [], []
+        t_start = time.time()
+        out_dir = PI.run(iter(triples), f"{tmp}/clip", sd, sd9, est,
+                         tagger=None, cfg=cfg)
+        ts = [t_start] + seen["submit_t"]
+        return out_dir, [b - a for a, b in zip(ts, ts[1:])]
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with tempfile.TemporaryDirectory(dir=out_root) as tmp, \
+            contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        out_dir, first_s = pipeline(tmp)
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        names = sorted(os.listdir(out_dir))
+        want = sorted(f"{kind}_{i:06d}.png" for i in range(PIXEL_FRAMES)
+                      for kind in ("converted", "vis", "pixel_confidence"))
+        shapes = {n: read_png_bgr(os.path.join(out_dir, n)).shape
+                  for n in names}
+        ok_files = names == want and all(
+            shapes[n] == ((H, 6 * W, 3) if n.startswith("vis_")
+                          else (H, W, 3)) for n in names)
+        cover = [m.item() for m in seen["mask"]]
+        # img2img once, then a flow, a warp + mask and an inpaint a frame
+        finite = len(seen["finite"]) == 1 + 3 * (PIXEL_FRAMES - 1) and \
+            all(f.item() for f in seen["finite"])
+        log(f"[pixel] run on {PIXEL_FRAMES} frames of {H}x{W} (frame 0 a "
+            f"key frame; sd15 / sd15-inpaint9, ddim, {STEPS} steps, "
+            f"strength {STRENGTH}): {len(names)} PNGs, all present and "
+            f"decoded to their shapes {ok_files}; flow, confidence and "
+            f"images finite {finite}; mask coverage of frames 1-"
+            f"{PIXEL_FRAMES - 1}: {', '.join(f'{c:.4f}' for c in cover)}; "
+            f"launches {counts}; first run s/frame "
+            f"{', '.join(f'{s:.3f}' for s in first_s)}")
+        if not (ok_files and finite):
+            failures.append(f"pixel: outputs {names} shapes ok {ok_files}, "
+                            f"finite {finite}")
+        if len(cover) != PIXEL_FRAMES - 1 or \
+                not all(0.0 < c < 1.0 for c in cover):
+            failures.append(f"pixel: mask coverage {cover}")
+        for k in kernels:
+            if (counts[k] == 0) == (k in PIXEL_KERNELS):
+                failures.append(f"pixel: {k} launched {counts[k]} times")
+
+        _, frame_s = pipeline(tmp)
+        summary["frame_s"] = {"key": frame_s[0], "nonkey": frame_s[1:]}
+        summary["mask_coverage"] = cover
+        log(f"[pixel] s/frame (host clock, synchronized): key frame "
+            f"{frame_s[0]:.3f} (img2img, then frame 1's flow), non-key "
+            f"frames {', '.join(f'{s:.3f}' for s in frame_s[1:])} (each: "
+            f"warp + mask, the next frame's flow, the inpaint)")
+
+        # frame 1 under the profiler: frame 0 its warm-up step
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            hook["fn"] = prof.step
+            _, prof_s = pipeline(tmp)
+            hook["fn"] = None
+        summary["profile_busy_wall_ms"] = report_profile(
+            prof, 1e3 * prof_s[1], "pixel non-key frame 1")
+    return summary, counts, failures
+
+
 def run_banded_phase(sd, keys_kv, kernels, gen):
     """The UNet's materialized ``attn_biases`` route at full width: one
     bf16 evaluation, x batch 1 at the 64x96 latent, t 401, the cond
@@ -1100,13 +1409,19 @@ def profile_frame(run, label, top: int = 8):
     the kernels that take the most device time. Profiling adds host
     overhead, so the idle share is an upper bound. Returns (busy ms,
     wall ms), or None when the profiler saw no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run()
         wall_ms = 1e3 * (time.time() - t0)
+    return report_profile(prof, wall_ms, label, top)
+
+
+def report_profile(prof, wall_ms, label, top: int = 8):
+    """Print and return (busy ms, wall ms) of a finished profile over
+    ``wall_ms`` of host time (see ``profile_frame``)."""
+    from torch.autograd import DeviceType
     # kernels only: a record_function range (the optimizer's
     # "Optimizer.step#...") also carries device time, that of the
     # kernels inside it
@@ -1262,6 +1577,10 @@ def main() -> int:
     failures += kf_failures
     log(f"[main] peak device memory, both bundles and the K/V stores "
         f"resident: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.time()
+    pixel, pixel_counts, pixel_failures = run_pixel_phase(sd, sd9, kernels)
+    phases["pixel"] = time.time() - t0
+    failures += pixel_failures
     del sd9
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -1270,7 +1589,7 @@ def main() -> int:
     failures += banded_failures
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
-        + [(None, banded["counts"], None)]
+        + [(None, pixel_counts, None), (None, banded["counts"], None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
         if any(c[name] for _, c, _ in inference):
@@ -1300,7 +1619,8 @@ def main() -> int:
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
-                    "banded": banded, "train": train, "unet_rel_err": unet_rel,
+                    "pixel": pixel, "banded": banded, "train": train,
+                    "unet_rel_err": unet_rel,
                     "card": card}))
     log(f"[time] wall s by phase {json.dumps({k: round(v, 1) for k, v in phases.items()})}"
         f", total {time.time() - start:.1f} s")

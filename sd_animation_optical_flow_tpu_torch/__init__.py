@@ -7,13 +7,18 @@ TPU's Pallas kernels become hand-written CUDA kernels for Hopper
 (``csrc/``, built at first use; see ``ops/_cuda.py``). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``.
 
-Ported so far: the SD-1.5 img2img main path, and the keyframe
-pipeline's generation step (K/V capture and injection, inpainting on the
-9-channel model, MFR strips) —
+Ported so far: the SD-1.5 img2img main path, the keyframe pipeline's
+generation step (K/V capture and injection, inpainting on the 9-channel
+model, MFR strips), the diffusion fine-tuning step, and the pixel-inpaint
+pipeline (RAFT flow with confidence from the committed artifacts, the
+fused warp + mask, ``run``) —
 
-    from sd_animation_optical_flow_tpu_torch import create_model, img2img
-    sd = create_model("sd15", dtype=torch.bfloat16)       # random weights
-    img, kv = img2img(sd, image, prompt, negative, 0.4, capture_kv=True)
+    import sd_animation_optical_flow_tpu_torch as M
+    sd = M.create_model("sd15", dtype=torch.bfloat16)     # random weights
+    img, kv = M.img2img(sd, image, prompt, negative, 0.4, capture_kv=True)
+    sd9 = M.create_model("sd15-inpaint9", dtype=torch.bfloat16)
+    flow = M.load_flow_estimator()      # artifacts/raft_synth.npz + head
+    out_dir = M.run_pixel_inpaint(frames, "out/clip", sd, sd9, flow)
 """
 
 _LAZY = {
@@ -35,6 +40,20 @@ _LAZY = {
         "img2img_inpaint_batch"),
     "StripConfig": ("sd_animation_optical_flow_tpu_torch.models.unet",
                     "StripConfig"),
+    "FlowConfidenceConfig": (
+        "sd_animation_optical_flow_tpu_torch.models.flowconf",
+        "FlowConfidenceConfig"),
+    "FlowConfidenceEstimator": (
+        "sd_animation_optical_flow_tpu_torch.models.flowconf",
+        "FlowConfidenceEstimator"),
+    "load_flow_estimator": (
+        "sd_animation_optical_flow_tpu_torch.utils.jax_params",
+        "load_flow_estimator"),
+    "PixelInpaintConfig": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.pixel_inpaint",
+        "PixelInpaintConfig"),
+    "run_pixel_inpaint": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.pixel_inpaint", "run"),
 }
 
 

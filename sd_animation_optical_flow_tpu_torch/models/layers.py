@@ -60,10 +60,12 @@ def linear_init(init: Init, in_dim: int, out_dim: int, *, zero: bool = False,
     return p
 
 
-def conv2d_init(init: Init, in_ch: int, out_ch: int, kernel: int, *,
+def conv2d_init(init: Init, in_ch: int, out_ch: int, kernel, *,
                 zero: bool = False, bias: bool = True):
-    shape = (out_ch, in_ch, kernel, kernel)
-    bound = 1.0 / math.sqrt(max(in_ch * kernel * kernel, 1))
+    """``kernel``: an int, or (kh, kw) for a non-square kernel."""
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+    shape = (out_ch, in_ch, kh, kw)
+    bound = 1.0 / math.sqrt(max(in_ch * kh * kw, 1))
     p = {"w": init.zeros(shape) if zero else init.uniform(shape, bound)}
     if bias:
         p["b"] = init.zeros((out_ch,)) if zero \
@@ -143,6 +145,19 @@ def layer_norm(p, x, *, eps: float = 1e-5):
                         p["bias"].float(), eps).to(x.dtype)
 
 
+def instance_norm(p, x, *, eps: float = 1e-5):
+    """InstanceNorm2d over H, W per channel of an NHWC tensor (RAFT's
+    feature encoder); f32 statistics, biased variance, an optional affine
+    ``p``, one rounding to x's dtype."""
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=(1, 2), keepdim=True,
+                               unbiased=False)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    if p is not None:
+        xf = xf * p["scale"].float() + p["bias"].float()
+    return xf.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # activations
 # ---------------------------------------------------------------------------
@@ -176,6 +191,13 @@ def timestep_embedding(t, dim: int, *, max_period: float = 10000.0,
 # ---------------------------------------------------------------------------
 # misc
 # ---------------------------------------------------------------------------
+
+def avg_pool2d(x, window: int = 2, stride: int | None = None):
+    """Average pooling of an NHWC tensor over window x window patches,
+    no padding (partial windows at the far edges are dropped)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride or window)
+    return y.permute(0, 2, 3, 1)
+
 
 def upsample2x_conv(p, x):
     """``conv2d(p, nearest_upsample2x(x))`` — the same sums the JAX

@@ -4,8 +4,9 @@ Counterpart of ``sd_animation_optical_flow_tpu/ops/filters.py``:
 ``gaussian_kernel_1d`` (cv2.getGaussianKernel), ``gaussian_blur`` (a
 separable Gaussian with edge replicate, for the inpaint mask blur) and
 ``fill_masked`` with ``_blur_any_sigma`` (the no-reference fill of the
-inpaint facade). Morphology (``dilate``) and ``unsharp`` are not ported
-yet (ROADMAP §1 item 4).
+inpaint facade), ``ellipse_kernel`` (cv2's ``MORPH_ELLIPSE`` structuring
+element, computed here: the port does not need cv2), ``dilate`` (max over
+zero-padded shifts) and ``unsharp``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,50 @@ def gaussian_blur(x, sigma: float):
     of whatever it is given."""
     k = gaussian_kernel_1d(float(sigma))
     return _sep_filter(_sep_filter(x, k, 0), k, 1)
+
+
+def ellipse_kernel(size: int) -> np.ndarray:
+    """cv2.getStructuringElement(MORPH_ELLIPSE, (size, size)) as a bool
+    array, by cv2's own rule: row i spans the columns c - dx .. c + dx,
+    dx = round(c * sqrt(1 - (i - r)^2 / r^2)) (r = c = size // 2,
+    rounded half to even); a 1 x 1 element is a single cell."""
+    r = c = size // 2
+    if r == 0:
+        return np.ones((size, size), bool)
+    k = np.zeros((size, size), bool)
+    inv_r2 = 1.0 / (r * r)
+    for i in range(size):
+        dy = i - r
+        dx = int(np.rint(c * np.sqrt((r * r - dy * dy) * inv_r2)))
+        k[i, max(c - dx, 0):min(c + dx + 1, size)] = True
+    return k
+
+
+def dilate(x, kernel: np.ndarray):
+    """Morphological max-dilation of x [H, W] (or [H, W, C]) by a boolean
+    structuring element, zero padding: the maximum of x and its shifts
+    by each of the element's cells (cv2.dilate parity)."""
+    kernel = np.asarray(kernel, bool)
+    h, w = x.shape[:2]
+    ry, rx = kernel.shape[0] // 2, kernel.shape[1] // 2
+    xp = torch.zeros((h + 2 * ry, w + 2 * rx) + tuple(x.shape[2:]),
+                     dtype=x.dtype, device=x.device)
+    xp[ry:ry + h, rx:rx + w] = x
+    out = x
+    for dy, dx in zip(*np.nonzero(kernel)):
+        out = torch.maximum(out, xp[dy:dy + h, dx:dx + w])
+    return out
+
+
+def unsharp(img):
+    """The reference's unsharp mask: 1.3 img - 0.3 blur(img), blur the
+    sigma-2 Gaussian (13 taps, edge replicate), in f32; an integer image
+    rounds and clips back to its dtype."""
+    xf = img.float()
+    out = 1.3 * xf - 0.3 * gaussian_blur(xf, 2.0)
+    if img.is_floating_point():
+        return out.to(img.dtype)
+    return torch.clamp(torch.round(out), 0, 255).to(img.dtype)
 
 
 def _blur_any_sigma(x, sigma: float):

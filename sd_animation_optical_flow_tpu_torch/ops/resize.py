@@ -24,11 +24,26 @@ def _clip_gather_weights(idx, w, size):
     return mat
 
 
+def _cubic_weight(t, a=-0.75):
+    """cv2's bicubic kernel (A = -0.75) at tap distance t."""
+    t = np.abs(t)
+    return np.where(t <= 1, ((a + 2) * t - (a + 3)) * t * t + 1,
+                    np.where(t < 2, ((a * t - 5 * a) * t + 8 * a) * t - 4 * a,
+                             0))
+
+
+def _lanczos_weight(t, taps=4):
+    """The Lanczos-4 kernel at tap distance t (0 beyond 4 taps)."""
+    t = np.asarray(t, np.float64)
+    w = np.sinc(t) * np.sinc(t / taps)
+    return np.where(np.abs(t) < taps, w, 0.0)
+
+
 @functools.lru_cache(maxsize=256)
 def resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
     """[out_size, in_size] row-stochastic resize weights for one axis
-    (modes 'nearest', 'linear', 'area'; the JAX package's 'cubic' and
-    'lanczos4' wait for the frame-prep code that uses them)."""
+    (modes 'nearest', 'linear', 'cubic', 'lanczos4', 'area'); taps past
+    an edge land on the edge pixel."""
     if in_size == out_size:
         return np.eye(out_size, dtype=np.float32)
     scale = in_size / out_size
@@ -45,6 +60,17 @@ def resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
         f = src - i0
         mat = _clip_gather_weights(np.stack([i0, i0 + 1], 1),
                                    np.stack([1 - f, f], 1), in_size)
+    elif mode in ("cubic", "lanczos4"):
+        i0 = np.floor(src).astype(int)
+        f = src - i0
+        if mode == "cubic":
+            offs = np.arange(-1, 3)
+            w = _cubic_weight(f[:, None] - offs[None])
+        else:
+            offs = np.arange(-3, 5)
+            w = _lanczos_weight(f[:, None] - offs[None])
+            w = w / w.sum(1, keepdims=True)
+        mat = _clip_gather_weights(i0[:, None] + offs[None], w, in_size)
     elif mode == "area":
         if out_size >= in_size:
             # cv2 INTER_AREA upscale falls back to bilinear-like sampling

@@ -18,9 +18,17 @@ entry are in ``sd_animation_optical_flow_tpu/utils/port_weights.py``.
 :func:`train_state_from_jax` carries a JAX training state (params, the
 optax ``adamw`` moments and the EMA wings) into the port's
 ``TrainState``, so a JAX run can be resumed in the port.
+
+:func:`load_npz_tree` reads the JAX package's own checkpoint format (a
+flat ``.npz`` keyed by ``/``-joined tree paths, integer parts indexing
+lists), and :func:`load_flow_estimator` builds the pixel pipeline's
+flow + confidence estimator from the repository's committed RAFT and
+uncertainty-head artifacts.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -54,6 +62,59 @@ def params_from_jax(tree, *, dtype=torch.float32, device="cuda", _key=None):
         return type(tree)(params_from_jax(v, dtype=dtype, device=device)
                           for v in tree)
     return _leaf(_key, tree, dtype, device)
+
+
+def _unflatten(flat: dict):
+    """{'a/0/b': leaf, ...} -> nested dicts, with a list wherever every
+    key of a level is an integer (the JAX tree's lists)."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *parents, last = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(tree)
+
+
+def load_npz_tree(path: str, *, dtype=torch.float32, device="cuda"):
+    """A flat path-keyed ``.npz`` (the JAX ``utils/checkpoint.py``
+    ``save_pytree`` format) -> the port's param tree on ``device``, float
+    leaves cast to ``dtype``, layouts converted as
+    :func:`params_from_jax` does."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    return params_from_jax(_unflatten(flat), dtype=dtype, device=device)
+
+
+ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "artifacts")
+
+
+def load_flow_estimator(cfg=None, *, device="cuda"):
+    """The pixel pipeline's ``FlowConfidenceEstimator`` on ``device``, from
+    the committed artifacts: ``artifacts/raft_synth.npz`` (the full RAFT,
+    ``RAFTConfig()`` shapes) and ``artifacts/uncertainty_head_synth.npz``
+    (the learned confidence head trained against that RAFT; loaded for
+    every mode, used by 'learned' and 'min'). ``cfg``: a
+    ``FlowConfidenceConfig`` (default: RAFT at its defaults, fb
+    confidence)."""
+    from ..config import _channels_last
+    from ..models.flowconf import (FlowConfidenceConfig,
+                                   FlowConfidenceEstimator)
+    raft, head = (_channels_last(load_npz_tree(
+        os.path.join(ARTIFACTS, name), device=device))
+        for name in ("raft_synth.npz", "uncertainty_head_synth.npz"))
+    return FlowConfidenceEstimator(raft, cfg or FlowConfidenceConfig(),
+                                   head_params=head, device=device)
 
 
 def _find(state, has):
