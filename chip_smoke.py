@@ -40,7 +40,10 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     a known translation (gated at 128x192, the artifact's training size;
     read at 512x768), RAFT's time a fb pair, and
     ``pixel_inpaint.run`` on five 512x768 frames (its PNGs, masks and
-    launches checked, each frame timed, a non-key frame profiled); then
+    launches checked, each frame timed, a non-key frame profiled), key-
+    frame detection on the card (its edge maps equal the CPU's) and
+    ``run_batched`` at frame batch 4 (``run``'s files at >= 40 dB, its
+    launches checked, timed); then
     the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
@@ -916,8 +919,12 @@ def run_pixel_phase(sd, sd9, kernels):
        neither empty nor whole, kernels #1-#4 launched and #5-#10 not
        (counters reset just before the run, read just after); a second
        run timed frame by frame (host clock, synchronized), a third with
-       frame 1 profiled.
-    Returns (summary dict, launch counts of the counted run, failures)."""
+       frame 1 profiled;
+    5. ``keyframes.array_frame_generator`` over the same frames with the
+       detector on the card (``check_detector``), and ``run_batched`` at
+       frame batch 4 held to ``run``'s files (``check_run_batched``).
+    Returns (summary dict, the launch counts of the counted run and of
+    the counted run_batched, failures)."""
     import contextlib
     import os
     import tempfile
@@ -1130,7 +1137,128 @@ def run_pixel_phase(sd, sd9, kernels):
             hook["fn"] = None
         summary["profile_busy_wall_ms"] = report_profile(
             prof, 1e3 * prof_s[1], "pixel non-key frame 1")
-    return summary, counts, failures
+
+        # 5. key-frame detection on the card, then run_batched
+        failures += check_detector(frames, cfg, summary)
+        batched_counts, batched_failures = check_run_batched(
+            cfg, out_dir, frame_s, kernels, summary,
+            lambda d: PI.run_batched(iter(triples), f"{tmp}/batched", sd,
+                                     sd9, est, tagger=None, cfg=d),
+            seen)
+        failures += batched_failures
+    return summary, [counts, batched_counts], failures
+
+
+def check_detector(frames, cfg, summary):
+    """``keyframes.array_frame_generator`` with ``EdgeDetector`` on the
+    card over the pipeline's frames: the card's edge maps equal the CPU
+    detector's pixel for pixel, frame 0 is a key frame; each frame's
+    mean pixel distance to its key frame's map, its flag, and the
+    detector's ms a frame (host clock: upload, detection on the
+    detector's stream, read back through its event). Returns failures."""
+    import numpy as np
+
+    from sd_animation_optical_flow_tpu_torch.pipelines import keyframes as KF
+    failures = []
+    gen_cfg = KF.FrameGenConfig(size=(W, H), keep_every=1,
+                                threshold=cfg.key_frame_thres)
+    flags = [k for _, k, _ in KF.array_frame_generator(frames, gen_cfg,
+                                                        device="cuda")]
+    card, cpu = KF.EdgeDetector("cuda"), KF.EdgeDetector("cpu")
+    card(frames[0])
+    t0 = time.time()
+    maps = [card(f) for f in frames]
+    det_ms = 1e3 * (time.time() - t0) / len(frames)
+    same = [bool(np.array_equal(m, cpu(f))) for m, f in zip(maps, frames)]
+    # each frame against the last key frame before it, as the generator
+    # compares them
+    dist, key = [], 0
+    for i, m in enumerate(maps):
+        dist.append(KF.mean_pixel_distance(m, maps[key]))
+        key = i if flags[i] else key
+    summary["detector"] = {"flags": flags, "mean_pixel_distance": dist,
+                           "card_equals_cpu": same, "ms_a_frame": det_ms,
+                           "edge_share": [float((m > 0).mean())
+                                          for m in maps]}
+    log(f"[pixel] key-frame detection (array_frame_generator, EdgeDetector "
+        f"on the card, threshold {cfg.key_frame_thres}): flags {flags}; "
+        f"mean pixel distance to the last key frame's map "
+        f"{', '.join(f'{d:.3f}' for d in dist)}; edge maps equal to the "
+        f"CPU detector's pixel for pixel {same}; {det_ms:.2f} ms a frame "
+        f"(host clock, {H}x{W})")
+    if not all(same):
+        failures.append(f"pixel: card edge maps equal the CPU's {same}")
+    if not flags[0]:
+        failures.append("pixel: frame 0 is not a key frame")
+    return failures
+
+
+def check_run_batched(cfg, run_dir, run_s, kernels, summary, run_batched,
+                      seen):
+    """``run_batched(cfg)`` (``pixel_inpaint.run_batched`` over ``run``'s
+    triples) at frame batch 4 (the four non-key frames one batch): a
+    counted run (launch counters reset just before it, read just after:
+    #1-#4 launched, #5-#10 not), its files against ``run``'s
+    (``run_dir``): the same names, every converted_ frame at >= 40 dB
+    PSNR of ``run``'s (BASELINE.md's gate); then a timed run, its
+    s/frame beside ``run``'s (``run_s``). Returns (launch counts,
+    failures)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from sd_animation_optical_flow_tpu_torch.utils.images import \
+        read_png_bgr
+    failures = []
+    bcfg = dataclasses.replace(cfg, frame_batch=4)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    bdir = run_batched(bcfg)
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    names = sorted(os.listdir(bdir))
+    ok_names = names == sorted(os.listdir(run_dir))
+    psnr, max_diff = [], []
+    for i in range(PIXEL_FRAMES):
+        name = f"converted_{i:06d}.png"
+        a = read_png_bgr(os.path.join(bdir, name)).astype(np.float64)
+        b = read_png_bgr(os.path.join(run_dir, name)).astype(np.float64)
+        mse = float(((a - b) ** 2).mean())
+        psnr.append(float("inf") if mse == 0 else
+                    10 * math.log10(255.0 ** 2 / mse))
+        max_diff.append(int(np.abs(a - b).max()))
+    seen["submit_t"] = []
+    t0 = time.time()
+    run_batched(bcfg)
+    wall = time.time() - t0
+    # converted_ submits: the key frame's after its img2img, the batch's
+    # four at its finalize
+    t_key, t_end = seen["submit_t"][0], seen["submit_t"][-1]
+    key_s, batch_s = t_key - t0, (t_end - t_key) / (PIXEL_FRAMES - 1)
+    summary["run_batched"] = {
+        "frame_batch": 4, "psnr_vs_run_db": psnr, "max_abs_diff": max_diff,
+        "launches": counts, "wall_s": wall, "key_s": key_s,
+        "nonkey_s_a_frame": batch_s,
+        "run_nonkey_s_a_frame": sum(run_s[1:]) / len(run_s[1:])}
+    log(f"[pixel] run_batched, frame batch 4 (frames 1-4 one batch): same "
+        f"files as run {ok_names}; converted_ PSNR against run "
+        f"{', '.join(f'{p:.2f}' for p in psnr)} dB (gate 40), max |diff| "
+        f"{max_diff}; launches {counts}")
+    log(f"[pixel] s/frame (host clock, synchronized): run_batched key "
+        f"{key_s:.3f}, non-key {batch_s:.3f} a frame (the batch's flow, "
+        f"warp + mask and inpaint over 4 frames), {wall:.3f} s for the 5 "
+        f"frames; run: key {run_s[0]:.3f}, non-key "
+        f"{summary['run_batched']['run_nonkey_s_a_frame']:.3f} a frame, "
+        f"{sum(run_s):.3f} s")
+    if not ok_names:
+        failures.append(f"pixel: run_batched wrote {names}")
+    if not all(p >= 40.0 for p in psnr):
+        failures.append(f"pixel: run_batched PSNR against run {psnr}")
+    for k in kernels:
+        if (counts[k] == 0) == (k in PIXEL_KERNELS):
+            failures.append(f"pixel run_batched: {k} launched {counts[k]} "
+                            "times")
+    return counts, failures
 
 
 def run_banded_phase(sd, keys_kv, kernels, gen):
@@ -1418,35 +1546,48 @@ def profile_frame(run, label, top: int = 8):
     return report_profile(prof, wall_ms, label, top)
 
 
+def device_activities(prof):
+    """(name, ms) of every device activity (kernels, copies, fills) of a
+    finished profile, from the profiler's raw results: building its per-op
+    event tree (``key_averages``) takes seconds of host time for every few
+    thousand launches, reading the raw list next to none."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation() and e.duration_ns() > 0]
+
+
 def report_profile(prof, wall_ms, label, top: int = 8):
     """Print and return (busy ms, wall ms) of a finished profile over
     ``wall_ms`` of host time (see ``profile_frame``)."""
-    from torch.autograd import DeviceType
-    # kernels only: a record_function range (the optimizer's
-    # "Optimizer.step#...") also carries device time, that of the
-    # kernels inside it
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    # kernels, copies and fills only: a record_function range (the
+    # optimizer's "Optimizer.step#...") also carries device time, that
+    # of the kernels inside it
+    by_name = {}
+    for name, ms in device_activities(prof):
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += ms
+        tot[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms == 0:
         log(f"[profile] {label}: no device time recorded (not measured)")
         return None
     log(f"[profile] {label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms"
         f" profiled wall (idle share {1 - busy_ms / wall_ms:.3f}); "
-        f"{sum(e.count for e in kern)} kernel launches")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[profile] {label}:   {e.self_device_time_total / 1e3:8.2f} ms "
-            f"x{e.count:<5d} {e.key[:90]}")
+        f"{sum(n for _, n in by_name.values())} kernel launches")
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        log(f"[profile] {label}:   {ms:8.2f} ms x{n:<5d} {name[:90]}")
     # kernel #4 is two device kernels a call (geglu_up_sm90_kernel, then
     # geglu_down_sm90_kernel; one, geglu_kernel, before them): counted together
-    geglu = [(re.search(r"geglu_\w+", e.key).group(0), e) for e in kern
-             if "geglu" in e.key]
+    geglu = [(re.search(r"geglu_\w+", name).group(0), ms, n)
+             for name, (ms, n) in by_name.items() if "geglu" in name]
     if geglu:
-        ms = sum(e.self_device_time_total for _, e in geglu) / 1e3
-        calls = max(e.count for _, e in geglu)
+        ms = sum(m for _, m, _ in geglu)
+        calls = max(n for _, _, n in geglu)
         log(f"[profile] {label}: #4 ("
-            + ", ".join(f"{name} x{e.count}" for name, e in geglu)
+            + ", ".join(f"{name} x{n}" for name, _, n in geglu)
             + f") {ms:.2f} ms, {ms / calls:.4f} ms a call")
     return busy_ms, wall_ms
 
@@ -1589,7 +1730,8 @@ def main() -> int:
     failures += banded_failures
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
-        + [(None, pixel_counts, None), (None, banded["counts"], None)]
+        + [(None, c, None) for c in pixel_counts] \
+        + [(None, banded["counts"], None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
         if any(c[name] for _, c, _ in inference):

@@ -11,7 +11,9 @@ Ported so far: the SD-1.5 img2img main path, the keyframe pipeline's
 generation step (K/V capture and injection, inpainting on the 9-channel
 model, MFR strips), the diffusion fine-tuning step, and the pixel-inpaint
 pipeline (RAFT flow with confidence from the committed artifacts, the
-fused warp + mask, ``run``) —
+fused warp + mask, ``run``, the segment-batched ``run_batched`` and
+``run_video``; key-frame detection with a cv2-exact Canny; the tagger;
+the warped-region PSNR report) —
 
     import sd_animation_optical_flow_tpu_torch as M
     sd = M.create_model("sd15", dtype=torch.bfloat16)     # random weights
@@ -19,6 +21,10 @@ fused warp + mask, ``run``) —
     sd9 = M.create_model("sd15-inpaint9", dtype=torch.bfloat16)
     flow = M.load_flow_estimator()      # artifacts/raft_synth.npz + head
     out_dir = M.run_pixel_inpaint(frames, "out/clip", sd, sd9, flow)
+    cfg = M.PixelInpaintConfig(frame_batch=8)
+    triples = M.array_frame_generator(clip_bgr_u8, M.FrameGenConfig())
+    out_dir = M.run_pixel_inpaint_batched(triples, "out/clip", sd, sd9,
+                                          flow, cfg=cfg)
 """
 
 _LAZY = {
@@ -54,6 +60,25 @@ _LAZY = {
         "PixelInpaintConfig"),
     "run_pixel_inpaint": (
         "sd_animation_optical_flow_tpu_torch.pipelines.pixel_inpaint", "run"),
+    "run_pixel_inpaint_batched": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.pixel_inpaint",
+        "run_batched"),
+    "run_pixel_inpaint_video": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.pixel_inpaint",
+        "run_video"),
+    "FrameGenConfig": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.keyframes",
+        "FrameGenConfig"),
+    "array_frame_generator": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.keyframes",
+        "array_frame_generator"),
+    "frame_generator": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.keyframes",
+        "frame_generator"),
+    "Tagger": ("sd_animation_optical_flow_tpu_torch.pipelines.tagger",
+               "Tagger"),
+    "compare_dirs": ("sd_animation_optical_flow_tpu_torch.utils.parity",
+                     "compare_dirs"),
 }
 
 

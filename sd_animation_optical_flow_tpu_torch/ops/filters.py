@@ -6,12 +6,14 @@ separable Gaussian with edge replicate, for the inpaint mask blur) and
 ``fill_masked`` with ``_blur_any_sigma`` (the no-reference fill of the
 inpaint facade), ``ellipse_kernel`` (cv2's ``MORPH_ELLIPSE`` structuring
 element, computed here: the port does not need cv2), ``dilate`` (max over
-zero-padded shifts) and ``unsharp``.
+zero-padded shifts), ``canny`` (cv2.Canny's edge map, pixel for pixel)
+and ``unsharp``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -88,6 +90,66 @@ def dilate(x, kernel: np.ndarray):
     for dy, dx in zip(*np.nonzero(kernel)):
         out = torch.maximum(out, xp[dy:dy + h, dx:dx + w])
     return out
+
+
+# cv2's fixed-point direction test of the non-maximum suppression:
+# round(tan(22.5 deg) * 2^15)
+_TG22 = 13573
+# hysteresis steps between two checks for its fixpoint (each check reads
+# one flag back from the device)
+_GROW_STEPS = 16
+
+
+def _replicate_pad1(x):
+    """x [H, W] padded by one pixel on each side, edge replicated."""
+    h, w = x.shape
+    rows = torch.arange(-1, h + 1, device=x.device).clamp(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=x.device).clamp(0, w - 1)
+    return x.index_select(0, rows).index_select(1, cols)
+
+
+def canny(lum_u8, low: float, high: float):
+    """cv2.Canny(lum, low, high) with its defaults (aperture 3, the L1
+    gradient) on a [H, W] uint8 tensor, on its device: the same edge map,
+    uint8 {0, 255}, all in integer arithmetic.
+
+    3x3 Sobel with edge replicate; magnitude |dx| + |dy|; thresholds
+    floor(min) and floor(max) of the pair, a pixel a candidate above the
+    low one and strong above the high one (strict); non-maximum
+    suppression by cv2's fixed-point direction test, its comparisons
+    strict on one side (left / up) and >= on the other, strict on both
+    diagonal neighbours, magnitudes outside the image 0; hysteresis grows
+    the strong pixels over 8-connected candidates to its fixpoint."""
+    lo, hi = (math.floor(t) for t in sorted((low, high)))
+    h, w = lum_u8.shape
+    p = _replicate_pad1(lum_u8.to(torch.int32))
+    dx = (p[:h, 2:] - p[:h, :w]) + 2 * (p[1:h + 1, 2:] - p[1:h + 1, :w]) \
+        + (p[2:, 2:] - p[2:, :w])
+    dy = (p[2:, :w] + 2 * p[2:, 1:w + 1] + p[2:, 2:]) \
+        - (p[:h, :w] + 2 * p[:h, 1:w + 1] + p[:h, 2:])
+    ax, ay = dx.abs(), dy.abs()
+    mag = ax + ay
+    mp = torch.nn.functional.pad(mag, (1, 1, 1, 1))
+    nb = lambda r, c: mp[r:r + h, c:c + w]        # neighbour at (r-1, c-1)
+    y = ay << 15
+    tg22x = ax * _TG22
+    tg67x = tg22x + (ax << 16)
+    # signs of dx and dy differ: the gradient runs up-right / down-left
+    anti = torch.bitwise_xor(dx, dy) < 0
+    diag = torch.where(anti, (mag > nb(0, 2)) & (mag > nb(2, 0)),
+                       (mag > nb(0, 0)) & (mag > nb(2, 2)))
+    vert = torch.where(y > tg67x, (mag > nb(0, 1)) & (mag >= nb(2, 1)), diag)
+    peak = torch.where(y < tg22x, (mag > nb(1, 0)) & (mag >= nb(1, 2)), vert)
+    cand = peak & (mag > lo)
+    edge = (cand & (mag > hi)).float()[None, None]
+    candf = cand.float()[None, None]
+    while True:
+        before = edge
+        for _ in range(_GROW_STEPS):
+            edge = torch.nn.functional.max_pool2d(edge, 3, 1, 1) * candf
+        if torch.equal(edge, before):
+            break
+    return (edge[0, 0] * 255).to(torch.uint8)
 
 
 def unsharp(img):

@@ -3,7 +3,8 @@
 Counterpart of ``sd_animation_optical_flow_tpu/ops/resize.py``
 (``resize_matrix``, ``resize``): the per-axis weight matrices are built on
 the host with numpy per (in, out, mode) and applied as an H-axis then a
-W-axis product, f32 accumulation, rounded to the input dtype after each.
+W-axis product, f32 accumulation, rounded to the input dtype after each;
+``resize_u8`` gives cv2's uint8 results.
 """
 
 from __future__ import annotations
@@ -89,7 +90,9 @@ def resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
 
 
 def resize(x, out_hw, mode: str = "linear"):
-    """x [..., H, W, C] -> [..., out_h, out_w, C]."""
+    """x [..., H, W, C] -> [..., out_h, out_w, C]. Takes a float x: the
+    weight matrices are cast to x's dtype, so an integer x comes out
+    wrong (as in JAX); uint8 images go through :func:`resize_u8`."""
     out_h, out_w = out_hw
     h, w = x.shape[-3], x.shape[-2]
     mh = torch.from_numpy(resize_matrix(h, out_h, mode)).to(x.device, x.dtype)
@@ -97,3 +100,12 @@ def resize(x, out_hw, mode: str = "linear"):
     y = torch.einsum("oh,...hwc->...owc", mh.float(), x.float()).to(x.dtype)
     return torch.einsum("pw,...owc->...opc", mw.float(),
                         y.float()).to(x.dtype)
+
+
+def resize_u8(x_u8, out_hw, mode: str):
+    """cv2.resize of a uint8 image [..., H, W, C]: the f32 resize rounded
+    half up and clipped, back to uint8 (INTER_AREA's pixels exactly from
+    1080x1920 .. 600x900 to 512x768; cubic within 1 of cv2's fixed
+    point)."""
+    out = resize(x_u8.float(), out_hw, mode)
+    return torch.floor(out + 0.5).clamp(0, 255).to(torch.uint8)

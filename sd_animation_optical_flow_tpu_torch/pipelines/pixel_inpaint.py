@@ -13,9 +13,10 @@ Per frame:
 
 Outputs keep the reference's contract: ``converted_%06d.png``, the
 6-panel ``vis_%06d.png`` strips and ``pixel_confidence_%06d.png``, in
-``<save_dir>_pixel_warp-<name>``. ``run_video`` (video decode and key
-frame detection) and ``run_batched`` (segment batches) are not ported
-yet.
+``<save_dir>_pixel_warp-<name>``. ``run_video`` decodes a video file and
+detects its key frames (``keyframes.frame_generator``, which needs cv2);
+``run_batched`` denoises the non-key frames of a key frame's segment in
+batches of ``frame_batch``, with the same outputs as ``run``.
 """
 
 from __future__ import annotations
@@ -32,19 +33,19 @@ from ..ops.filters import dilate, ellipse_kernel
 from ..ops.warp import warp_mask_fused
 from ..utils.images import (PngWriter, bgr_f32_to_u8, bgr_f32d_to_model,
                             bgr_u8_to_model, model_to_bgr_f32d,
-                            model_to_bgr_u8)
+                            model_to_bgr_u8, queue_host_copies, write_png)
 from . import facades as F
-
-NEGATIVE_PROMPT = "worst quality, low quality, normal quality"
+from .keyframes import FrameGenConfig, frame_generator
+from .tagger import NEGATIVE_PROMPT
 
 
 @dataclass
 class PixelInpaintConfig:
-    """The JAX config's fields that ``run`` reads; the frame-selection
-    (``size``, ``keep_every``, ``key_frame_thres``) and batching
-    (``frame_batch``, ``flow_chunk``, ``dp``, ``pad_tail_batch``) fields
-    come with ``run_video`` and ``run_batched``."""
+    """The JAX config's fields, with its defaults."""
     name: str = "tpu"
+    size: Tuple[int, int] = (512, 768)      # (width, height)
+    keep_every: int = 3
+    key_frame_thres: float = 24.0
     denoising_strength: float = 0.4
     confidence_thres: float = 0.95
     propagated_pixel_weight: float = 0.0
@@ -58,6 +59,17 @@ class PixelInpaintConfig:
     sampler: str = "ddim"        # or 'dpmpp' / 'dpmpp:N'
     cfg_interval: int = 1
     deepcache_interval: int = 0
+    # run_batched: non-key frames of a key frame's segment per batch (they
+    # all warp the same AI key frame, so they are independent)
+    frame_batch: int = 1
+    # flow pairs per RAFT call in run_batched (0: the whole batch)
+    flow_chunk: int = 4
+    # > 0: shard the frame batch over this many devices (not ported yet)
+    dp: int = 0
+    # pad a segment's ragged tail batch up to frame_batch by repeating its
+    # last frame (the padding's outputs are dropped): every batch then has
+    # one shape; the outputs are the same either way
+    pad_tail_batch: bool = True
 
 
 def generate_mask(cum_confidence: np.ndarray, log_confidence: np.ndarray,
@@ -259,13 +271,213 @@ def run(frames: Iterable[Tuple[np.ndarray, bool, int]],
 def run_video(video_path: str, save_dir: str, sd, sd_inpaint,
               flow_estimator, tagger=None,
               cfg: PixelInpaintConfig = PixelInpaintConfig()):
-    """Video decode and key-frame detection (``pipelines/keyframes.py``)
-    are not ported yet."""
-    raise NotImplementedError("run_video is not ported to the torch "
-                              "package yet (ROADMAP §1 item 5)")
+    """``run`` over a video file: decoded and its key frames detected by
+    ``keyframes.frame_generator`` (cv2 decodes; the detector runs on the
+    inpaint bundle's device)."""
+    frames = frame_generator(video_path, FrameGenConfig(
+        size=cfg.size, keep_every=cfg.keep_every,
+        threshold=cfg.key_frame_thres), device=sd_inpaint.device)
+    return run(frames, save_dir, sd, sd_inpaint, flow_estimator, tagger, cfg)
 
 
-def run_batched(*args, **kwargs):
-    """The segment-batched pixel pipeline is not ported yet."""
-    raise NotImplementedError("run_batched is not ported to the torch "
-                              "package yet (ROADMAP §1 item 5)")
+# ---------------------------------------------------------------------------
+# batched segments
+# ---------------------------------------------------------------------------
+
+def _dispatch_batch_flow(batch, reference_frame, flow_estimator,
+                         flow_chunk: int = 4):
+    """Queue a batch's flow + confidence against the key frame, without a
+    host sync, so it runs behind the previous batch's denoise. The frames
+    are uploaded once, as uint8 (the inpaint stage reuses them), and RAFT
+    runs in ``flow_chunk``-pair calls (<= 0: one call) against the
+    broadcast reference. Returns device (flow, conf, frames_u8)."""
+    dev = flow_estimator.device
+    frames_u8_d = torch.as_tensor(np.stack([f for f, _ in batch]),
+                                  device=dev)                 # u8 BGR
+    ref_u8_d = torch.as_tensor(np.ascontiguousarray(reference_frame),
+                               device=dev)
+    flows, confs = [], []
+    chunk = flow_chunk if flow_chunk > 0 else len(batch)
+    for s in range(0, len(batch), chunk):
+        tgt = frames_u8_d[s:s + chunk].flip(-1)
+        src = ref_u8_d[None].flip(-1).expand(tgt.shape)
+        flow_d, conf_d, _ = flow_estimator.calc_batch_device(src, tgt)
+        flows.append(flow_d)
+        confs.append(conf_d)
+    return torch.cat(flows), torch.cat(confs), frames_u8_d
+
+
+def _dispatch_batch_denoise(batch, flow_pair, reference_frame,
+                            reference_ai_frame, sd_inpaint, tagger, cfg,
+                            n_real=None):
+    """Queue one batch's device work (warp + mask, the batched inpaint,
+    the propagated-pixel mix, the uint8 conversion) and its copies to
+    the host, without a host sync. Returns what the finalize needs: the
+    host buffers, their event, and the host state captured now.
+    ``n_real``: with tail padding, how many leading frames are real."""
+    if n_real is None:
+        n_real = len(batch)
+    flow_d, conf_d, frames_u8_d = flow_pair
+    dev = sd_inpaint.device
+    ref_ai_d = torch.as_tensor(np.ascontiguousarray(reference_ai_frame),
+                               device=dev).float()
+    warped_d, mask01_d = warp_mask_fused(                     # [B,H,W,3]
+        ref_ai_d, flow_d.to(dev), conf_d.to(dev),
+        ellipse_kernel(cfg.mask_dilate), conf_thres=cfg.confidence_thres)
+
+    # prompt only the real frames: a padded duplicate would pay a tagger
+    # inference whose output is dropped
+    prompts = [_prompt_for(tagger, f, cfg.prompt_extra)
+               for f, _ in batch[:n_real]]
+    prompts += [prompts[-1]] * (len(batch) - n_real)
+    imgs_model = warped_d.flip(-1) / 127.5 - 1.0
+    refs_model = frames_u8_d.to(dev).flip(-1).float() / 127.5 - 1.0
+    outs = F.img2img_inpaint_batch(
+        sd_inpaint, imgs_model, prompts, NEGATIVE_PROMPT, mask01_d,
+        refs_model, denoising_strength=cfg.denoising_strength,
+        ddim_steps=cfg.ddim_steps, mask_blur=cfg.mask_blur,
+        guidance_schedule_func=cfg.guidance_schedule_func, seed=cfg.seed,
+        sampler=cfg.sampler, cfg_interval=cfg.cfg_interval)
+    outs_bgr = torch.clamp(outs.float() * 127.5 + 127.5, 0, 255).flip(-1)
+    if cfg.propagated_pixel_weight >= 0.001:
+        wt = cfg.propagated_pixel_weight
+        w = torch.where(mask01_d <= 0.5, wt, 1.0 - wt)[..., None]
+        outs_bgr = outs_bgr * (1.0 - w) + warped_d * w
+
+    # clipped and floored to uint8 on the device (numpy's astype(uint8)
+    # of the clipped range), so only uint8 crosses to the host
+    out = {"outs": torch.floor(torch.clamp(outs_bgr[:n_real], 0, 255)
+                               ).to(torch.uint8)}
+    if cfg.write_vis:
+        out["conf"] = torch.clamp(conf_d[:n_real] * 255, 0, 255
+                                  ).to(torch.uint8)
+        out["warped"] = torch.floor(torch.clamp(warped_d[:n_real], 0, 255)
+                                    ).to(torch.uint8)
+        out["mask"] = (mask01_d[:n_real] * 255).to(torch.uint8)
+    # read back through pinned buffers and this batch's own event: a
+    # .cpu() here would also wait for the next batch's work queued behind
+    hosts, ready = queue_host_copies(list(out.values()))
+    return {"batch": batch, "n_real": n_real,
+            "reference_frame": reference_frame,
+            "host": dict(zip(out, hosts)), "ready": ready}
+
+
+def _finalize_batch(res, out_dir, cfg, writer=None):
+    """Wait for a dispatched batch's host copies (its event alone) and
+    write its PNGs, behind on ``writer``'s threads when given."""
+    put = writer.submit if writer is not None else write_png
+    if res["ready"] is not None:
+        res["ready"].synchronize()
+    host = {k: t.numpy() for k, t in res["host"].items()}
+    outs_u8 = host["outs"]
+    for i, (frame_bgr, counter) in enumerate(res["batch"][:res["n_real"]]):
+        put(f"{out_dir}/converted_{counter:06d}.png", outs_u8[i])
+        if cfg.write_vis:
+            put(f"{out_dir}/pixel_confidence_{counter:06d}.png",
+                host["conf"][i])
+            masked = host["warped"][i].copy()
+            masked[host["mask"][i] > 127] = np.array([0, 0, 255], np.uint8)
+            vis = np.concatenate([res["reference_frame"], frame_bgr,
+                                  outs_u8[i], outs_u8[i], host["warped"][i],
+                                  masked], axis=1)
+            put(f"{out_dir}/vis_{counter:06d}.png", vis)
+
+
+def _process_batch(batch, flow_pair, out_dir, reference_frame,
+                   reference_ai_frame, sd_inpaint, tagger, cfg,
+                   n_real=None):
+    """Dispatch and finalize one batch back to back (``run_batched``
+    overlaps the two across batches instead)."""
+    res = _dispatch_batch_denoise(batch, flow_pair, reference_frame,
+                                  reference_ai_frame, sd_inpaint, tagger,
+                                  cfg, n_real=n_real)
+    _finalize_batch(res, out_dir, cfg)
+
+
+def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
+                save_dir: str,
+                sd: F.StableDiffusionBundle,
+                sd_inpaint: F.StableDiffusionBundle,
+                flow_estimator: FlowConfidenceEstimator,
+                tagger=None,
+                cfg: PixelInpaintConfig = PixelInpaintConfig()):
+    """Segment-batched :func:`run`: the non-key frames of a key frame's
+    segment go in batches of ``cfg.frame_batch`` (all warp the same AI
+    key frame, so they are independent) through one flow, warp + mask
+    and inpaint call each. The files and frames are :func:`run`'s.
+
+    A three-stage software pipeline on the one stream: while batch k's
+    denoise runs on the card, batch k+1's flow is queued behind it and
+    batch k-1's frames are read back (its own event) and written. ``dp``
+    (data parallelism) is not ported yet and raises."""
+    if cfg.dp > 0:
+        F._not_ported("dp (data-parallel frame batches)", "8")
+    out_dir = f"{save_dir}_pixel_warp-{cfg.name}"
+    os.makedirs(out_dir, exist_ok=True)
+    bsz = max(cfg.frame_batch, 1)
+
+    reference_frame = None
+    reference_ai_frame = None
+    pending: list = []
+    inflight = None      # ((batch, n_real), flow_pair) with its flow queued
+    denoised = None      # a queued denoise awaiting its finalize
+    writer = PngWriter()
+
+    def process_inflight():
+        nonlocal inflight, denoised
+        if inflight is not None:
+            (batch, n_real), flow_pair = inflight
+            inflight = None
+            res = _dispatch_batch_denoise(
+                batch, flow_pair, reference_frame, reference_ai_frame,
+                sd_inpaint, tagger, cfg, n_real=n_real)
+            prev, denoised = denoised, res
+            if prev is not None:
+                _finalize_batch(prev, out_dir, cfg, writer)
+
+    def queue_batch():
+        """Queue this batch's flow, then the previous batch's denoise
+        behind it."""
+        nonlocal pending, inflight
+        if not pending:
+            return
+        batch, n_real = pending, len(pending)
+        if cfg.pad_tail_batch and 0 < n_real < bsz:
+            batch = batch + [batch[-1]] * (bsz - n_real)
+        new = ((batch, n_real),
+               _dispatch_batch_flow(batch, reference_frame,
+                                    flow_estimator, cfg.flow_chunk))
+        pending = []
+        process_inflight()
+        inflight = new
+
+    try:
+        for frame_bgr, is_key, counter in frames:
+            if is_key:
+                queue_batch()
+                process_inflight()
+                ai_frame = keyframe_img2img(sd, tagger, frame_bgr, cfg)
+                reference_frame = frame_bgr
+                reference_ai_frame = ai_frame
+                writer.submit(f"{out_dir}/converted_{counter:06d}.png",
+                              ai_frame)
+                if cfg.write_vis:
+                    vis = np.concatenate([frame_bgr, frame_bgr, ai_frame,
+                                          ai_frame, frame_bgr, ai_frame],
+                                         axis=1)
+                    writer.submit(f"{out_dir}/vis_{counter:06d}.png", vis)
+                    writer.submit(
+                        f"{out_dir}/pixel_confidence_{counter:06d}.png",
+                        np.ones(frame_bgr.shape[:2], np.uint8))
+            else:
+                pending.append((frame_bgr, counter))
+                if len(pending) >= bsz:
+                    queue_batch()
+        queue_batch()
+        process_inflight()
+        if denoised is not None:
+            _finalize_batch(denoised, out_dir, cfg, writer)
+            denoised = None
+    finally:
+        writer.close()
+    return out_dir

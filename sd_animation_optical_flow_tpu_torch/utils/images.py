@@ -62,6 +62,24 @@ def bgr_f32_to_u8(img_bgr_d) -> np.ndarray:
     return u8.cpu().numpy()
 
 
+def queue_host_copies(tensors):
+    """Queue device -> host copies of ``tensors`` (a list) into pinned
+    buffers on the current stream, behind the work that makes them, and
+    record an event after them: waiting on that event waits for these
+    copies alone, where a ``.cpu()`` on the stream would wait for
+    everything queued there. Returns (host tensors, event); CPU tensors
+    come back as they are, with None."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return list(tensors), None
+    hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+             for t in tensors]
+    for host, t in zip(hosts, tensors):
+        host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return hosts, ready
+
+
 # ---------------------------------------------------------------------------
 # PNG files
 # ---------------------------------------------------------------------------

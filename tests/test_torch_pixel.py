@@ -10,7 +10,13 @@ weights in both frameworks, the synthetic frames of
 ``tests/test_pipeline.py`` with key frames at 0 and 3. The port's noise
 draws are replaced (``unittest.mock``) by the JAX program's noises,
 rebuilt along its key splits. Gate: the same file names, and every
-``converted_*.png`` at >= 40 dB PSNR of the JAX frame (peak 255)."""
+``converted_*.png`` at >= 40 dB PSNR of the JAX frame (peak 255).
+
+``run_batched`` against the port's own ``run`` (every converted_ frame
+within 1 LSB, as JAX's ``test_run_batched_matches_run`` holds it) at
+frame batches 2 and 3, tail padding on and off, and against JAX's
+``run_batched``; ``run_video`` against JAX's on an encoded clip (the 40
+dB gate)."""
 
 import os
 import subprocess
@@ -174,8 +180,8 @@ def test_generate_mask_and_mix_match_jax(np_rng):
 
 def test_prompt_and_unported_hooks():
     """The prompt falls back to the fixed prefix without a tagger (or an
-    unavailable one) and takes the tagger's otherwise; run_video and
-    run_batched are refused."""
+    unavailable one) and takes the tagger's otherwise; run_batched
+    refuses data parallelism (dp > 0), naming its ROADMAP item."""
     class Tagger:
         available = True
 
@@ -188,9 +194,15 @@ def test_prompt_and_unported_hooks():
     Tagger.available = False
     assert TPI._prompt_for(Tagger(), None, "") == "masterpiece,best quality"
     assert TPI.NEGATIVE_PROMPT == JPI.NEGATIVE_PROMPT
-    for fn in (TPI.run_video, TPI.run_batched):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn("clip.mp4", "out", None, None, None)
+    assert TPI.PixelInpaintConfig().__dict__.keys() - {
+        "guidance_schedule_func"} == JPI.PixelInpaintConfig().__dict__.keys() \
+        - {"guidance_schedule_func"}
+    for k, v in TPI.PixelInpaintConfig().__dict__.items():
+        if k != "guidance_schedule_func":
+            assert v == getattr(JPI.PixelInpaintConfig(), k), k
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
+        TPI.run_batched(iter([]), "out", None, None, None,
+                        cfg=TPI.PixelInpaintConfig(frame_batch=2, dp=2))
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +234,11 @@ def _tiny_bundles(rng, in_channels):
     return jsd, tsd
 
 
-def test_pixel_inpaint_run_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def tiny():
+    """The tiny bundles (4- and 9-channel) and a tiny random RAFT, the same
+    weights in both frameworks: (JAX sd, sd9, estimator), (port sd, sd9,
+    estimator)."""
     k1, k2 = jax.random.split(jax.random.PRNGKey(7))
     (jsd, tsd), (jsd9, tsd9) = _tiny_bundles(k1, 4), _tiny_bundles(k2, 9)
     rcfg = JR.RAFTConfig(iters=2, corr_levels=2, corr_radius=2)
@@ -233,18 +249,14 @@ def test_pixel_inpaint_run_matches_jax(tmp_path):
     test = TFC.FlowConfidenceEstimator(
         to_port(rp), TFC.FlowConfidenceConfig(
             raft=TR.RAFTConfig(**rcfg.__dict__)), device="cpu")
-    frames = _synthetic_frames(n=6)
-    # key frames at 0 and at the scene cut: the non-key frames 1 and 4
-    # take the flow queued by the key frame, 2 and 5 the flow queued by
-    # the frame before them
-    triples = [(f, i in (0, 3), i) for i, f in enumerate(frames)]
-    kw = dict(denoising_strength=0.3, ddim_steps=10)
-    jdir = JPI.run(iter(triples), str(tmp_path / "jax"), jsd, jsd9, jest,
-                   cfg=JPI.PixelInpaintConfig(size=(64, 64), **kw))
+    return (jsd, jsd9, jest), (tsd, tsd9, test)
 
-    # the JAX program's noises for seed 1234: img2img's posterior and
-    # forward noise (split 3, then the core's split 3), the inpaint's
-    # along _inpaint_fused's splits (t_enc 3 of 10 DDIM steps)
+
+def _jax_noises():
+    """Patches that feed the port the JAX program's noises for seed 1234:
+    img2img's posterior and forward noise (split 3, then the core's split
+    3), the inpaint's along _inpaint_fused's splits (t_enc 3 of 10 DDIM
+    steps; [1, ...] noises, which a batch shares as JAX's does)."""
     lat = (1, 32, 32, 4)
     k_enc, _, k_core = jax.random.split(jax.random.PRNGKey(1234), 3)
     enc_noise = np_t(jax.random.normal(k_enc, lat))
@@ -255,27 +267,158 @@ def test_pixel_inpaint_run_matches_jax(tmp_path):
 
     def img2img_core(sd, img, ctx_c, ctx_u, enc, noise, **kwargs):
         return core(sd, img, ctx_c, ctx_u, enc_noise, fwd_noise, **kwargs)
-    with mock.patch.object(TF, "_img2img_core", img2img_core), \
+    return (mock.patch.object(TF, "_img2img_core", img2img_core),
             mock.patch.object(TF, "draw_inpaint_noise",
-                              lambda *a, **k: inpaint_noise):
-        tdir = TPI.run(iter(triples), str(tmp_path / "port"), tsd, tsd9,
-                       test, cfg=TPI.PixelInpaintConfig(**kw))
-    assert tdir.endswith("port_pixel_warp-tpu")
+                              lambda *a, **k: inpaint_noise))
+
+
+def _converted_psnr(tdir, jdir, label):
+    """The same file names in both directories; each converted_ frame's
+    PSNR (printed) of the port's against JAX's."""
+    import cv2
     names = sorted(os.listdir(jdir))
     assert sorted(os.listdir(tdir)) == names
-    assert len([n for n in names if n.startswith("converted_")]) == 6
-    import cv2
+    out = {}
     for name in names:
         ours = TIM.read_png_bgr(os.path.join(tdir, name))
         theirs = cv2.imread(os.path.join(jdir, name), cv2.IMREAD_COLOR)
         assert ours.shape == theirs.shape, name
         if name.startswith("converted_"):
-            psnr = _psnr255(ours, theirs)
-            print(f"\n[pixel run] {name} PSNR {psnr:.1f} dB")
-            assert psnr >= 40.0, (name, psnr)
+            out[name] = _psnr255(ours, theirs)
+            print(f"\n[{label}] {name} PSNR {out[name]:.1f} dB")
+    return out
+
+
+KW = dict(denoising_strength=0.3, ddim_steps=10)
+
+
+def test_pixel_inpaint_run_matches_jax(tmp_path, tiny):
+    (jsd, jsd9, jest), (tsd, tsd9, test) = tiny
+    frames = _synthetic_frames(n=6)
+    # key frames at 0 and at the scene cut: the non-key frames 1 and 4
+    # take the flow queued by the key frame, 2 and 5 the flow queued by
+    # the frame before them
+    triples = [(f, i in (0, 3), i) for i, f in enumerate(frames)]
+    jdir = JPI.run(iter(triples), str(tmp_path / "jax"), jsd, jsd9, jest,
+                   cfg=JPI.PixelInpaintConfig(size=(64, 64), **KW))
+    p1, p2 = _jax_noises()
+    with p1, p2:
+        tdir = TPI.run(iter(triples), str(tmp_path / "port"), tsd, tsd9,
+                       test, cfg=TPI.PixelInpaintConfig(**KW))
+    assert tdir.endswith("port_pixel_warp-tpu")
+    psnr = _converted_psnr(tdir, jdir, "pixel run")
+    assert len(psnr) == 6
+    assert all(v >= 40.0 for v in psnr.values()), psnr
     # every non-key frame inpainted part of itself: its confidence map
     # has pixels on both sides of the 0.95 threshold
     for i in (1, 2, 4, 5):
         conf = TIM.read_png_bgr(os.path.join(
             tdir, f"pixel_confidence_{i:06d}.png"))[..., 0]
         assert (conf < 0.95 * 255).any() and (conf >= 0.95 * 255).any(), i
+
+
+# ---------------------------------------------------------------------------
+# run_batched and run_video
+# ---------------------------------------------------------------------------
+
+def _segment_triples():
+    """10 synthetic frames, key frames at 0 and at the scene cut (5): two
+    segments of four non-key frames each."""
+    return [(f, i in (0, 5), i)
+            for i, f in enumerate(_synthetic_frames(n=10))]
+
+
+@pytest.fixture(scope="module")
+def port_run(tiny, tmp_path_factory):
+    """The port's sequential run over ``_segment_triples`` (vis written)."""
+    _, (tsd, tsd9, test) = tiny
+    return TPI.run(iter(_segment_triples()),
+                   str(tmp_path_factory.mktemp("seq") / "clip"), tsd, tsd9,
+                   test, cfg=TPI.PixelInpaintConfig(**KW))
+
+
+@pytest.mark.parametrize("frame_batch,pad", [(2, True), (2, False),
+                                             (3, True), (3, False)])
+def test_run_batched_matches_port_run(tiny, port_run, tmp_path,
+                                      frame_batch, pad):
+    """run_batched writes run's files, every converted_ frame within 1
+    LSB of run's: batches of 2 (two full batches a segment) and of 3 (a
+    ragged tail of 1, padded or not)."""
+    _, (tsd, tsd9, test) = tiny
+    cfg = TPI.PixelInpaintConfig(frame_batch=frame_batch, pad_tail_batch=pad,
+                                 **KW)
+    bdir = TPI.run_batched(iter(_segment_triples()), str(tmp_path / "bat"),
+                           tsd, tsd9, test, cfg=cfg)
+    names = sorted(os.listdir(port_run))
+    assert sorted(os.listdir(bdir)) == names and len(names) == 30
+    for name in names:
+        a = TIM.read_png_bgr(os.path.join(port_run, name)).astype(np.int16)
+        b = TIM.read_png_bgr(os.path.join(bdir, name)).astype(np.int16)
+        if name.startswith("converted_"):
+            assert np.abs(a - b).max() <= 1, name
+        else:
+            assert a.shape == b.shape, name
+
+
+def test_process_batch_matches_port_run(tiny, port_run, tmp_path):
+    """The batch helpers without run_batched's pipeline: the first
+    segment's four non-key frames through _dispatch_batch_flow and
+    _process_batch (dispatch + finalize back to back), against the key
+    frame's AI frame from run, write run's converted_ frames within 1
+    LSB."""
+    _, (tsd, tsd9, test) = tiny
+    triples = _segment_triples()
+    key = triples[0][0]
+    key_ai = TIM.read_png_bgr(os.path.join(port_run, "converted_000000.png"))
+    batch = [(f, i) for f, _, i in triples[1:5]]
+    cfg = TPI.PixelInpaintConfig(**KW)
+    flow_pair = TPI._dispatch_batch_flow(batch, key, test, flow_chunk=3)
+    assert flow_pair[0].shape == (4, 64, 64, 2)
+    TPI._process_batch(batch, flow_pair, str(tmp_path), key, key_ai, tsd9,
+                       None, cfg)
+    for _, i in batch:
+        name = f"converted_{i:06d}.png"
+        a = TIM.read_png_bgr(os.path.join(port_run, name)).astype(np.int16)
+        b = TIM.read_png_bgr(str(tmp_path / name)).astype(np.int16)
+        assert np.abs(a - b).max() <= 1, name
+    assert len(os.listdir(tmp_path)) == 12         # converted, conf, vis
+
+
+def test_run_batched_matches_jax(tiny, tmp_path):
+    """The port's run_batched against JAX's on the same weights and
+    noises, frame batch 3 (a padded ragged tail): the same files, every
+    converted_ frame at >= 40 dB of JAX's."""
+    (jsd, jsd9, jest), (tsd, tsd9, test) = tiny
+    triples = _segment_triples()
+    jdir = JPI.run_batched(iter(triples), str(tmp_path / "jax"), jsd, jsd9,
+                           jest, cfg=JPI.PixelInpaintConfig(
+                               size=(64, 64), frame_batch=3, **KW))
+    p1, p2 = _jax_noises()
+    with p1, p2:
+        tdir = TPI.run_batched(iter(triples), str(tmp_path / "port"), tsd,
+                               tsd9, test, cfg=TPI.PixelInpaintConfig(
+                                   frame_batch=3, **KW))
+    psnr = _converted_psnr(tdir, jdir, "pixel run_batched")
+    assert len(psnr) == 10
+    assert all(v >= 40.0 for v in psnr.values()), psnr
+
+
+def test_run_video_matches_jax(tiny, tmp_path):
+    """run_video on an encoded clip (12 synthetic frames, keep_every 3,
+    key frames detected) against JAX's run_video: the same files, every
+    converted_ frame at >= 40 dB of JAX's."""
+    from test_video_io import _write_video
+    (jsd, jsd9, jest), (tsd, tsd9, test) = tiny
+    path = str(tmp_path / "clip.avi")
+    if not _write_video(path, _synthetic_frames(12, 64, 64)):
+        pytest.skip("no cv2 video encoder available")
+    kw = dict(size=(64, 64), keep_every=3, **KW)
+    jdir = JPI.run_video(path, str(tmp_path / "jax"), jsd, jsd9, jest,
+                         cfg=JPI.PixelInpaintConfig(**kw))
+    p1, p2 = _jax_noises()
+    with p1, p2:
+        tdir = TPI.run_video(path, str(tmp_path / "port"), tsd, tsd9, test,
+                             cfg=TPI.PixelInpaintConfig(**kw))
+    psnr = _converted_psnr(tdir, jdir, "pixel run_video")
+    assert len(psnr) == 4
+    assert all(v >= 40.0 for v in psnr.values()), psnr
