@@ -938,8 +938,8 @@ def run_pixel_phase(sd, sd9, kernels):
         pixel_inpaint as PI
     from sd_animation_optical_flow_tpu_torch.utils.images import \
         read_png_bgr
-    from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
-        load_flow_estimator
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import (
+        ARTIFACTS, load_flow_estimator)
     from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
     rng = np.random.default_rng(SEED)
     failures, summary = [], {}
@@ -994,6 +994,27 @@ def run_pixel_phase(sd, sd9, kernels):
                " (read, not gated: the artifact was trained at 128x192)"))
         if not math.isfinite(epe) or (h == 128 and epe > 0.5):
             failures.append(f"pixel: known translation at {h}x{w} EPE "
+                            f"{epe:.3f} px")
+    # the pair trained at the pipeline's size, when the checkout has it
+    new_pair = [os.path.join(ARTIFACTS, f"{n}_{H}x{W}.npz")
+                for n in ("raft_synth", "uncertainty_head_synth")]
+    est_new = None
+    if all(os.path.exists(p) for p in new_pair):
+        est_new = load_flow_estimator(raft_path=new_pair[0],
+                                      head_path=new_pair[1], device="cuda")
+        src_n, tgt_n = _shifted_pair(np.random.default_rng(SEED + 1), H, W,
+                                     -3, 2)
+        flow, conf, _ = est_new.calc_batch_device(src_n[None], tgt_n[None])
+        epe = _epe(flow, -3.0, 2.0)
+        c95 = (conf[:, 16:-16, 16:-16] > 0.95).float().mean().item()
+        summary["translation_new_pair"] = {"epe_px": epe, "conf_gt_095": c95}
+        log(f"[pixel] the {H}x{W} pair ({os.path.basename(new_pair[0])}, "
+            f"{os.path.basename(new_pair[1])}): known translation (-3, +2) "
+            f"px at {H}x{W}, default config: interior EPE {epe:.3f} px, "
+            f"confidence > 0.95 on {c95:.3f} of the interior (gate: EPE <= "
+            f"0.5 px)")
+        if not math.isfinite(epe) or epe > 0.5:
+            failures.append(f"pixel: the {H}x{W} pair's translation EPE "
                             f"{epe:.3f} px")
     learned = FC.FlowConfidenceEstimator(
         est.params, FC.FlowConfidenceConfig(uncertainty="learned"),
@@ -1072,10 +1093,10 @@ def run_pixel_phase(sd, sd9, kernels):
     out_root = Path(__file__).resolve().parent / "build"
     out_root.mkdir(parents=True, exist_ok=True)
 
-    def pipeline(tmp):
+    def pipeline(tmp, flow_est=est, name="clip"):
         seen["mask"], seen["finite"], seen["submit_t"] = [], [], []
         t_start = time.time()
-        out_dir = PI.run(iter(triples), f"{tmp}/clip", sd, sd9, est,
+        out_dir = PI.run(iter(triples), f"{tmp}/{name}", sd, sd9, flow_est,
                          tagger=None, cfg=cfg)
         ts = [t_start] + seen["submit_t"]
         return out_dir, [b - a for a, b in zip(ts, ts[1:])]
@@ -1118,6 +1139,15 @@ def run_pixel_phase(sd, sd9, kernels):
         for k in kernels:
             if (counts[k] == 0) == (k in PIXEL_KERNELS):
                 failures.append(f"pixel: {k} launched {counts[k]} times")
+
+        if est_new is not None:
+            pipeline(tmp, est_new, "clip_new_pair")
+            cover_new = [m.item() for m in seen["mask"]]
+            summary["mask_coverage_new_pair"] = cover_new
+            log(f"[pixel] run on the same frames with the {H}x{W} pair: mask "
+                f"coverage of frames 1-{PIXEL_FRAMES - 1}: "
+                f"{', '.join(f'{c:.4f}' for c in cover_new)} (the committed "
+                f"pair's: {', '.join(f'{c:.4f}' for c in cover)})")
 
         _, frame_s = pipeline(tmp)
         summary["frame_s"] = {"key": frame_s[0], "nonkey": frame_s[1:]}
@@ -1259,6 +1289,106 @@ def check_run_batched(cfg, run_dir, run_s, kernels, summary, run_batched,
             failures.append(f"pixel run_batched: {k} launched {counts[k]} "
                             "times")
     return counts, failures
+
+
+FLOWTRAIN_HW = (128, 192)
+FLOWTRAIN_ITERS = 8
+
+
+def run_flowtrain_phase(kernels):
+    """The flow-training path (``training/``) on the card, f32, TF32 off:
+
+    1. one synthetic 128x192 scene (``synthetic_flow.render_scene``, seed
+       ``SEED``) rendered on the card against the same seed on the CPU:
+       images within 1e-3, flow within 1e-4 px, valid / occluded /
+       disoccluded equal;
+    2. one ``flow_train_step`` of the full RAFT (``RAFTConfig(corr_dtype=
+       "float32")``, 8 iterations, the committed ``raft_synth.npz`` as the
+       start, ``make_flow_optimizer()``) on that scene on the card against
+       the same step on the CPU: the loss and the gradient's global norm
+       before the clip within 1e-3 relative, the parameters finite after
+       it, no kernel of the table launched (counts reset just before,
+       read just after); then a second card step timed.
+    Returns (summary, the launch counts, failures)."""
+    import numpy as np
+
+    from sd_animation_optical_flow_tpu_torch.models import raft as RF
+    from sd_animation_optical_flow_tpu_torch.training import flow_train as FT
+    from sd_animation_optical_flow_tpu_torch.training import \
+        synthetic_flow as SF
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import (
+        ARTIFACTS, load_npz_tree)
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
+    failures, summary = [], {}
+    h, w = FLOWTRAIN_HW
+    t0 = time.time()
+    scene = SF.render_scene(np.random.default_rng(SEED), h, w, device="cuda")
+    ref = SF.render_scene(np.random.default_rng(SEED), h, w, device="cpu")
+    diff = {name: (a.cpu() != b).sum().item() if a.dtype == torch.bool
+            else (a.cpu() - b).abs().max().item()
+            for name, a, b in zip(SF.FlowScene._fields, scene, ref)}
+    summary["scene_card_vs_cpu"] = diff
+    ok = diff["img1"] <= 1e-3 and diff["img2"] <= 1e-3 and \
+        diff["flow"] <= 1e-4 and diff["valid"] == 0 and \
+        diff["occluded"] == 0 and diff["disoccluded"] == 0
+    log(f"[flowtrain] a {h}x{w} scene rendered on the card against the CPU "
+        f"(seed {SEED}): max |diff| image "
+        f"{max(diff['img1'], diff['img2']):.3e}"
+        f" (limit 1e-3), flow {diff['flow']:.3e} px (limit 1e-4), mask "
+        f"pixels differing: valid {diff['valid']:g}, occluded "
+        f"{diff['occluded']}, disoccluded {diff['disoccluded']} (limit 0)")
+    if not ok:
+        failures.append(f"flowtrain: scene card vs CPU {diff}")
+
+    cfg = RF.RAFTConfig(corr_dtype="float32")
+    path = f"{ARTIFACTS}/raft_synth.npz"
+    batch = [t[None] for t in scene[:4]]
+    res = {}
+    for label, dev in (("card", "cuda"), ("cpu", "cpu")):
+        state = FT.init_flow_train_state(load_npz_tree(path, device=dev),
+                                         FT.make_flow_optimizer())
+        on_card = label == "card"
+        if on_card:
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+        t1 = time.time()
+        _, loss, _ = FT.flow_train_step(
+            state, cfg, *[t.to(dev) for t in batch], iters=FLOWTRAIN_ITERS)
+        res[label] = (loss.item(), state.opt.grad_norm.item(),
+                      time.time() - t1)
+        if on_card:
+            counts = {k: fn.launches for k, fn in kernels.items()}
+            finite = all(bool(torch.isfinite(p).all())
+                         for p in tree_leaves(state.params))
+            torch.cuda.synchronize()
+            t1 = time.time()
+            FT.flow_train_step(state, cfg, *batch, iters=FLOWTRAIN_ITERS)
+            torch.cuda.synchronize()
+            second_s = time.time() - t1
+        del state
+    rel_loss = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    rel_norm = abs(res["card"][1] - res["cpu"][1]) / abs(res["cpu"][1])
+    summary.update({"loss": [res["card"][0], res["cpu"][0]],
+                    "grad_norm": [res["card"][1], res["cpu"][1]],
+                    "rel_loss": rel_loss, "rel_grad_norm": rel_norm,
+                    "card_step_s": [res["card"][2], second_s],
+                    "cpu_step_s": res["cpu"][2], "counts": counts})
+    log(f"[flowtrain] one flow_train_step, full RAFT at {h}x{w}, batch 1, "
+        f"{FLOWTRAIN_ITERS} iterations, f32 (TF32 off), from the committed "
+        f"artifact: loss card {res['card'][0]:.6f} / CPU {res['cpu'][0]:.6f} "
+        f"(rel {rel_loss:.2e}, limit 1e-3), gradient norm before the clip "
+        f"card {res['card'][1]:.6f} / CPU {res['cpu'][1]:.6f} (rel "
+        f"{rel_norm:.2e}, limit 1e-3); parameters finite {finite}; card "
+        f"step {res['card'][2]:.3f} s (first) / {second_s:.3f} s, CPU "
+        f"{res['cpu'][2]:.1f} s; launches {counts}; phase "
+        f"{time.time() - t0:.1f} s")
+    if not (rel_loss <= 1e-3 and rel_norm <= 1e-3 and finite):
+        failures.append(f"flowtrain: loss rel {rel_loss:.2e}, gradient norm "
+                        f"rel {rel_norm:.2e}, finite {finite}")
+    for k, n in counts.items():
+        if n:
+            failures.append(f"flowtrain: {k} launched {n} times")
+    return summary, counts, failures
 
 
 def run_banded_phase(sd, keys_kv, kernels, gen):
@@ -1725,13 +1855,18 @@ def main() -> int:
     del sd9
     torch.cuda.empty_cache()
     t0 = time.time()
+    flowtrain, flowtrain_counts, flowtrain_failures = \
+        run_flowtrain_phase(kernels)
+    phases["flowtrain"] = time.time() - t0
+    failures += flowtrain_failures
+    t0 = time.time()
     banded, banded_failures = run_banded_phase(sd, keys_kv, kernels, gen)
     phases["banded"] = time.time() - t0
     failures += banded_failures
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
         + [(None, c, None) for c in pixel_counts] \
-        + [(None, banded["counts"], None)]
+        + [(None, banded["counts"], None), (None, flowtrain_counts, None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
         if any(c[name] for _, c, _ in inference):
@@ -1761,7 +1896,8 @@ def main() -> int:
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
-                    "pixel": pixel, "banded": banded, "train": train,
+                    "pixel": pixel, "flowtrain": flowtrain,
+                    "banded": banded, "train": train,
                     "unet_rel_err": unet_rel,
                     "card": card}))
     log(f"[time] wall s by phase {json.dumps({k: round(v, 1) for k, v in phases.items()})}"

@@ -13,7 +13,9 @@ model, MFR strips), the diffusion fine-tuning step, and the pixel-inpaint
 pipeline (RAFT flow with confidence from the committed artifacts, the
 fused warp + mask, ``run``, the segment-batched ``run_batched`` and
 ``run_video``; key-frame detection with a cv2-exact Canny; the tagger;
-the warped-region PSNR report) —
+the warped-region PSNR report), and the flow-training path (synthetic
+scenes rendered on the card, RAFT's sequence loss and train step, the
+uncertainty head's step, pretraining and evaluation; the npz writer) —
 
     import sd_animation_optical_flow_tpu_torch as M
     sd = M.create_model("sd15", dtype=torch.bfloat16)     # random weights
@@ -25,6 +27,8 @@ the warped-region PSNR report) —
     triples = M.array_frame_generator(clip_bgr_u8, M.FrameGenConfig())
     out_dir = M.run_pixel_inpaint_batched(triples, "out/clip", sd, sd9,
                                           flow, cfg=cfg)
+    raft, m = M.train_raft_synthetic(M.RAFTConfig(corr_dtype="float32"),
+                                     h=512, w=768, init_params=raft)
 """
 
 _LAZY = {
@@ -79,6 +83,31 @@ _LAZY = {
                "Tagger"),
     "compare_dirs": ("sd_animation_optical_flow_tpu_torch.utils.parity",
                      "compare_dirs"),
+    "RAFTConfig": ("sd_animation_optical_flow_tpu_torch.models.raft",
+                   "RAFTConfig"),
+    "render_scene": (
+        "sd_animation_optical_flow_tpu_torch.training.synthetic_flow",
+        "render_scene"),
+    "flow_train_step": (
+        "sd_animation_optical_flow_tpu_torch.training.flow_train",
+        "flow_train_step"),
+    "uncertainty_train_step": (
+        "sd_animation_optical_flow_tpu_torch.training.flow_train",
+        "uncertainty_train_step"),
+    "train_raft_synthetic": (
+        "sd_animation_optical_flow_tpu_torch.training.uncertainty_pretrain",
+        "train_raft_synthetic"),
+    "train_head_synthetic": (
+        "sd_animation_optical_flow_tpu_torch.training.uncertainty_pretrain",
+        "train_head_synthetic"),
+    "eval_epe": (
+        "sd_animation_optical_flow_tpu_torch.training.uncertainty_pretrain",
+        "eval_epe"),
+    "evaluate_masks": (
+        "sd_animation_optical_flow_tpu_torch.training.uncertainty_pretrain",
+        "evaluate_masks"),
+    "save_npz_tree": ("sd_animation_optical_flow_tpu_torch.utils.checkpoint",
+                      "save_npz_tree"),
 }
 
 

@@ -11,6 +11,9 @@ into the other, so both frameworks can run on the same weights:
 * everything else (biases, GroupNorm / LayerNorm ``scale`` and ``bias``,
   embedding tables) keeps its shape.
 
+:func:`params_to_jax` is the exact inverse (numpy leaves in the JAX
+layouts), for the npz writer in ``utils/checkpoint.py``.
+
 Input leaves are anything ``numpy.asarray`` reads (numpy or JAX arrays);
 the port itself never imports JAX. The ldm checkpoint names of each
 entry are in ``sd_animation_optical_flow_tpu/utils/port_weights.py``.
@@ -22,8 +25,8 @@ optax ``adamw`` moments and the EMA wings) into the port's
 :func:`load_npz_tree` reads the JAX package's own checkpoint format (a
 flat ``.npz`` keyed by ``/``-joined tree paths, integer parts indexing
 lists), and :func:`load_flow_estimator` builds the pixel pipeline's
-flow + confidence estimator from the repository's committed RAFT and
-uncertainty-head artifacts.
+flow + confidence estimator from a RAFT and uncertainty-head pair in that
+format (by default the repository's committed artifacts).
 """
 
 from __future__ import annotations
@@ -64,6 +67,29 @@ def params_from_jax(tree, *, dtype=torch.float32, device="cuda", _key=None):
     return _leaf(_key, tree, dtype, device)
 
 
+def _leaf_to_jax(key, t):
+    t = t.detach().cpu().contiguous()      # channels_last -> row major
+    if t.is_floating_point():
+        t = t.float()
+    a = t.numpy()
+    if key == "w" and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    elif key == "w" and a.ndim == 2:
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
+def params_to_jax(tree, *, _key=None):
+    """The port's tree of tensors -> the JAX tree of numpy arrays (OIHW ->
+    HWIO, linear [out, in] -> [in, out]; float leaves as float32): the
+    inverse of :func:`params_from_jax`."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v, _key=k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_jax(v) for v in tree)
+    return _leaf_to_jax(_key, tree)
+
+
 def _unflatten(flat: dict):
     """{'a/0/b': leaf, ...} -> nested dicts, with a list wherever every
     key of a level is an integer (the JAX tree's lists)."""
@@ -99,20 +125,23 @@ ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "artifacts")
 
 
-def load_flow_estimator(cfg=None, *, device="cuda"):
-    """The pixel pipeline's ``FlowConfidenceEstimator`` on ``device``, from
-    the committed artifacts: ``artifacts/raft_synth.npz`` (the full RAFT,
-    ``RAFTConfig()`` shapes) and ``artifacts/uncertainty_head_synth.npz``
-    (the learned confidence head trained against that RAFT; loaded for
-    every mode, used by 'learned' and 'min'). ``cfg``: a
-    ``FlowConfidenceConfig`` (default: RAFT at its defaults, fb
-    confidence)."""
+def load_flow_estimator(cfg=None, *, raft_path=None, head_path=None,
+                        device="cuda"):
+    """The pixel pipeline's ``FlowConfidenceEstimator`` on ``device`` from a
+    RAFT npz (the full RAFT, ``RAFTConfig()`` shapes) and the learned
+    confidence head trained against it (loaded for every mode, used by
+    'learned' and 'min'); by default the committed pair
+    ``artifacts/raft_synth.npz`` and ``artifacts/
+    uncertainty_head_synth.npz``. ``cfg``: a ``FlowConfidenceConfig``
+    (default: RAFT at its defaults, fb confidence)."""
     from ..config import _channels_last
     from ..models.flowconf import (FlowConfidenceConfig,
                                    FlowConfidenceEstimator)
-    raft, head = (_channels_last(load_npz_tree(
-        os.path.join(ARTIFACTS, name), device=device))
-        for name in ("raft_synth.npz", "uncertainty_head_synth.npz"))
+    paths = (raft_path or os.path.join(ARTIFACTS, "raft_synth.npz"),
+             head_path or os.path.join(ARTIFACTS,
+                                       "uncertainty_head_synth.npz"))
+    raft, head = (_channels_last(load_npz_tree(p, device=device))
+                  for p in paths)
     return FlowConfidenceEstimator(raft, cfg or FlowConfidenceConfig(),
                                    head_params=head, device=device)
 

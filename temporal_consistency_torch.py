@@ -22,7 +22,13 @@ frame), frame batch 8. Rows:
   ground-truth flow and an in-bounds confidence (:class:`OracleFlow`);
 * artifact: the same with the committed ``artifacts/raft_synth.npz`` and
   the learned confidence head ``uncertainty_head_synth.npz``;
-* oracle_ppw: the oracle with ``propagated_pixel_weight`` 0.9.
+* oracle_ppw: the oracle with ``propagated_pixel_weight`` 0.9;
+* pair_512x768: the artifact row with the pair trained at 512x768
+  (``artifacts/raft_synth_512x768.npz`` and
+  ``uncertainty_head_synth_512x768.npz``, ``train_flow_torch.py``) and its
+  learned head, when the checkout has it; pair_512x768_fb: the same RAFT
+  with the forward-backward confidence (the pipeline's default), which
+  tells the flow's share of the margin from the head's.
 
 The weights are random and differ from JAX's, so the margins over naive
 are what compare with the JAX rows.
@@ -281,8 +287,8 @@ def main() -> int:
     from sd_animation_optical_flow_tpu_torch import config as C
     from sd_animation_optical_flow_tpu_torch.models.flowconf import \
         FlowConfidenceConfig
-    from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
-        load_flow_estimator
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import (
+        ARTIFACTS, load_flow_estimator)
     from sd_animation_optical_flow_tpu_torch.ops import _cuda
     card = S.card_line()
     S.log(f"[card] {card}")
@@ -301,6 +307,13 @@ def main() -> int:
                               clip_params=sd.clip_params)
     artifact = load_flow_estimator(FlowConfidenceConfig(
         uncertainty="learned"), device="cuda")
+    new_pair = [os.path.join(ARTIFACTS, f"{n}_{H}x{W}.npz")
+                for n in ("raft_synth", "uncertainty_head_synth")]
+    trained = {mode: load_flow_estimator(
+        FlowConfidenceConfig(uncertainty=mode), raft_path=new_pair[0],
+        head_path=new_pair[1], device="cuda")
+        for mode in ("learned", "fb")} \
+        if all(os.path.exists(p) for p in new_pair) else {}
     frames = make_clip("cuda")
     proc = frames[::KEEP_EVERY]
     S.log(f"[init] models, flow estimator and clip in "
@@ -315,9 +328,12 @@ def main() -> int:
     rows = {}
     outs, secs = naive_row(proc, sd)
     rows["naive"] = (outs, secs, None)
-    for name, flow, ppw in (("oracle", OracleFlow(), 0.0),
-                            ("artifact", artifact, 0.0),
-                            ("oracle_ppw", OracleFlow(), 0.9)):
+    variants = [("oracle", OracleFlow(), 0.0), ("artifact", artifact, 0.0),
+                ("oracle_ppw", OracleFlow(), 0.9)]
+    if trained:
+        variants += [(f"pair_{H}x{W}", trained["learned"], 0.0),
+                     (f"pair_{H}x{W}_fb", trained["fb"], 0.0)]
+    for name, flow, ppw in variants:
         rows[name] = pixel_row(name, frames, sd, sd9, flow, args.out, ppw)
     table = {}
     for name, (outs, secs, cover) in rows.items():
