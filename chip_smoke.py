@@ -43,7 +43,15 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     launches checked, each frame timed, a non-key frame profiled), key-
     frame detection on the card (its edge maps equal the CPU's) and
     ``run_batched`` at frame batch 4 (``run``'s files at >= 40 dB, its
-    launches checked, timed); then
+    launches checked, timed); then the ``[control]`` phase, with both
+    bundles: one ControlNet at SD-1.5's width and a random HED, card
+    against CPU (``hed_edges``, the colour ``canny_hint``,
+    ``controlnet_apply``), then img2img with the keyframe pipeline's two
+    controls (HED 0.7, Canny 0.3), the ControlNet inpaint, img2img with
+    ``target_img`` in latent and pixel space, the inpaint with
+    ``cfg_interval=2`` and img2img with ``deepcache_interval=3`` (#1
+    launched less than by plain img2img), each checked and timed, the
+    first profiled; then
     the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
@@ -542,20 +550,28 @@ def check_training_kernels(gen, record, rows, tol):
 
 def perturb_zero_convs(params, gen):
     """Give the zero-initialised output convs (resblock out_conv,
-    transformer proj_out, the final conv) small random weights, so every
-    attention reaches the output."""
+    transformer proj_out, the final conv; ControlNet's zero_convs,
+    middle_out and hint_out) small random weights, so every attention
+    reaches the output and every ControlNet residual is nonzero."""
+    def perturb(sub):
+        w = sub["w"]
+        if w.any():
+            return
+        bound = 0.1 / math.sqrt(w[0].numel())
+        sub["w"] = ((torch.rand(w.shape, generator=gen, device=w.device)
+                     * 2 - 1) * bound).to(w.dtype).contiguous(
+            memory_format=torch.channels_last)
+
     def walk(tree):
         if isinstance(tree, dict):
             for key, sub in tree.items():
-                if key in ("out_conv", "proj_out", "conv") \
-                        and isinstance(sub, dict) and "w" in sub \
-                        and not sub["w"].any():
-                    w = sub["w"]
-                    bound = 0.1 / math.sqrt(w[0].numel())
-                    sub["w"] = ((torch.rand(w.shape, generator=gen,
-                                            device=w.device) * 2 - 1)
-                                * bound).to(w.dtype).contiguous(
-                        memory_format=torch.channels_last)
+                if key == "zero_convs":
+                    for conv in sub:
+                        perturb(conv)
+                elif key in ("out_conv", "proj_out", "conv", "middle_out",
+                             "hint_out") \
+                        and isinstance(sub, dict) and "w" in sub:
+                    perturb(sub)
                 else:
                     walk(sub)
         elif isinstance(tree, list):
@@ -1291,6 +1307,182 @@ def check_run_batched(cfg, run_dir, run_s, kernels, summary, run_batched,
     return counts, failures
 
 
+# ---------------------------------------------------------------------------
+# ControlNet, HED and the sampler hooks
+# ---------------------------------------------------------------------------
+
+CONTROL_KERNELS = PIXEL_KERNELS       # #1-#4: ControlNet runs the UNet's
+
+
+def _rel_l2(a, b):
+    return ((a.float().cpu() - b).norm() / b.norm()).item()
+
+
+def run_control_phase(sd, sd9, kernels, gen):
+    """ControlNet, the HED annotator and the sampler hooks at 512x768:
+
+    1. one ControlNet at SD-1.5's width (``controlnet_init`` on the card,
+       bf16, its zero convs perturbed) and a random HED at its published
+       widths (f32);
+    2. card against CPU: ``hed_edges`` on a 256x384 frame (no pixel more
+       than 1 apart), the colour ``canny_hint`` at 512x768 (equal), and
+       ``controlnet_apply`` at 512x768, bf16 on the card against f32 on
+       the CPU (every residual within 0.1 rel L2);
+    3. drive on one 512x768 frame (strength 0.4, 50 steps, CFG 7), each
+       run once with the launch counters reset and read, once timed:
+       ``img2img`` with the keyframe pipeline's controls (HED 0.7 over [0,
+       1], Canny 0.3 over [0, 0.9], hints from the frame; profiled once),
+       ``img2img_inpaint`` on sd15-inpaint9 with them (the ControlNet
+       branch), ``img2img`` with ``target_img`` in latent and in pixel
+       space, ``img2img_inpaint`` with ``cfg_interval=2`` and ``img2img``
+       with ``deepcache_interval=3`` (#1 launched fewer times than by
+       plain ``img2img``). Returns (summary, the launch counts of each
+       run, failures)."""
+    import numpy as np
+    from sd_animation_optical_flow_tpu_torch.config import _channels_last
+    from sd_animation_optical_flow_tpu_torch.models import controlnet as CN
+    from sd_animation_optical_flow_tpu_torch.models import hed as HED
+    from sd_animation_optical_flow_tpu_torch.models.layers import Init
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    failures, summary, all_counts = [], {}, []
+    t0 = time.time()
+    cn = _channels_last(CN.controlnet_init(Init(
+        torch.Generator("cuda").manual_seed(2), torch.bfloat16, "cuda"),
+        sd.unet_cfg))
+    perturb_zero_convs(cn, gen)
+    hed = _channels_last(HED.hed_init(Init(
+        torch.Generator("cuda").manual_seed(3), torch.float32, "cuda")))
+    rng = np.random.default_rng(SEED)
+    frame = np.ascontiguousarray(np.clip(np.round(_texture(rng, H, W)), 0,
+                                         255).astype(np.uint8))
+    # the input shift at the frame's channel means: the random net's
+    # logits then span both sides of 0 instead of saturating
+    hed["norm"] = torch.as_tensor(frame.reshape(-1, 3).mean(0),
+                                  dtype=torch.float32, device="cuda")
+    n_cn = sum(t.numel() for t in _leaves(cn))
+    log(f"[control] ControlNet ({n_cn / 1e6:.1f} M parameters, bf16) and "
+        f"HED ({sum(t.numel() for t in _leaves(hed)) / 1e6:.1f} M, f32) "
+        f"random init on the card in {time.time() - t0:.1f} s")
+
+    # card against CPU
+    small = np.ascontiguousarray(frame[::2, ::2])
+    e_card = HED.hed_edges(hed, small).cpu()
+    e_cpu = HED.hed_edges(to_cpu_f32(hed), small)
+    hed_diff = int((e_card.int() - e_cpu.int()).abs().max())
+    canny_card = CN.canny_hint(frame, 100, 200, batch=1, device="cuda")
+    canny_cpu = CN.canny_hint(frame, 100, 200, batch=1, device="cpu")
+    canny_equal = torch.equal(canny_card.cpu(), canny_cpu)
+    hed_fn = HED.make_hed_fn(hed)
+    hints = {"hed": CN.hed_hint(frame, hed_fn, batch=2, device="cuda"),
+             "canny": CN.canny_hint(frame, 100, 200, batch=2,
+                                    device="cuda")}
+    x = torch.randn((1, H // 8, W // 8, 4), generator=gen, device="cuda")
+    t = torch.full((1,), 401, dtype=torch.int32, device="cuda")
+    ctx = sd.get_learned_conditioning("a watercolor fox in the snow")
+    res_card = CN.controlnet_apply(cn, sd.unet_cfg, x.bfloat16(),
+                                   hints["hed"][:1], t, ctx)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    res_cpu = CN.controlnet_apply(to_cpu_f32(cn), sd.unet_cfg, x.cpu(),
+                                  hints["hed"][:1].cpu(), t.cpu(),
+                                  ctx.float().cpu())
+    rels = [_rel_l2(a, b) for a, b in zip(res_card, res_cpu)]
+    summary["card_vs_cpu"] = {"hed_edges_max_diff": hed_diff,
+                              "canny_equal": canny_equal,
+                              "controlnet_rel_l2": rels}
+    log(f"[control] card vs CPU: hed_edges at {H // 2}x{W // 2} max |diff| "
+        f"{hed_diff} (edge values {len(e_cpu.unique())} distinct, mean "
+        f"{e_cpu.float().mean():.1f}); colour canny_hint at {H}x{W} equal "
+        f"{canny_equal} ({int(canny_cpu[0, ..., 0].sum())} edge pixels); "
+        f"controlnet_apply at {H}x{W}, bf16 vs f32, rel L2 of the "
+        f"{len(rels)} residuals max {max(rels):.4e} (CPU "
+        f"{time.time() - t1:.1f} s)")
+    if hed_diff > 1:
+        failures.append(f"control: hed_edges card vs CPU differ by "
+                        f"{hed_diff}")
+    if not canny_equal:
+        failures.append("control: canny_hint card vs CPU differ")
+    if len(rels) != 13 or not all(math.isfinite(r) and r <= 0.1
+                                  for r in rels):
+        failures.append(f"control: controlnet_apply rel L2 {rels}")
+
+    # the drives
+    controls = (CN.ControlSpec(cn, sd.unet_cfg, hints["hed"], 0.7, 0.0, 1.0),
+                CN.ControlSpec(cn, sd.unet_cfg, hints["canny"], 0.3, 0.0,
+                               0.9))
+    img = torch.from_numpy(frame[..., ::-1].copy()).to("cuda")[None] \
+        .float() / 127.5 - 1.0
+    target = torch.rand((1, H, W, 3), generator=gen, device="cuda") * 2 - 1
+    mask = _blob_mask(H, W, H * 0.49, W * 0.51, H * 0.29, gen)
+    prompt, neg = "a watercolor fox in the snow", "lowres, blurry"
+    common = dict(ddim_steps=STEPS, cfg_scale=CFG, seed=SEED)
+
+    def i2i(**kw):
+        return F.img2img(sd, img, prompt, neg, STRENGTH, **common, **kw)[0]
+
+    def inpaint(**kw):
+        return F.img2img_inpaint(sd9, img, prompt, neg, 0.8,
+                                 reference_img=target, mask=mask,
+                                 mask_blur=4, want_init_decoded=False,
+                                 **common, **kw)[0]
+
+    drives = {
+        "plain img2img": lambda: i2i(),
+        "1 img2img controls": lambda: i2i(control_specs=controls),
+        "2 inpaint controls": lambda: inpaint(control_specs=controls),
+        "3a img2img latent guidance": lambda: i2i(target_img=target),
+        "3b img2img pixel guidance": lambda: i2i(target_img=target,
+                                                 guidance_space="pixel"),
+        "4 inpaint cfg_interval 2": lambda: inpaint(cfg_interval=2),
+        "5 img2img deepcache 3": lambda: i2i(deepcache_interval=3)}
+    outs, counts, secs = {}, {}, {}
+    for name, run in drives.items():
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        outs[name] = run()
+        torch.cuda.synchronize()
+        counts[name] = {k: fn.launches for k, fn in kernels.items()}
+        t1 = time.time()
+        run()
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t1
+        out = outs[name]
+        ok = tuple(out.shape) == (1, H, W, 3) and bool(
+            torch.isfinite(out).all()) and out.abs().max().item() <= 1.0
+        base = outs["plain img2img"]
+        diff = (out.float() - base.float()).abs().mean().item()
+        log(f"[control] {name}: {secs[name]:.3f} s/frame, output "
+            f"{tuple(out.shape)} finite-in-range {ok}, mean |out - plain "
+            f"img2img| {diff:.4f}, launches {counts[name]}")
+        if not ok:
+            failures.append(f"control {name}: bad output")
+        if name != "plain img2img" and name.split()[1] == "img2img" \
+                and diff == 0.0:
+            failures.append(f"control {name}: equals plain img2img")
+        for k in CONTROL_KERNELS:
+            if counts[name][k] == 0:
+                failures.append(f"control {name}: {k} never launched")
+        all_counts.append(counts[name])
+    plain_n = counts["plain img2img"]["flash_attention_tpv"]
+    dc_n = counts["5 img2img deepcache 3"]["flash_attention_tpv"]
+    if not dc_n < plain_n:
+        failures.append(f"control: DeepCache launched #1 {dc_n} times, "
+                        f"plain img2img {plain_n}")
+    summary["frame_s"] = secs
+    summary["launches"] = counts
+    summary["profile_busy_wall_ms"] = profile_frame(
+        drives["1 img2img controls"], "control img2img with 2 ControlNets")
+    return summary, all_counts, failures
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 FLOWTRAIN_HW = (128, 192)
 FLOWTRAIN_ITERS = 8
 
@@ -1852,6 +2044,11 @@ def main() -> int:
     pixel, pixel_counts, pixel_failures = run_pixel_phase(sd, sd9, kernels)
     phases["pixel"] = time.time() - t0
     failures += pixel_failures
+    t0 = time.time()
+    control, control_counts, control_failures = run_control_phase(
+        sd, sd9, kernels, gen)
+    phases["control"] = time.time() - t0
+    failures += control_failures
     del sd9
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -1865,7 +2062,7 @@ def main() -> int:
     failures += banded_failures
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
-        + [(None, c, None) for c in pixel_counts] \
+        + [(None, c, None) for c in pixel_counts + control_counts] \
         + [(None, banded["counts"], None), (None, flowtrain_counts, None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
@@ -1896,7 +2093,8 @@ def main() -> int:
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
-                    "pixel": pixel, "flowtrain": flowtrain,
+                    "pixel": pixel, "control": control,
+                    "flowtrain": flowtrain,
                     "banded": banded, "train": train,
                     "unet_rel_err": unet_rel,
                     "card": card}))

@@ -15,7 +15,10 @@ fused warp + mask, ``run``, the segment-batched ``run_batched`` and
 ``run_video``; key-frame detection with a cv2-exact Canny; the tagger;
 the warped-region PSNR report), and the flow-training path (synthetic
 scenes rendered on the card, RAFT's sequence loss and train step, the
-uncertainty head's step, pretraining and evaluation; the npz writer) —
+uncertainty head's step, pretraining and evaluation; the npz writer),
+and ControlNet with the HED annotator and the sampler hooks (guidance
+blending, CFG caching, DeepCache; ``models/controlnet.py``,
+``models/hed.py``, ``diffusion/ddim.ddim_decode``) —
 
     import sd_animation_optical_flow_tpu_torch as M
     sd = M.create_model("sd15", dtype=torch.bfloat16)     # random weights
@@ -48,6 +51,9 @@ _LAZY = {
     "img2img_inpaint_batch": (
         "sd_animation_optical_flow_tpu_torch.pipelines.facades",
         "img2img_inpaint_batch"),
+    "img2img_latent_inpaint": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.facades",
+        "img2img_latent_inpaint"),
     "StripConfig": ("sd_animation_optical_flow_tpu_torch.models.unet",
                     "StripConfig"),
     "FlowConfidenceConfig": (

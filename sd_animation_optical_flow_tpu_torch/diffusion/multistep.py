@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .ddim import CondBundle, cfg_model_call
-from .schedule import DDIMParams, DiffusionSchedule, q_sample
+from .schedule import DDIMParams, DiffusionSchedule, q_sample, rounded
 
 
 class MultistepCoeffs(NamedTuple):
@@ -104,9 +104,8 @@ def make_dpmpp_coeffs(sched: DiffusionSchedule, timesteps,
 
 
 def _scalar(v, dtype) -> float:
-    """A host scalar rounded to ``dtype`` (the JAX engine casts each
-    per-step scalar to the carry's dtype before using it)."""
-    return torch.tensor(float(v), dtype=torch.float32).to(dtype).item()
+    """A host scalar rounded to ``dtype``, as a float."""
+    return rounded(v, dtype).item()
 
 
 def multistep_decode(

@@ -3,7 +3,8 @@
 Counterpart of ``sd_animation_optical_flow_tpu/diffusion/schedule.py``
 (``make_linear_schedule``, ``q_sample``, the v-parameterization helpers
 ``get_v``, ``predict_eps_from_z_and_v``, ``predict_start_from_z_and_v``,
-``DDIMParams``, ``make_ddim_params``). The
+``DDIMParams``, ``make_ddim_params``), and ``rounded``, the samplers'
+per-step scalar in the carry's dtype. The
 arrays are host data: float32 tensors on the CPU, computed with numpy in
 the JAX package's precision (f64 schedule, f32 storage), from which the
 samplers read per-step scalars.
@@ -45,6 +46,13 @@ def make_linear_schedule(timesteps: int = 1000,
         sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
     )
+
+
+def rounded(v, dtype) -> torch.Tensor:
+    """A host scalar as a 0-dim CPU tensor rounded to ``dtype``: the JAX
+    samplers cast each per-step scalar to the carry's dtype and compute
+    with it there."""
+    return torch.tensor(float(v), dtype=torch.float32).to(dtype)
 
 
 def _coefs(sched: DiffusionSchedule, t, like):

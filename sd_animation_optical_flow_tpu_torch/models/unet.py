@@ -7,12 +7,13 @@ dedup (``context_pair``). NHWC activations at the public functions;
 attention in the [B, N, H, D] layout of ``ops/attention.py``.
 
 Ported: ``unet_init``, ``unet_apply`` with and without ``context_pair``,
-cross-frame K/V injection (``ref_kv``), MFR strips (``strip``) and
+cross-frame K/V injection (``ref_kv``), MFR strips (``strip``),
 materialized attention biases (``attn_biases``, e.g. the banded
-multi-frame bias of ``ops/attention.banded_strip_bias``). Not yet ported
-(each raises ``NotImplementedError`` naming its ROADMAP item): ControlNet
-residuals (``control``), sequence parallelism (``sp``), class
-conditioning (``y`` / ``num_classes``) and DeepCache.
+multi-frame bias of ``ops/attention.banded_strip_bias``), ControlNet
+residuals (``control``), and DeepCache's partial forward
+(``unet_apply_deepcache``, ``deepcache_feat_shape``). Not yet ported
+(each raises ``NotImplementedError`` naming its ROADMAP item): sequence
+parallelism (``sp``) and class conditioning (``y`` / ``num_classes``).
 """
 
 from __future__ import annotations
@@ -376,14 +377,16 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
         ([uncond|cond]); ``context`` is ignored. Composes with ``strip``
         (a positional bias, the same for both halves), not with
         ``ref_kv`` or ``attn_biases``.
-      control, y, sp: not ported yet; passing any of them raises
-        NotImplementedError.
+      control: None, or a 13-tuple of ControlNet residuals (NHWC, the
+        full CFG batch): 0..11 are added to the encoder skips, consumed
+        last-to-first, 12 to the middle block's output. With
+        ``context_pair`` they are added on the decoder side, after the
+        batch has doubled, so the stem dedup composes with them.
+      y, sp: not ported yet; passing either raises NotImplementedError.
 
     Returns:
       (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
     """
-    if control is not None:
-        _not_ported("ControlNet residuals (control)", "6")
     if sp is not None:
         _not_ported("sequence parallelism (sp)", "8")
     if y is not None or cfg.num_classes is not None:
@@ -439,9 +442,15 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
     h = _resblock(params["middle"]["res1"], h, emb)
     h = tfm(params["middle"]["transformer"], h)
     h = _resblock(params["middle"]["res2"], h, emb)
+    if control is not None:
+        h = h + control[-1].to(h.dtype)     # the middle residual is last
 
-    for blk in params["output_blocks"]:
-        h = torch.cat([h, hs.pop()], dim=-1)
+    for i, blk in enumerate(params["output_blocks"]):
+        skip = hs.pop()
+        if control is not None:
+            # the encoder residuals, consumed last-to-first
+            skip = skip + control[len(control) - 2 - i].to(h.dtype)
+        h = torch.cat([h, skip], dim=-1)
         h = _resblock(blk["res"], h, emb)
         if "transformer" in blk:
             h = tfm(blk["transformer"], h)
@@ -453,6 +462,77 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
     return out, tuple(kv_hist)
 
 
-def unet_apply_deepcache(*args, **kwargs):
-    """DeepCache partial forward — not ported yet."""
-    _not_ported("DeepCache (unet_apply_deepcache)", "6")
+def unet_apply_deepcache(params, cfg: UNetConfig, x, timesteps, context,
+                         *, deep_cache=None):
+    """DeepCache's partial forward (training-free step acceleration).
+
+    The deep segment (the levels below the first, the middle block and
+    their decoder blocks) changes slowly across adjacent denoise steps.
+    Without ``deep_cache`` the whole net runs and the feature entering
+    the shallowest decoder stage is returned beside the output; with
+    ``deep_cache=<that feature>`` the deep segment is skipped: only the
+    shallow encoder blocks (for their skips) and the shallow decoder
+    blocks run; the shallow part is the whole first level (its
+    num_res_blocks + 1 input blocks). Plain cross-attention conditioning only: no K/V injection,
+    ControlNet or stem dedup (the batch is the full CFG batch).
+
+    Returns (out, deep_feat): the captured feature, or ``deep_cache``
+    passed through."""
+    if len(cfg.channel_mult) < 2:
+        raise ValueError("DeepCache needs at least two UNet levels")
+    cb = cfg.num_res_blocks + 1
+    nh = cfg.num_heads
+    t_emb = timestep_embedding(timesteps, cfg.model_channels, dtype=x.dtype)
+    emb = linear(params["time_embed"][1],
+                 swish(linear(params["time_embed"][0], t_emb)))
+
+    def run_block(blk, h):
+        if "conv" in blk:
+            return conv2d(blk["conv"], h)
+        if "down" in blk:
+            return conv2d(blk["down"], h, stride=2, padding=1)
+        h = _resblock(blk["res"], h, emb)
+        if "transformer" in blk:
+            h, _ = _spatial_transformer(blk["transformer"], h, context, nh)
+        return h
+
+    def run_decoder(blocks, h, hs):
+        for blk in blocks:
+            h = torch.cat([h, hs.pop()], dim=-1)
+            h = _resblock(blk["res"], h, emb)
+            if "transformer" in blk:
+                h, _ = _spatial_transformer(blk["transformer"], h, context,
+                                            nh)
+            if "up" in blk:
+                h = upsample2x_conv(blk["up"], h)
+        return h
+
+    hs = []
+    h = x
+    for blk in params["input_blocks"][:cb]:
+        h = run_block(blk, h)
+        hs.append(h)
+    out_blocks = params["output_blocks"]
+    if deep_cache is None:
+        for blk in params["input_blocks"][cb:]:
+            h = run_block(blk, h)
+            hs.append(h)
+        h = _resblock(params["middle"]["res1"], h, emb)
+        h, _ = _spatial_transformer(params["middle"]["transformer"], h,
+                                    context, nh)
+        h = _resblock(params["middle"]["res2"], h, emb)
+        h = run_decoder(out_blocks[:len(out_blocks) - cb], h, hs)
+        deep_feat = h
+    else:
+        deep_feat = deep_cache
+        h = deep_cache.to(x.dtype)
+    # the tail consumes exactly the shallow skips
+    h = run_decoder(out_blocks[-cb:], h, hs)
+    h = swish(group_norm(params["out"]["norm"], h))
+    return conv2d(params["out"]["conv"], h), deep_feat
+
+
+def deepcache_feat_shape(cfg: UNetConfig, batch: int, h: int, w: int):
+    """Shape of :func:`unet_apply_deepcache`'s cached feature at latent
+    resolution (h, w): the upsampled second-level decoder output."""
+    return (batch, h, w, cfg.model_channels * cfg.channel_mult[1])

@@ -6,8 +6,10 @@ separable Gaussian with edge replicate, for the inpaint mask blur) and
 ``fill_masked`` with ``_blur_any_sigma`` (the no-reference fill of the
 inpaint facade), ``ellipse_kernel`` (cv2's ``MORPH_ELLIPSE`` structuring
 element, computed here: the port does not need cv2), ``dilate`` (max over
-zero-padded shifts), ``canny`` (cv2.Canny's edge map, pixel for pixel)
-and ``unsharp``.
+zero-padded shifts), ``canny`` (cv2.Canny's edge map, pixel for pixel,
+of a grey or a colour image), ``bgr_to_gray_u8`` (cv2.cvtColor's
+BGR2GRAY), ``sobel_soft_edge`` (the ControlNet HED hint's cv2.Sobel
+fallback) and ``unsharp``.
 """
 
 from __future__ import annotations
@@ -108,25 +110,44 @@ def _replicate_pad1(x):
     return x.index_select(0, rows).index_select(1, cols)
 
 
-def canny(lum_u8, low: float, high: float):
-    """cv2.Canny(lum, low, high) with its defaults (aperture 3, the L1
-    gradient) on a [H, W] uint8 tensor, on its device: the same edge map,
-    uint8 {0, 255}, all in integer arithmetic.
-
-    3x3 Sobel with edge replicate; magnitude |dx| + |dy|; thresholds
-    floor(min) and floor(max) of the pair, a pixel a candidate above the
-    low one and strong above the high one (strict); non-maximum
-    suppression by cv2's fixed-point direction test, its comparisons
-    strict on one side (left / up) and >= on the other, strict on both
-    diagonal neighbours, magnitudes outside the image 0; hysteresis grows
-    the strong pixels over 8-connected candidates to its fixpoint."""
-    lo, hi = (math.floor(t) for t in sorted((low, high)))
-    h, w = lum_u8.shape
-    p = _replicate_pad1(lum_u8.to(torch.int32))
+def _sobel3_replicate(x):
+    """cv2.Canny's 3x3 Sobel (dx, dy) of an int32 [H, W] plane, edge
+    replicated."""
+    h, w = x.shape
+    p = _replicate_pad1(x)
     dx = (p[:h, 2:] - p[:h, :w]) + 2 * (p[1:h + 1, 2:] - p[1:h + 1, :w]) \
         + (p[2:, 2:] - p[2:, :w])
     dy = (p[2:, :w] + 2 * p[2:, 1:w + 1] + p[2:, 2:]) \
         - (p[:h, :w] + 2 * p[:h, 1:w + 1] + p[:h, 2:])
+    return dx, dy
+
+
+def canny(img_u8, low: float, high: float):
+    """cv2.Canny(img, low, high) with its defaults (aperture 3, the L1
+    gradient) on a [H, W] or [H, W, C] uint8 tensor, on its device: the
+    same edge map, uint8 {0, 255}, all in integer arithmetic.
+
+    3x3 Sobel with edge replicate; magnitude |dx| + |dy|; on a
+    multi-channel image each pixel takes the dx and dy of the channel
+    with the largest magnitude (the first on a tie, as cv2 does);
+    thresholds floor(min) and floor(max) of the pair, a pixel a
+    candidate above the low one and strong above the high one (strict);
+    non-maximum suppression by cv2's fixed-point direction test, its
+    comparisons strict on one side (left / up) and >= on the other,
+    strict on both diagonal neighbours, magnitudes outside the image 0;
+    hysteresis grows the strong pixels over 8-connected candidates to its
+    fixpoint."""
+    lo, hi = (math.floor(t) for t in sorted((low, high)))
+    planes = img_u8.to(torch.int32)
+    if planes.dim() == 2:
+        dx, dy = _sobel3_replicate(planes)
+    else:
+        dx, dy = _sobel3_replicate(planes[..., 0])
+        for c in range(1, planes.shape[-1]):
+            cdx, cdy = _sobel3_replicate(planes[..., c])
+            better = cdx.abs() + cdy.abs() > dx.abs() + dy.abs()
+            dx, dy = torch.where(better, cdx, dx), torch.where(better, cdy, dy)
+    h, w = dx.shape
     ax, ay = dx.abs(), dy.abs()
     mag = ax + ay
     mp = torch.nn.functional.pad(mag, (1, 1, 1, 1))
@@ -150,6 +171,44 @@ def canny(lum_u8, low: float, high: float):
         if torch.equal(edge, before):
             break
     return (edge[0, 0] * 255).to(torch.uint8)
+
+
+def bgr_to_gray_u8(img_u8):
+    """cv2.cvtColor(img, COLOR_BGR2GRAY) of a [H, W, 3] uint8 tensor, in
+    cv2's fixed point: (3735 B + 19235 G + 9798 R + 2^14) >> 15."""
+    x = img_u8.to(torch.int32)
+    y = 3735 * x[..., 0] + 19235 * x[..., 1] + 9798 * x[..., 2]
+    return ((y + (1 << 14)) >> 15).to(torch.uint8)
+
+
+def _reflect101_pad1(x):
+    """x [H, W] padded by one pixel on each side, mirrored about the edge
+    pixel (cv2's BORDER_REFLECT_101, its default border)."""
+    h, w = x.shape
+    rows = torch.arange(-1, h + 1, device=x.device).abs()
+    rows = torch.where(rows > h - 1, 2 * (h - 1) - rows, rows)
+    cols = torch.arange(-1, w + 1, device=x.device).abs()
+    cols = torch.where(cols > w - 1, 2 * (w - 1) - cols, cols)
+    return x.index_select(0, rows).index_select(1, cols)
+
+
+def sobel_soft_edge(gray_u8):
+    """The soft edge of the HED hint's fallback: cv2.Sobel(gray, CV_32F,
+    1, 0) and (0, 1) with ksize 3 and the default border (reflect 101,
+    not the edge replicate Canny uses), the f32 magnitude sqrt(gx^2 +
+    gy^2), normalised as ``clip(mag / (max + 1e-6) * 255, 0, 255)``.
+    [H, W] uint8 -> [H, W] float32 on its device."""
+    h, w = gray_u8.shape
+    p = _reflect101_pad1(gray_u8.to(torch.int32))
+    gx = (p[:h, 2:] - p[:h, :w]) + 2 * (p[1:h + 1, 2:] - p[1:h + 1, :w]) \
+        + (p[2:, 2:] - p[2:, :w])
+    gy = (p[2:, :w] + 2 * p[2:, 1:w + 1] + p[2:, 2:]) \
+        - (p[:h, :w] + 2 * p[:h, 1:w + 1] + p[:h, 2:])
+    # the squares are exact in f32; the root is taken in f64 and rounded
+    # once to f32, the correctly rounded f32 root numpy takes (torch's
+    # vectorised f32 root on the CPU is not)
+    mag = torch.sqrt((gx * gx + gy * gy).double()).float()
+    return torch.clamp(mag / (mag.max() + 1e-6) * 255, 0, 255)
 
 
 def unsharp(img):

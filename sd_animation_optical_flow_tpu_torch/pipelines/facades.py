@@ -1,15 +1,23 @@
-"""Model facades: img2img, img2img_inpaint, img2img_inpaint_batch.
+"""Model facades: img2img, img2img_inpaint, img2img_inpaint_batch,
+img2img_latent_inpaint.
 
 Counterpart of ``sd_animation_optical_flow_tpu/pipelines/facades.py``
 (``StableDiffusionBundle``, ``img2img``, ``build_inpaint_conditioning``,
-``img2img_inpaint`` on its fused path, ``img2img_inpaint_batch``,
+``img2img_inpaint`` on its fused path and its ControlNet branch,
+``img2img_inpaint_batch``, ``img2img_latent_inpaint``,
 ``split_kv_batch``): CLIP chunked encode -> VAE encode (sampled) ->
-``stochastic_encode`` -> CFG UNet steps through the multistep engine
-(DDIM or DPM-Solver++(2M); stem dedup unless K/V are injected; the
-inpaint re-noise before each step) -> VAE decode, with the K/V capture
-pass (the terminal-step UNet pass whose 16 self-attention (k, v) pairs
-the keyframe pipeline stores and injects into later frames), K/V
+``stochastic_encode`` -> CFG UNet steps -> VAE decode, with the K/V
+capture pass (the terminal-step UNet pass whose 16 self-attention (k, v)
+pairs the keyframe pipeline stores and injects into later frames), K/V
 injection (``reference_kv``) and MFR strips (``strip``).
+
+A call with no hook runs its steps through the multistep engine (DDIM
+or DPM-Solver++(2M); stem dedup unless K/V are injected; the inpaint
+re-noise before each step). A DDIM call with a hook on (guidance
+blending toward ``target_img``, ControlNet ``control_specs``,
+``cfg_interval != 1`` or ``deepcache_interval > 0``) runs through the
+hook-carrying ``diffusion.ddim.ddim_decode``, as every DDIM call of the
+JAX package does; on DDIM with no hook both give the same steps.
 
 Noise is explicit: the core functions take every noise as a tensor (the
 tests hand both frameworks the same arrays); the public facades draw
@@ -37,6 +45,7 @@ from ..diffusion.schedule import (DiffusionSchedule, make_ddim_params,
 from ..models import clip as CL
 from ..models import unet as U
 from ..models import vae as V
+from ..models.controlnet import control_residuals, control_step_weights
 from ..ops.filters import fill_masked, gaussian_blur
 from ..ops.resize import resize
 from .tokenizer import PromptTokenizer
@@ -111,20 +120,37 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
                  cfg_scale: float, sampler: str, c_concat=None, nmask=None,
                  renoise_gate=None, renoise_noise=None, ref_kv=None,
                  capture_kv: bool = False, final_composite: bool = False,
-                 strip=None):
+                 strip=None, guidance_latent=None, guidance_strength=None,
+                 guidance_space: str = "latent", guidance_noise=None,
+                 guidance_encode_noise=None, controls=(),
+                 control_weights=None, cfg_interval: int = 1,
+                 deepcache_interval: int = 0):
     """The JAX ``_img2img_core``: ``stochastic_encode`` with ``noise`` ->
-    CFG multistep decode (with the inpaint re-noise when ``nmask`` is
-    given) -> optional final composite -> optional K/V capture -> VAE
-    decode. Returns (image clipped to [-1, 1], final latent, kv_hist or
-    None).
+    CFG decode (with the inpaint re-noise when ``nmask`` is given) ->
+    optional final composite -> optional K/V capture -> VAE decode.
+    Returns (image clipped to [-1, 1], final latent, kv_hist or None).
+
+    With no hook the steps run through the multistep engine. On DDIM a
+    hook — guidance toward ``guidance_latent`` (``guidance_strength``
+    [t_enc, 1, h, w, 1]; in pixel space with the per-step noise stacks
+    ``guidance_noise`` and ``guidance_encode_noise``), ``controls`` (a
+    sequence of ``ControlSpec`` with their [t_enc, n_nets] host
+    ``control_weights``), ``cfg_interval != 1`` or ``deepcache_interval >
+    0`` — sends them through ``ddim_decode``. The ControlNet residuals
+    are computed once, from [x1, x1] at the first step's timestep with
+    the context [uncond | cond]. On DPM-Solver++ guidance is refused,
+    and controls, ``cfg_interval`` and ``deepcache_interval`` do not
+    change the image (the JAX DPM++ decode has no such hooks: it drops
+    the residuals it computed), so no residual is computed.
 
     Stem dedup is on unless ``ref_kv`` is given (the CFG halves then see
-    different K/V); with ``c_concat`` both CondBundles share the one
-    tensor, so dedup holds for the inpaint model too. The capture pass
-    runs the UNet once more at t = 1 on the final latent (with
-    ``c_concat`` appended), ``ctx_cond`` only, no injection and no strip
-    bias (as in the JAX package); the stored pairs are contiguous
-    copies, not views of the fused QKV projections."""
+    different K/V) or CFG caching or DeepCache is on; with ``c_concat``
+    both CondBundles share the one tensor, so dedup holds for the
+    inpaint model too. The capture pass runs the UNet once more at t = 1
+    on the final latent (with ``c_concat`` appended), ``ctx_cond`` only,
+    no injection, controls or strip bias (as in the JAX package); the
+    stored pairs are contiguous copies, not views of the fused QKV
+    projections."""
     ddim = make_ddim_params(sd.sched, ddim_steps)
     x1 = D.stochastic_encode(ddim, init_latent, t_enc, noise)
 
@@ -132,17 +158,55 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
         pair = ctx if isinstance(ctx, tuple) else None
         out, _ = U.unet_apply(sd.unet_params, sd.unet_cfg, x, t,
                               None if pair is not None else ctx,
-                              ref_kv=ref_kv, strip=strip, context_pair=pair)
+                              ref_kv=ref_kv, control=control, strip=strip,
+                              context_pair=pair)
         return out
 
-    coeffs = sampler_coeffs(sd.sched, ddim_steps, t_enc, sampler)
     inpaint = nmask is not None
-    decoded = M.multistep_decode(
-        model_fn, coeffs, x1, D.CondBundle(ctx_cond, c_concat),
-        D.CondBundle(ctx_uncond, c_concat), cfg_scale=cfg_scale,
-        cfg_dedup=ref_kv is None, parameterization=sd.parameterization,
-        sched=sd.sched, init_latent=init_latent if inpaint else None,
-        nmask=nmask, renoise_gate=renoise_gate, renoise_noise=renoise_noise)
+    use_guidance = guidance_latent is not None
+    cond = D.CondBundle(ctx_cond, c_concat)
+    uncond = D.CondBundle(ctx_uncond, c_concat)
+    if check_sampler(sampler) != "ddim" and use_guidance:
+        raise ValueError("guidance blending (target_img) needs the 'ddim' "
+                         f"sampler, got {sampler!r}")
+    hooked = sampler == "ddim" and (use_guidance or bool(controls)
+                                    or cfg_interval != 1
+                                    or deepcache_interval > 0)
+    if not hooked:
+        decoded = M.multistep_decode(
+            model_fn, sampler_coeffs(sd.sched, ddim_steps, t_enc, sampler),
+            x1, cond, uncond, cfg_scale=cfg_scale, cfg_dedup=ref_kv is None,
+            parameterization=sd.parameterization, sched=sd.sched,
+            init_latent=init_latent if inpaint else None, nmask=nmask,
+            renoise_gate=renoise_gate, renoise_noise=renoise_noise)
+    else:
+        residuals = None
+        if controls and t_enc > 0:
+            b = init_latent.shape[0]
+            t_ctrl = torch.full((2 * b,), int(ddim.timesteps[t_enc - 1]),
+                                dtype=torch.int32, device=x1.device)
+            residuals = control_residuals(
+                controls, torch.cat([x1, x1]), t_ctrl,
+                torch.cat([ctx_uncond, ctx_cond]))
+        pixel_fns = (
+            lambda xp, n: V.encode(sd.vae_params, sd.vae_cfg, xp, noise=n),
+            lambda z: V.decode(sd.vae_params, sd.vae_cfg, z))
+        decoded = D.ddim_decode(
+            model_fn, sd.sched, ddim, x1, cond, uncond, t_enc,
+            cfg_scale=cfg_scale, parameterization=sd.parameterization,
+            guidance_latent=guidance_latent,
+            guidance_strength=guidance_strength,
+            guidance_space=guidance_space, pixel_fns=pixel_fns,
+            guidance_noise=guidance_noise,
+            guidance_encode_noise=guidance_encode_noise,
+            init_latent=init_latent if inpaint else None, nmask=nmask,
+            renoise_gate=renoise_gate, renoise_noise=renoise_noise,
+            control_residuals=residuals, control_weights=control_weights,
+            cfg_interval=cfg_interval,
+            cfg_dedup=(ref_kv is None and cfg_interval == 1
+                       and deepcache_interval == 0),
+            **_deepcache_kwargs(sd, deepcache_interval, ref_kv, controls,
+                                c_concat, strip))
     if final_composite and inpaint:
         # the mask in the latent's dtype: an f32 mask would promote the
         # composite, and with it the capture pass, to f32
@@ -162,18 +226,104 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
     return img.clamp(-1.0, 1.0), decoded, kv_hist
 
 
+def _deepcache_kwargs(sd: StableDiffusionBundle, deepcache_interval: int,
+                      ref_kv, controls, c_concat, strip):
+    """``ddim_decode``'s DeepCache arguments when the knob is on: plain
+    cross-attention img2img only (the partial forward has no K/V
+    injection, ControlNet, concat conditioning or strip bias)."""
+    if deepcache_interval <= 0:
+        return {}
+    if ref_kv is not None or controls or c_concat is not None \
+            or strip is not None:
+        raise ValueError("deepcache_interval supports only plain "
+                         "cross-attention img2img: no reference_kv, "
+                         "control_specs, inpaint conditioning or strip")
+
+    def full_fn(x, t, ctx):
+        return U.unet_apply_deepcache(sd.unet_params, sd.unet_cfg, x, t, ctx)
+
+    def cached_fn(x, t, ctx, deep):
+        return U.unet_apply_deepcache(sd.unet_params, sd.unet_cfg, x, t, ctx,
+                                      deep_cache=deep)[0]
+    return {"deepcache_interval": deepcache_interval,
+            "deepcache_fns": (full_fn, cached_fn)}
+
+
 def _img2img_core(sd: StableDiffusionBundle, img, ctx_cond, ctx_uncond,
                   enc_noise, noise, *, t_enc: int, ddim_steps: int,
-                  cfg_scale: float, sampler: str, ref_kv=None,
-                  capture_kv: bool = False, strip=None):
+                  cfg_scale: float, sampler: str, **hooks):
     """VAE encode (posterior sample with ``enc_noise``) then
-    :func:`_latent_core`. Returns (image, final latent, kv_hist)."""
+    :func:`_latent_core` with ``hooks`` (its keyword arguments). Returns
+    (image, final latent, kv_hist)."""
     init_latent = V.encode(sd.vae_params, sd.vae_cfg, img.to(sd.dtype),
                            noise=enc_noise)
     return _latent_core(sd, init_latent, ctx_cond, ctx_uncond, noise,
                         t_enc=t_enc, ddim_steps=ddim_steps,
-                        cfg_scale=cfg_scale, sampler=sampler, ref_kv=ref_kv,
-                        capture_kv=capture_kv, strip=strip)
+                        cfg_scale=cfg_scale, sampler=sampler, **hooks)
+
+
+class Img2ImgNoise(NamedTuple):
+    """Every noise of one img2img call: the posterior noise of the frame's
+    encode (``enc``) and the ``stochastic_encode`` noise (``forward``),
+    [B, h, w, c]; with guidance the posterior noise of ``target_img``'s
+    encode (``target``), and in pixel space the per-step stacks [t_enc,
+    B, h, w, c] of the guidance latent's noise (``guide``) and of the
+    blended x0's re-encode (``guide_enc``); None where unused."""
+    enc: torch.Tensor
+    forward: torch.Tensor
+    target: Optional[torch.Tensor] = None
+    guide: Optional[torch.Tensor] = None
+    guide_enc: Optional[torch.Tensor] = None
+
+
+def draw_img2img_noise(gen: torch.Generator, latent_shape, t_enc: int, *,
+                       target: bool, pixel: bool, device) -> Img2ImgNoise:
+    """Draw an :class:`Img2ImgNoise` from ``gen``, the hook-free call's two
+    noises first (so a hook leaves them as they were)."""
+    rn = lambda shape: torch.randn(shape, generator=gen, device=device)
+    shape = tuple(latent_shape)
+    enc, forward = rn(shape), rn(shape)
+    tgt = rn(shape) if target else None
+    steps = (t_enc,) + shape
+    return Img2ImgNoise(enc, forward, tgt, rn(steps) if pixel else None,
+                        rn(steps) if pixel else None)
+
+
+def _prep_controls(control_specs, t_enc: int, ddim_steps: int):
+    """ControlSpecs -> (the specs, their [t_enc, n_nets] host step weights
+    over the denoise progress), or ((), None) without any."""
+    if not control_specs:
+        return (), None
+    progress = D.guidance_progress(max(t_enc, 1), ddim_steps)
+    return tuple(control_specs), control_step_weights(control_specs,
+                                                      progress)
+
+
+def _guidance_strength_array(schedule_func, weight_map, t_enc: int,
+                             total_steps: int, latent_shape, device):
+    """The per-step guidance strengths [t_enc, 1, h, w, 1] (f32 on
+    ``device``) from a host schedule function (progress p -> a float or
+    a map, resized bicubically to the latent; default 0.1) and an
+    optional per-pixel weight map (resized bilinearly). The JAX package
+    multiplies the weight map in against the wrong axes (its product
+    fails unless h == w); here it scales each latent pixel."""
+    h, w = latent_shape[-3], latent_shape[-2]
+    rows = []
+    for p in D.guidance_progress(t_enc, total_steps):
+        g = np.asarray(schedule_func(p) if schedule_func is not None
+                       else 0.1, np.float32)
+        if g.ndim == 0:
+            g = torch.full((h, w), float(g))
+        else:
+            g = resize(torch.from_numpy(g)[:, :, None], (h, w),
+                       "cubic")[..., 0]
+        rows.append(g[None, :, :, None])
+    gs = torch.stack(rows).to(device)
+    if weight_map is not None:
+        wm = torch.as_tensor(np.asarray(weight_map, np.float32),
+                             device=device)
+        gs = gs * resize(wm[:, :, None], (h, w), "linear")[None, None]
+    return gs
 
 
 def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
@@ -191,34 +341,55 @@ def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
     ``sampler``: 'ddim' (eta 0) or 'dpmpp' / 'dpmpp:N' (DPM-Solver++(2M)).
     ``reference_kv``: per-layer (k, v) to inject (batch 1 or B).
     ``strip``: a ``StripConfig`` — img is a width-concatenated strip.
-    The guidance, ControlNet, sequence-parallel, DeepCache and
-    CFG-interval hooks of the JAX facade are not ported yet and raise
-    NotImplementedError."""
-    unported = {
-        "target_img (guidance blending)": (target_img is not None, "6"),
-        "control_specs (ControlNet)": (bool(control_specs), "6"),
-        "sp (sequence parallelism)": (sp is not None, "8"),
-        "deepcache_interval": (deepcache_interval != 0, "6"),
-        "cfg_interval != 1": (cfg_interval != 1, "6"),
-    }
-    for what, (given, item) in unported.items():
-        if given:
-            _not_ported(what, item)
+    ``target_img``: guidance blending of each step's x0 toward its latent
+    with the strengths of ``guidance_schedule_func`` (progress -> float
+    or map; default 0.1) times the optional ``guidance_weight`` map, in
+    ``guidance_space`` 'latent' (an x0 lerp) or 'pixel' (the noised
+    blending: one more CFG UNet evaluation and three VAE passes a step).
+    ``control_specs``: ControlSpecs (``models.controlnet``).
+    ``cfg_interval`` > 1: CFG caching; ``deepcache_interval`` > 0:
+    DeepCache (plain cross-attention only: no ``reference_kv``,
+    ``control_specs`` or ``strip``; not with ``cfg_interval``).
+
+    The JAX facade's limits hold: DPM++ refuses ``target_img``, and on
+    DPM++ ``control_specs``, ``cfg_interval`` and ``deepcache_interval``
+    do not change the image. ``sp`` (sequence parallelism) is not ported
+    yet and raises NotImplementedError."""
+    if sp is not None:
+        _not_ported("sp (sequence parallelism)", "8")
     check_sampler(sampler)
     img = img.to(sd.device)
     ctx_c = sd.get_learned_conditioning(c_text)
     ctx_u = sd.get_learned_conditioning(uc_text)
-    f = sd.vae_cfg.downscale
-    b, h, w, _ = img.shape
-    shape = (b, h // f, w // f, sd.vae_cfg.embed_dim)
+    shape = _latent_shape(sd, img.shape)
+    b = shape[0]
+    t_enc = _t_enc(denoising_strength, ddim_steps)
+    use_guidance = target_img is not None and t_enc > 0
     gen = torch.Generator(sd.device).manual_seed(seed)
-    enc_noise = torch.randn(shape, generator=gen, device=sd.device)
-    noise = torch.randn(shape, generator=gen, device=sd.device)
+    noise = draw_img2img_noise(gen, shape, t_enc, target=use_guidance,
+                               pixel=use_guidance
+                               and guidance_space == "pixel",
+                               device=sd.device)
+    hooks = {}
+    if use_guidance:
+        hooks = dict(
+            guidance_latent=V.encode(
+                sd.vae_params, sd.vae_cfg,
+                torch.as_tensor(target_img, device=sd.device).to(sd.dtype),
+                noise=noise.target),
+            guidance_strength=_guidance_strength_array(
+                guidance_schedule_func, guidance_weight, t_enc, ddim_steps,
+                shape, sd.device),
+            guidance_space=guidance_space, guidance_noise=noise.guide,
+            guidance_encode_noise=noise.guide_enc)
+    controls, weights = _prep_controls(control_specs, t_enc, ddim_steps)
     out, _, kv = _img2img_core(
         sd, img, ctx_c.expand(b, -1, -1), ctx_u.expand(b, -1, -1),
-        enc_noise, noise, t_enc=_t_enc(denoising_strength, ddim_steps),
-        ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler=sampler,
-        ref_kv=reference_kv, capture_kv=capture_kv, strip=strip)
+        noise.enc, noise.forward, t_enc=t_enc, ddim_steps=ddim_steps,
+        cfg_scale=cfg_scale, sampler=sampler, ref_kv=reference_kv,
+        capture_kv=capture_kv, strip=strip, controls=controls,
+        control_weights=weights, cfg_interval=cfg_interval,
+        deepcache_interval=deepcache_interval, **hooks)
     return out, kv
 
 
@@ -278,12 +449,12 @@ def _inpaint_fused(sd: StableDiffusionBundle, image, reference_img, mask01,
                    cfg_scale: float, capture_kv: bool,
                    final_composite: bool, has_reference: bool,
                    want_init_decoded: bool, sampler: str = "ddim",
-                   strip=None):
+                   cfg_interval: int = 1, strip=None):
     """image / reference_img [B, H, W, 3]; mask01 [B, H, W]. Mask blur ->
     composite (or the multi-radius fill without a reference) -> VAE
     encode -> binarised latent mask -> 5-channel conditioning -> the
-    core. Returns (image, composited input, decoded init latent or
-    None, kv_hist)."""
+    core (CFG caching with ``cfg_interval`` > 1 on DDIM). Returns
+    (image, composited input, decoded init latent or None, kv_hist)."""
     dtype = image.dtype
     m = mask01.float()
     image_mask = torch.stack([gaussian_blur(mm, float(mask_blur))
@@ -317,7 +488,8 @@ def _inpaint_fused(sd: StableDiffusionBundle, image, reference_img, mask01,
         ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler=sampler,
         c_concat=c_concat, nmask=nmask, renoise_gate=gates,
         renoise_noise=noise.renoise, ref_kv=ref_kv, capture_kv=capture_kv,
-        final_composite=final_composite, strip=strip)
+        final_composite=final_composite, strip=strip,
+        cfg_interval=cfg_interval)
     init_decoded = V.decode(sd.vae_params, sd.vae_cfg, init_latent).clamp(
         -1.0, 1.0) if want_init_decoded else None
     return out, composited, init_decoded, kv
@@ -355,12 +527,14 @@ def img2img_inpaint(sd: StableDiffusionBundle, image, c_text: str,
     (1 = inpaint). Without ``reference_img`` the masked pixels are filled
     from their surroundings and denoised from full strength. Returns
     (image, composited_input, init_latent_decoded or None, kv_hist).
-    ControlNet (``control_specs``), ``cfg_interval`` and ``sp`` are not
-    ported yet and raise NotImplementedError."""
-    if control_specs:
-        _not_ported("control_specs (ControlNet)", "6")
-    if cfg_interval != 1:
-        _not_ported("cfg_interval != 1", "6")
+    ``cfg_interval`` > 1: CFG caching (DDIM).
+
+    With ``control_specs`` the call takes the JAX facade's ControlNet
+    branch: the mask blurred as one [H, W] map, the composite (without a
+    reference: the image itself, not the multi-radius fill), then DDIM
+    with ``cfg_interval`` 1 whatever ``sampler`` and ``cfg_interval``
+    say, as the JAX branch passes neither on. ``sp`` is not ported yet
+    and raises NotImplementedError."""
     if sp is not None:
         _not_ported("sp (sequence parallelism)", "8")
     if mask is None:
@@ -372,6 +546,8 @@ def img2img_inpaint(sd: StableDiffusionBundle, image, c_text: str,
     has_reference = reference_img is not None
     if not has_reference:
         denoising_strength = 1.0
+    if control_specs:
+        sampler, cfg_interval = "ddim", 1
     t_enc = _t_enc(denoising_strength, ddim_steps)
     gates, final_composite = _gates(guidance_schedule_func, t_enc,
                                     ddim_steps)
@@ -383,12 +559,121 @@ def img2img_inpaint(sd: StableDiffusionBundle, image, c_text: str,
     noise = draw_inpaint_noise(gen, _latent_shape(sd, img_d.shape), n_slots,
                                has_reference=has_reference, tile_noise=False,
                                tile_renoise=False, device=sd.device)
+    if control_specs:
+        return _inpaint_controlled(
+            sd, img_d, ref_d if has_reference else None, mask01, ctx_c,
+            ctx_u, gates, reference_kv, noise, control_specs,
+            mask_blur=mask_blur, t_enc=t_enc, ddim_steps=ddim_steps,
+            cfg_scale=cfg_scale, capture_kv=capture_kv,
+            final_composite=final_composite,
+            want_init_decoded=want_init_decoded, strip=strip)
     return _inpaint_fused(
         sd, img_d, ref_d, mask01[None], ctx_c, ctx_u, gates, reference_kv,
         noise, mask_blur=mask_blur, t_enc=t_enc, ddim_steps=ddim_steps,
         cfg_scale=cfg_scale, capture_kv=capture_kv,
         final_composite=final_composite, has_reference=has_reference,
-        want_init_decoded=want_init_decoded, sampler=sampler, strip=strip)
+        want_init_decoded=want_init_decoded, sampler=sampler,
+        cfg_interval=cfg_interval, strip=strip)
+
+
+def _blurred_mask(mask01, mask_blur: int):
+    """The [H, W] mask blurred (sigma ``mask_blur``) and clipped to [0, 1]."""
+    m = gaussian_blur(mask01, float(mask_blur)) if mask_blur > 0 else mask01
+    return m.clamp(0.0, 1.0)
+
+
+def _inpaint_controlled(sd: StableDiffusionBundle, image, reference_img,
+                        mask01, ctx_c, ctx_u, gates, ref_kv,
+                        noise: InpaintNoise, control_specs, *,
+                        mask_blur: int, t_enc: int, ddim_steps: int,
+                        cfg_scale: float, capture_kv: bool,
+                        final_composite: bool, want_init_decoded: bool,
+                        strip=None):
+    """The ControlNet branch of ``img2img_inpaint`` (the JAX facade's
+    unfused path): image [1, H, W, 3], reference_img the same or None
+    (then the image itself is encoded and its masked latent randomised
+    with ``noise.fill``), mask01 [H, W]; DDIM. Returns (image,
+    composited input, decoded init latent or None, kv_hist)."""
+    image_mask = _blurred_mask(mask01, mask_blur)
+    composited = image
+    if reference_img is not None:
+        m = image_mask[None, :, :, None].to(image.dtype)
+        composited = image * (1.0 - m) + reference_img * m
+    init_latent = V.encode(sd.vae_params, sd.vae_cfg, composited,
+                           noise=noise.enc)
+    h, w = init_latent.shape[1:3]
+    nmask = torch.round(resize(image_mask[:, :, None], (h, w),
+                               "linear"))[None]
+    if reference_img is None:
+        init_latent = ((1.0 - nmask) * init_latent
+                       + nmask * noise.fill).to(init_latent.dtype)
+    c_concat = build_inpaint_conditioning(sd, composited, image_mask,
+                                          noise.cdt)
+    controls, weights = _prep_controls(control_specs, t_enc, ddim_steps)
+    out, _, kv = _latent_core(
+        sd, init_latent, ctx_c, ctx_u, noise.forward, t_enc=t_enc,
+        ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler="ddim",
+        c_concat=c_concat, nmask=nmask, renoise_gate=gates,
+        renoise_noise=noise.renoise, ref_kv=ref_kv, capture_kv=capture_kv,
+        final_composite=final_composite, strip=strip, controls=controls,
+        control_weights=weights)
+    init_decoded = V.decode(sd.vae_params, sd.vae_cfg, init_latent).clamp(
+        -1.0, 1.0) if want_init_decoded else None
+    return out, composited, init_decoded, kv
+
+
+def img2img_latent_inpaint(sd: StableDiffusionBundle, warped_latent,
+                           reference_img, mask, c_text: str, uc_text: str,
+                           denoising_strength: float = 0.05,
+                           ddim_steps: int = 50, mask_blur: int = 16,
+                           guidance_schedule_func=None,
+                           cfg_scale: float = 7.0, seed: int = 1234,
+                           reference_kv=None, capture_kv: bool = False,
+                           control_specs=()):
+    """Latent-space inpaint on the inpainting model: blend the warped
+    latent [1, h, w, 4] with the encoded reference [1, H, W, 3] by the
+    binarised latent mask (mask [H, W], 1 = inpaint: the reference), then
+    inpaint-condition on its decode and denoise with DDIM; where the last
+    re-noise gate is on, the result is composited against the warped
+    latent. Returns (image, decoded_latent, init_latent_decoded,
+    kv_hist)."""
+    ctx_c = sd.get_learned_conditioning(c_text)
+    ctx_u = sd.get_learned_conditioning(uc_text)
+    warped_latent = torch.as_tensor(warped_latent,
+                                    device=sd.device).to(sd.dtype)
+    reference_img = torch.as_tensor(reference_img,
+                                    device=sd.device).to(sd.dtype)
+    mask01 = torch.as_tensor(mask, dtype=torch.float32, device=sd.device)
+    t_enc = _t_enc(denoising_strength, ddim_steps)
+    gen = torch.Generator(sd.device).manual_seed(seed)
+    noise = draw_inpaint_noise(gen, warped_latent.shape, t_enc,
+                               has_reference=True, tile_noise=False,
+                               tile_renoise=False, device=sd.device)
+    image_mask = _blurred_mask(mask01, mask_blur)
+    ref_latent = V.encode(sd.vae_params, sd.vae_cfg, reference_img,
+                          noise=noise.enc)
+    h, w = ref_latent.shape[1:3]
+    nmask = torch.round(resize(image_mask[:, :, None], (h, w),
+                               "linear"))[None]
+    init_latent = ((1.0 - nmask) * warped_latent
+                   + nmask * ref_latent).to(ref_latent.dtype)
+    init_decoded = V.decode(sd.vae_params, sd.vae_cfg,
+                            init_latent).clamp(-1.0, 1.0)
+    c_concat = build_inpaint_conditioning(sd, init_decoded, image_mask,
+                                          noise.cdt)
+    gates, final = _gates(guidance_schedule_func, t_enc, ddim_steps)
+    controls, weights = _prep_controls(control_specs, t_enc, ddim_steps)
+    out, decoded, kv = _latent_core(
+        sd, init_latent, ctx_c, ctx_u, noise.forward, t_enc=t_enc,
+        ddim_steps=ddim_steps, cfg_scale=cfg_scale, sampler="ddim",
+        c_concat=c_concat, nmask=nmask, renoise_gate=gates,
+        renoise_noise=noise.renoise, ref_kv=reference_kv,
+        capture_kv=capture_kv, controls=controls, control_weights=weights)
+    if final:
+        nm = nmask.to(decoded.dtype)
+        decoded = warped_latent * (1.0 - nm) + decoded * nm
+        out = V.decode(sd.vae_params, sd.vae_cfg, decoded).clamp(-1.0, 1.0)
+    return out, decoded, init_decoded, kv
 
 
 def img2img_inpaint_batch(sd: StableDiffusionBundle, images, c_texts,
@@ -408,14 +693,12 @@ def img2img_inpaint_batch(sd: StableDiffusionBundle, images, c_texts,
     images / reference_imgs: [B, H, W, 3] in [-1, 1]; masks [B, H, W] in
     {0, 1}; c_texts: B prompts. ``reference_kv``: per-layer (k, v) with
     batch B (each frame injects its own references) or 1 (one set for
-    all). Returns images [B, H, W, 3], and with ``capture_kv`` also the
-    batch's kv_hist (split it per frame with :func:`split_kv_batch`).
-    ``mesh`` (data parallelism) and ``cfg_interval`` are not ported yet
-    and raise NotImplementedError."""
+    all). ``cfg_interval`` > 1: CFG caching (DDIM). Returns images [B, H,
+    W, 3], and with ``capture_kv`` also the batch's kv_hist (split it per
+    frame with :func:`split_kv_batch`). ``mesh`` (data parallelism) is
+    not ported yet and raises NotImplementedError."""
     if mesh is not None:
         _not_ported("mesh (data-parallel batches)", "8")
-    if cfg_interval != 1:
-        _not_ported("cfg_interval != 1", "6")
     check_sampler(sampler)
     images = torch.as_tensor(images, device=sd.device).to(sd.dtype)
     b = images.shape[0]
@@ -439,7 +722,8 @@ def img2img_inpaint_batch(sd: StableDiffusionBundle, images, c_texts,
         ctx_c, ctx_u, gates, reference_kv, noise, mask_blur=mask_blur,
         t_enc=t_enc, ddim_steps=ddim_steps, cfg_scale=cfg_scale,
         capture_kv=capture_kv, final_composite=final_composite,
-        has_reference=True, want_init_decoded=False, sampler=sampler)
+        has_reference=True, want_init_decoded=False, sampler=sampler,
+        cfg_interval=cfg_interval)
     return (out, kv) if capture_kv else out
 
 

@@ -191,8 +191,8 @@ def test_img2img_slice_matches_jax(bundles, np_rng, sampler):
 
 def test_img2img_api_on_cpu(bundles):
     """The public entry point end to end on the CPU: seeded noise is
-    deterministic, both samplers run, and unported hooks and bad sampler
-    strings are refused at the boundary."""
+    deterministic, both samplers run, and the unported ``sp`` hook and
+    bad sampler strings are refused at the boundary."""
     _, sd = bundles
     img = torch.rand((1, 32, 48, 3)) * 2 - 1
     a, kv = TF.img2img(sd, img, "a fox", "", 0.4, ddim_steps=5, seed=7)
@@ -205,11 +205,8 @@ def test_img2img_api_on_cpu(bundles):
     for bad in ("ddpm", "dpm", "dpmpp:", "dpmpp:x", "dpmpp:0", "DDIM"):
         with pytest.raises(ValueError, match="sampler"):
             TF.img2img(sd, img, "a fox", "", sampler=bad)
-    for kw in ({"target_img": img}, {"control_specs": (1,)},
-               {"sp": object()}, {"deepcache_interval": 2},
-               {"cfg_interval": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.img2img(sd, img, "a fox", "", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TF.img2img(sd, img, "a fox", "", sp=object())
 
 
 def test_create_model_boundaries():

@@ -107,15 +107,13 @@ def test_unet_unported_arguments_raise(models):
     x = torch.zeros((2, 8, 12, 4))
     t = torch.zeros((2,), dtype=torch.int32)
     ctx = torch.zeros((2, 13, 64))
-    for kw in ({"control": ()}, {"sp": object()}, {"y": torch.zeros(2)}):
+    for kw in ({"sp": object()}, {"y": torch.zeros(2)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TU.unet_apply(tp, tu, x, t, ctx, **kw)
     # ported, but not with the stem dedup (the CFG halves differ)
     with pytest.raises(ValueError, match="context_pair"):
         TU.unet_apply(tp, tu, x[:1], t[:1], None, attn_biases={},
                       context_pair=(ctx[:1], ctx[1:]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TU.unet_apply_deepcache(tp, tu, x, t, ctx)
 
 
 @pytest.mark.parametrize("clip_skip", [0, 2])

@@ -29,16 +29,29 @@ VAE_KW = dict(ch=32, ch_mult=(1, 2, 4), num_res_blocks=1)
 CLIP_KW = dict(vocab_size=1000, width=64, layers=2, heads=4)
 
 
+# the zero-initialised convs: the UNet's resblock / transformer outputs and
+# final conv, ControlNet's middle-block and hint-encoder outputs (its
+# per-block ``zero_convs`` list is matched by name below)
+_ZERO_CONVS = ("out_conv", "proj_out", "conv", "middle_out", "hint_out")
+
+
 def perturb_zero_convs(tree, rng):
     """Give the zero-initialised output convs small random weights, so
-    every attention reaches the output (in place, numpy leaves)."""
+    every attention reaches the output and every ControlNet residual is
+    nonzero (in place, numpy leaves)."""
+    def perturb(conv):
+        if not np.asarray(conv["w"]).any():
+            conv["w"] = (rng.standard_normal(np.shape(conv["w"]))
+                         * 0.05).astype(np.float32)
+
     if isinstance(tree, dict):
         for key, sub in tree.items():
-            if key in ("out_conv", "proj_out", "conv") and \
-                    isinstance(sub, dict) and "w" in sub and \
-                    not np.asarray(sub["w"]).any():
-                sub["w"] = (rng.standard_normal(np.shape(sub["w"]))
-                            * 0.05).astype(np.float32)
+            if key == "zero_convs":
+                for conv in sub:
+                    perturb(conv)
+            elif key in _ZERO_CONVS and isinstance(sub, dict) \
+                    and "w" in sub:
+                perturb(sub)
             else:
                 perturb_zero_convs(sub, rng)
     elif isinstance(tree, list):
