@@ -51,7 +51,16 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     ``target_img`` in latent and pixel space, the inpaint with
     ``cfg_interval=2`` and img2img with ``deepcache_interval=3`` (#1
     launched less than by plain img2img), each checked and timed, the
-    first profiled; then
+    first profiled; then the ``[kfpipe]`` phase, with both bundles, the
+    flow pair trained at 512x768 and ``[control]``'s ControlNet and HED:
+    ``keyframe_inpaint.run`` on an 8-frame 512x768 pan clip (two levels)
+    in the CLI's configuration (crossattn, level batch 4; run A) and in
+    ``both`` mode through the serial loop with the ControlNets (run B),
+    each frame checked, the launches of #1-#4, #6 (A) and #10 checked,
+    s per frame by level; the fused prep and ``expand_mask`` card
+    against CPU, the K/V store's round trip, the frame pipe's cache hits
+    (its C++ library built by g++ into ``build/native/``), a back-fill
+    chunk profiled; and ``ofgen.run`` on 3 frames; then
     the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
@@ -1337,7 +1346,8 @@ def run_control_phase(sd, sd9, kernels, gen):
        space, ``img2img_inpaint`` with ``cfg_interval=2`` and ``img2img``
        with ``deepcache_interval=3`` (#1 launched fewer times than by
        plain ``img2img``). Returns (summary, the launch counts of each
-       run, failures)."""
+       run, failures, the keyframe pipeline's control bundle: the
+       ControlNet, its config and the HED function)."""
     import numpy as np
     from sd_animation_optical_flow_tpu_torch.config import _channels_last
     from sd_animation_optical_flow_tpu_torch.models import controlnet as CN
@@ -1472,7 +1482,342 @@ def run_control_phase(sd, sd9, kernels, gen):
     summary["launches"] = counts
     summary["profile_busy_wall_ms"] = profile_frame(
         drives["1 img2img controls"], "control img2img with 2 ControlNets")
+    return summary, all_counts, failures, (cn, sd.unet_cfg, hed_fn)
+
+
+# ---------------------------------------------------------------------------
+# the keyframe pipeline and ofgen
+# ---------------------------------------------------------------------------
+
+KFPIPE_FRAMES = 8
+# run A (crossattn, level batch 4) launches these; run B ('both', serial,
+# ControlNets) all but #6, which only K/V injection reaches
+KFPIPE_KERNELS = ("flash_attention_tpv", "flash_attention", "linear_ln_fused",
+                  "geglu_ff_fused", "flash_attention_keymask",
+                  "flash_attention_mfr")
+KFPIPE_IDLE = ("flash_attention_banded", "flash_fwd_stats", "flash_bwd_dkv",
+               "flash_bwd_dq")
+
+
+def run_kfpipe_phase(sd, sd9, control, kernels, card):
+    """The keyframe pipeline (``pipelines/keyframe_inpaint.run``) and the
+    warp-as-guidance pipeline (``pipelines/ofgen.run``) at 512x768, with
+    the flow pair trained at 512x768 (fb confidence) and an 8-frame pan
+    clip (``_pan_frames``); windows of 2 frames, stride 2, so the clip
+    builds two levels (8 -> 4 -> 2 key frames) and 2 seed frames or 3:
+
+    * run A, the CLI's configuration: ``warp_and_inpaint_crossattn``,
+      ``level_batch`` 4 (2 frames a chunk at 512x768), ``flow_batch`` 8,
+      ``n_seed_frames`` 2, 50 steps at strength 0.8;
+    * run B: ``both`` ([target | reference] strips), ``level_batch`` 1
+      (the serial loop), the ``[control]`` phase's ControlNet and HED as
+      the control bundle, 20 steps.
+
+    Each run: every frame generated, 512x768, its model outputs finite;
+    its launches (counters reset just before, read just after) reach
+    #1-#4, #6 (A) and #10 (both), and not #5 or #7-#9; s per generated
+    frame of the seed strip and of each level's back-fill (host clock,
+    synchronized). Then on run A's workspace: the fused prep
+    (``_fused_prep_impl``, two references, f32 correlation) on the card
+    against the CPU at 256x384 (merged within 4 LSB on >= 99% of pixels,
+    covered >= 99% equal), its device time at 512x768 (profiler);
+    ``expand_mask`` card against CPU (equal); the K/V store round trip
+    (equal at f16) and its ms; the frame pipe's cache hits; one back-fill
+    chunk of 2 frames under the profiler. Last ``ofgen.run`` on 3 frames
+    (defaults: strength 0.4, 50 steps; flow from the same pair): 3
+    converted_, 3 raw_ and 2 wrapped_ PNGs, s/frame. Returns (summary,
+    the launch counts of runs A, B and ofgen, failures)."""
+    import contextlib
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from sd_animation_optical_flow_tpu_torch.models import flowconf as FC
+    from sd_animation_optical_flow_tpu_torch.models import raft as RF
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        keyframe_inpaint as KI
+    from sd_animation_optical_flow_tpu_torch.pipelines import ofgen as OF
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import (
+        ARTIFACTS, load_flow_estimator)
+    failures, summary, all_counts = [], {}, []
+    pair = [os.path.join(ARTIFACTS, f"{n}_{H}x{W}.npz")
+            for n in ("raft_synth", "uncertainty_head_synth")]
+    est = load_flow_estimator(raft_path=pair[0], head_path=pair[1],
+                              device="cuda")
+    clip = _pan_frames(np.random.default_rng(SEED + 2), KFPIPE_FRAMES, H, W)
+
+    # spies: outputs recorded as device tensors and read after each run;
+    # the timed steps synchronize around themselves
+    seen = {"finite": [], "kv": None, "steps": []}
+
+    def spy(fn, image_of, keep_kv=False):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            seen["finite"].append(torch.isfinite(image_of(out)).all())
+            if keep_kv and out[1] is not None:
+                seen["kv"] = out[1]
+            return out
+        return wrapped
+
+    def timed(fn, level_of, frames_of):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seen["steps"].append((level_of(a, k), frames_of(a, k),
+                                  time.time() - t0))
+            return out
+        return wrapped
+
+    patches = [
+        mock.patch.object(F, "img2img", spy(F.img2img, lambda o: o[0],
+                                            keep_kv=True)),
+        mock.patch.object(F, "img2img_inpaint",
+                          spy(F.img2img_inpaint, lambda o: o[0])),
+        mock.patch.object(F, "img2img_inpaint_batch", spy(
+            F.img2img_inpaint_batch,
+            lambda o: o[0] if isinstance(o, tuple) else o)),
+        mock.patch.object(KI, "generate_seed_frames", timed(
+            KI.generate_seed_frames, lambda a, k: "seed",
+            lambda a, k: len(a[3]))),
+        mock.patch.object(KI, "_backfill_level_batched", timed(
+            KI._backfill_level_batched, lambda a, k: a[7],
+            lambda a, k: len(a[3]))),
+        mock.patch.object(KI, "generate_with_refs", timed(
+            KI.generate_with_refs, lambda a, k: k["level"],
+            lambda a, k: 1))]
+    shape = dict(size=(W, H), keep_every=1, kernel_size=2, stride=2,
+                 dilation=1, n_seed_frames=2)
+    runs = {"A": (KI.KeyframeInpaintConfig(
+                mode="warp_and_inpaint_crossattn", level_batch=4,
+                flow_batch=8, **shape), None),
+            "B": (KI.KeyframeInpaintConfig(mode="both", level_batch=1,
+                                           ddim_steps=20, **shape),
+                  control)}
+    out_root = Path(__file__).resolve().parent / "build"
+    out_root.mkdir(parents=True, exist_ok=True)
+    videos = {}
+    with tempfile.TemporaryDirectory(dir=out_root) as tmp, \
+            contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        for name, (cfg, bundle) in runs.items():
+            video = KI.VideoWorkspace(f"{tmp}/{name}", frames=clip,
+                                      size=(W, H), keep_every=1)
+            videos[name] = video
+            seen["finite"], seen["steps"] = [], []
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            KI.run(video, sd, sd9, est, tagger=None, cfg=cfg,
+                   control_bundle=bundle)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            counts = {k: fn.launches for k, fn in kernels.items()}
+            all_counts.append(counts)
+            ai = [video.get_ai_frame(i) for i in range(video.num_frames)]
+            ok = all(a is not None and a.shape == (H, W, 3) for a in ai) \
+                and bool(seen["finite"]) \
+                and all(f.item() for f in seen["finite"])
+            levels = {}
+            for level, n, s in seen["steps"]:
+                tot = levels.setdefault(str(level), [0, 0.0])
+                tot[0] += n
+                tot[1] += s
+            per_frame = {lv: s / n for lv, (n, s) in levels.items()}
+            seeds = sorted(os.listdir(f"{tmp}/{name}/seed"))
+            keys = {d: sorted(os.listdir(f"{tmp}/{name}/{d}"))
+                    for d in sorted(os.listdir(f"{tmp}/{name}"))
+                    if d.startswith("d")}
+            summary[f"run_{name}"] = {
+                "seconds": secs, "frames": video.num_frames,
+                "s_per_frame_by_level": per_frame,
+                "frames_by_level": {lv: n for lv, (n, _) in levels.items()},
+                "launches": counts}
+            log(f"[kfpipe] run {name} ({cfg.mode}, level_batch "
+                f"{cfg.level_batch}, {cfg.ddim_steps} steps at strength "
+                f"{cfg.denoising_strength}"
+                + (", 2 ControlNets" if bundle else "") + f"): "
+                f"{video.num_frames} frames of {H}x{W} in {secs:.2f} s; key "
+                f"frames {keys}, seeds {seeds}; all generated, finite "
+                f"{ok}; launches {counts}")
+            for lv, s in per_frame.items():
+                log(f"[kfpipe] run {name} s per generated frame, "
+                    + ("seed strip" if lv == "seed" else f"level {lv} "
+                       "back-fill")
+                    + f" ({levels[lv][0]} frames): {s:.3f} s ({card})")
+            if not ok:
+                failures.append(f"kfpipe run {name}: frames or outputs bad")
+            must = KFPIPE_KERNELS if name == "A" else tuple(
+                k for k in KFPIPE_KERNELS if k != "flash_attention_keymask")
+            for k in must:
+                if counts[k] == 0:
+                    failures.append(f"kfpipe run {name}: {k} never launched")
+            for k in KFPIPE_IDLE:
+                if counts[k]:
+                    failures.append(f"kfpipe run {name}: {k} launched "
+                                    f"{counts[k]} times")
+        stack.close()               # the spies and timers off
+
+        video = videos["A"]
+        cfg_a = runs["A"][0]
+        failures += _kfpipe_checks(video, est, seen["kv"], summary, card, KI,
+                                   FC, RF)
+
+        # one back-fill chunk under the profiler: the last 2 frames without
+        # a K/V store (level 0's), from the frames with one (the seeds and
+        # level 1), at level 1 (each frame stores its K/V)
+        stored = {int(f[:5]) for f in os.listdir(
+            f"{video.workspace_dir}/crossattn")}
+        chunk = [i for i in range(video.num_frames) if i not in stored][-2:]
+        rest = KI.FrameIndices(stored)
+        cache = KI.FlowCache(est, video.workspace_dir, cfg_a.flow_batch)
+        back = lambda: (KI._backfill_level_batched(
+            sd9, None, video, KI.FrameIndices(chunk), rest, cache, cfg_a, 1,
+            video.workspace_dir), torch.cuda.synchronize())
+        reset_counts(kernels)
+        prof = profile_frame(back, f"kfpipe back-fill chunk of frames "
+                             f"{chunk} (crossattn, 40 steps)")
+        summary["backfill_chunk"] = {
+            "frames": chunk, "profile_busy_wall_ms": prof,
+            "launches": {k: fn.launches for k, fn in kernels.items()}}
+        log(f"[kfpipe] back-fill chunk of 2 frames under the profiler: "
+            + (f"device busy {prof[0]:.1f} ms of {prof[1]:.1f} ms (idle "
+               f"{1 - prof[0] / prof[1]:.3f})" if prof else "not measured")
+            + f"; wrapper launches {summary['backfill_chunk']['launches']} "
+            f"({card})")
+        for v in videos.values():
+            v.close()
+
+        # ofgen on 3 frames, flow from the 512x768 pair
+        def flow_calc(prev, cur):
+            flow, _, _ = est.calc(prev[..., ::-1], cur[..., ::-1])
+            return flow
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out_dir = OF.run(clip[:3], f"{tmp}/ofgen", sd, flow_calc)
+        torch.cuda.synchronize()
+        of_s = (time.time() - t0) / 3
+        of_counts = {k: fn.launches for k, fn in kernels.items()}
+        all_counts.append(of_counts)
+        names = sorted(os.listdir(out_dir))
+        kinds = {k: sum(n.startswith(k + "_") for n in names)
+                 for k in ("converted", "raw", "wrapped")}
+        ok_of = kinds == {"converted": 3, "raw": 3, "wrapped": 2} and all(
+            KI.read_png_bgr(os.path.join(out_dir, n)).shape == (H, W, 3)
+            for n in names)
+        summary["ofgen"] = {"s_per_frame": of_s, "files": kinds,
+                            "launches": of_counts}
+        log(f"[kfpipe] ofgen.run on 3 frames of {H}x{W} (strength 0.4, 50 "
+            f"steps, latent guidance toward the warped previous frame): "
+            f"{of_s:.3f} s/frame ({card}); files {kinds} at {H}x{W} {ok_of}; "
+            f"launches {of_counts}")
+        if not ok_of:
+            failures.append(f"kfpipe ofgen: files {names}")
+        for k in PIXEL_KERNELS:
+            if of_counts[k] == 0:
+                failures.append(f"kfpipe ofgen: {k} never launched")
     return summary, all_counts, failures
+
+
+def _kfpipe_checks(video, est, kv, summary, card, KI, FC, RF):
+    """[kfpipe]'s checks on run A's workspace (see run_kfpipe_phase)."""
+    import numpy as np
+    failures = []
+    # the fused prep, card against CPU at 256x384, two references
+    h, w = H // 2, W // 2
+    crop = lambda a: np.ascontiguousarray(a[:h, :w])
+    refs, idx = (0, 2), 1
+    src = np.stack([crop(video.get_raw_frame(r)) for r in refs])
+    ai = np.stack([crop(video.get_ai_frame(r)) for r in refs])
+    tgt = crop(video.get_raw_frame(idx))
+    cfg32 = FC.FlowConfidenceConfig(raft=RF.RAFTConfig(corr_dtype="float32"))
+    outs = {}
+    t0 = time.time()
+    for dev, params, head in (("cuda", est.params, est.head_params),
+                              ("cpu", to_cpu_f32(est.params),
+                               to_cpu_f32(est.head_params))):
+        up = lambda a: torch.as_tensor(a, device=dev)
+        outs[dev] = [o.cpu() for o in KI._fused_prep_impl(
+            params, head, cfg32, up(src), up(tgt), up(ai), thres=0.5,
+            expand="dilate")]
+    diff = (outs["cuda"][0].int() - outs["cpu"][0].int()).abs()
+    within4 = (diff <= 4).float().mean().item()
+    cov_eq = (outs["cuda"][1] == outs["cpu"][1]).float().mean().item()
+    cover = (outs["cpu"][1] > 0).float().mean().item()
+    summary["fused_prep_card_vs_cpu"] = {"merged_within_4": within4,
+                                         "covered_equal": cov_eq,
+                                         "covered_share": cover}
+    log(f"[kfpipe] fused prep (RAFT + fb, 2 references, f32 correlation) "
+        f"at {h}x{w}, card vs CPU: merged within 4 LSB on {within4:.5f} of "
+        f"pixels (>= 0.99), covered equal on {cov_eq:.5f} (>= 0.99); "
+        f"covered share {cover:.4f}; CPU and card {time.time() - t0:.1f} s")
+    if not (within4 >= 0.99 and cov_eq >= 0.99):
+        failures.append(f"kfpipe: fused prep card vs CPU merged {within4}, "
+                        f"covered {cov_eq}")
+
+    # its device time at 512x768, as run A calls it (one reference)
+    prep = lambda: (KI.fused_flow_warp_merge(est, video, [0], idx,
+                                             thres=0.5, expand="none"),
+                    torch.cuda.synchronize())
+    prep()
+    prof = profile_frame(prep, f"kfpipe fused prep {H}x{W}, 1 reference")
+    summary["fused_prep_profile_busy_wall_ms"] = prof
+    log(f"[kfpipe] fused prep at {H}x{W}, one reference (RAFT fb pair, "
+        f"warp, merge; bf16 correlation): device busy "
+        + (f"{prof[0]:.2f} ms of {prof[1]:.2f} ms wall" if prof
+           else "not measured") + f" ({card})")
+
+    # expand_mask, card against CPU
+    frame = video.get_raw_frame(idx)
+    mask = (_blob_mask(H, W, H * 0.5, W * 0.4, H * 0.2,
+                       torch.Generator("cuda").manual_seed(SEED))
+            * 255).to(torch.uint8)
+    e_card = KI.expand_mask(mask, frame)
+    e_cpu = KI.expand_mask(mask.cpu(), frame)
+    same = torch.equal(e_card.cpu(), e_cpu)
+    summary["expand_mask_equal"] = same
+    log(f"[kfpipe] expand_mask at {H}x{W}, card vs CPU equal {same} (mask "
+        f"{(mask > 0).float().mean().item():.4f} -> "
+        f"{(e_cpu > 0).float().mean().item():.4f} of the frame)")
+    if not same:
+        failures.append("kfpipe: expand_mask card vs CPU differ")
+
+    # the K/V store: the seed strip's 16 pairs, round trip at f16
+    if kv is None:
+        failures.append("kfpipe: no K/V captured")
+    else:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        video.put_kv(9999, kv)
+        put_ms = 1e3 * (time.time() - t0)
+        t0 = time.time()
+        back = video.get_kv(9999)
+        torch.cuda.synchronize()
+        get_ms = 1e3 * (time.time() - t0)
+        video.remove_kv(9999)
+        equal = len(back) == len(kv) and all(
+            torch.equal(b, t.half().bfloat16())
+            for pb, pk in zip(back, kv) for b, t in zip(pb, pk))
+        mb = sum(t.numel() for p in kv for t in p) * 2 / 2 ** 20
+        summary["kv_store"] = {"equal_at_f16": equal, "put_ms": put_ms,
+                               "get_ms": get_ms, "mib_f16": mb}
+        log(f"[kfpipe] K/V store round trip ({len(kv)} pairs, {mb:.1f} MiB "
+            f"at f16): equal {equal}; put_kv {put_ms:.1f} ms, get_kv "
+            f"{get_ms:.1f} ms (host clock, synchronized; {card})")
+        if not equal:
+            failures.append("kfpipe: K/V store round trip differs")
+
+    stats = video._frame_pipe.stats()
+    summary["frame_pipe"] = stats
+    log(f"[kfpipe] frame pipe over run A: {stats}")
+    if stats["cache_hits"] <= 0:
+        failures.append(f"kfpipe: frame pipe never hit its cache {stats}")
+    return failures
 
 
 def _leaves(tree):
@@ -2045,11 +2390,16 @@ def main() -> int:
     phases["pixel"] = time.time() - t0
     failures += pixel_failures
     t0 = time.time()
-    control, control_counts, control_failures = run_control_phase(
-        sd, sd9, kernels, gen)
+    control, control_counts, control_failures, control_bundle = \
+        run_control_phase(sd, sd9, kernels, gen)
     phases["control"] = time.time() - t0
     failures += control_failures
-    del sd9
+    t0 = time.time()
+    kfpipe, kfpipe_counts, kfpipe_failures = run_kfpipe_phase(
+        sd, sd9, control_bundle, kernels, card)
+    phases["kfpipe"] = time.time() - t0
+    failures += kfpipe_failures
+    del sd9, control_bundle
     torch.cuda.empty_cache()
     t0 = time.time()
     flowtrain, flowtrain_counts, flowtrain_failures = \
@@ -2062,7 +2412,8 @@ def main() -> int:
     failures += banded_failures
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
-        + [(None, c, None) for c in pixel_counts + control_counts] \
+        + [(None, c, None)
+           for c in pixel_counts + control_counts + kfpipe_counts] \
         + [(None, banded["counts"], None), (None, flowtrain_counts, None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
@@ -2093,7 +2444,7 @@ def main() -> int:
     log(json.dumps({"kernels": table}))
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
-                    "pixel": pixel, "control": control,
+                    "pixel": pixel, "control": control, "kfpipe": kfpipe,
                     "flowtrain": flowtrain,
                     "banded": banded, "train": train,
                     "unet_rel_err": unet_rel,

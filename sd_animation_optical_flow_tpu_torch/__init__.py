@@ -18,7 +18,12 @@ scenes rendered on the card, RAFT's sequence loss and train step, the
 uncertainty head's step, pretraining and evaluation; the npz writer),
 and ControlNet with the HED annotator and the sampler hooks (guidance
 blending, CFG caching, DeepCache; ``models/controlnet.py``,
-``models/hed.py``, ``diffusion/ddim.ddim_decode``) —
+``models/hed.py``, ``diffusion/ddim.ddim_decode``), and the keyframe
+pipeline (``pipelines/keyframe_inpaint.py``: the resumable workspace
+behind the native frame pipe, the flow cache, the level pyramid, the
+fused flow + warp + merge prep, the seed strip and the serial and
+level-batched back-fill) with the warp-as-guidance ``pipelines/ofgen.py``
+—
 
     import sd_animation_optical_flow_tpu_torch as M
     sd = M.create_model("sd15", dtype=torch.bfloat16)     # random weights
@@ -32,6 +37,10 @@ blending, CFG caching, DeepCache; ``models/controlnet.py``,
                                           flow, cfg=cfg)
     raft, m = M.train_raft_synthetic(M.RAFTConfig(corr_dtype="float32"),
                                      h=512, w=768, init_params=raft)
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        keyframe_inpaint as KI
+    KI.run(KI.VideoWorkspace("out/ws", frames=clip_bgr_u8), sd, sd9, flow,
+           cfg=KI.KeyframeInpaintConfig(level_batch=4))
 """
 
 _LAZY = {

@@ -8,7 +8,8 @@ inpaint facade), ``ellipse_kernel`` (cv2's ``MORPH_ELLIPSE`` structuring
 element, computed here: the port does not need cv2), ``dilate`` (max over
 zero-padded shifts), ``canny`` (cv2.Canny's edge map, pixel for pixel,
 of a grey or a colour image), ``bgr_to_gray_u8`` (cv2.cvtColor's
-BGR2GRAY), ``sobel_soft_edge`` (the ControlNet HED hint's cv2.Sobel
+BGR2GRAY), ``laplacian_abs_u8`` (the keyframe pipeline's |cv2.Laplacian|
+edge map), ``sobel_soft_edge`` (the ControlNet HED hint's cv2.Sobel
 fallback) and ``unsharp``.
 """
 
@@ -29,10 +30,14 @@ _FILL_SCHEDULE = ((256, 1), (64, 1), (16, 2), (4, 4), (2, 2), (0, 1))
 
 
 @functools.lru_cache(maxsize=64)
-def gaussian_kernel_1d(sigma: float) -> np.ndarray:
-    """cv2.getGaussianKernel with ksize derived from sigma
-    (round(sigma * 3) * 2 + 1)."""
-    ksize = int(round(sigma * 3)) * 2 + 1
+def gaussian_kernel_1d(sigma: float, ksize: int = 0) -> np.ndarray:
+    """cv2.getGaussianKernel: ``ksize`` 0 derives the size from sigma
+    (round(sigma * 3) * 2 + 1); sigma <= 0 derives sigma from ksize
+    (0.3 * ((ksize - 1) / 2 - 1) + 0.8)."""
+    if ksize <= 0:
+        ksize = int(round(sigma * 3)) * 2 + 1
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
     r = (ksize - 1) / 2
     x = np.arange(ksize) - r
     k = np.exp(-(x ** 2) / (2 * sigma ** 2))
@@ -53,11 +58,12 @@ def _sep_filter(x, k, axis):
     return out
 
 
-def gaussian_blur(x, sigma: float):
+def gaussian_blur(x, sigma: float, ksize: int = 0):
     """A true separable Gaussian over the first two axes of a float x
-    ([H, W] or [H, W, C]). Like the JAX function it blurs axes 0 and 1
-    of whatever it is given."""
-    k = gaussian_kernel_1d(float(sigma))
+    ([H, W] or [H, W, C]), ``ksize`` taps (0: from sigma, as
+    :func:`gaussian_kernel_1d`). Like the JAX function it blurs axes 0
+    and 1 of whatever it is given."""
+    k = gaussian_kernel_1d(float(sigma), int(ksize))
     return _sep_filter(_sep_filter(x, k, 0), k, 1)
 
 
@@ -182,14 +188,30 @@ def bgr_to_gray_u8(img_u8):
 
 
 def _reflect101_pad1(x):
-    """x [H, W] padded by one pixel on each side, mirrored about the edge
-    pixel (cv2's BORDER_REFLECT_101, its default border)."""
-    h, w = x.shape
+    """x [H, W] (or [H, W, C]) padded by one pixel on each side, mirrored
+    about the edge pixel (cv2's BORDER_REFLECT_101, its default
+    border)."""
+    h, w = x.shape[:2]
     rows = torch.arange(-1, h + 1, device=x.device).abs()
     rows = torch.where(rows > h - 1, 2 * (h - 1) - rows, rows)
     cols = torch.arange(-1, w + 1, device=x.device).abs()
     cols = torch.where(cols > w - 1, 2 * (w - 1) - cols, cols)
     return x.index_select(0, rows).index_select(1, cols)
+
+
+def laplacian_abs_u8(img_u8):
+    """The keyframe pipeline's edge map ``np.absolute(cv2.Laplacian(img,
+    cv2.CV_64F)).astype(np.uint8)`` of a [H, W] or [H, W, C] uint8
+    tensor, per channel, in integer arithmetic: the 3x3 aperture [[0, 1,
+    0], [1, -4, 1], [0, 1, 0]] with cv2's default border (reflect 101).
+    |Laplacian| reaches 1020, and numpy's float64 -> uint8 cast wraps it
+    modulo 256; the integer is taken ``& 255`` here to the same bytes
+    (torch's out-of-range float cast is undefined)."""
+    h, w = img_u8.shape[:2]
+    p = _reflect101_pad1(img_u8.to(torch.int32))
+    lap = p[:h, 1:w + 1] + p[2:, 1:w + 1] + p[1:h + 1, :w] \
+        + p[1:h + 1, 2:] - 4 * p[1:h + 1, 1:w + 1]
+    return (lap.abs() & 255).to(torch.uint8)
 
 
 def sobel_soft_edge(gray_u8):

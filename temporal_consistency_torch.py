@@ -23,6 +23,12 @@ frame), frame batch 8. Rows:
 * artifact: the same with the committed ``artifacts/raft_synth.npz`` and
   the learned confidence head ``uncertainty_head_synth.npz``;
 * oracle_ppw: the oracle with ``propagated_pixel_weight`` 0.9;
+* kf_artifact: the keyframe pipeline (``keyframe_inpaint.run``,
+  ``warp_and_inpaint_crossattn``, the config's defaults: windows of 30
+  frames at stride 15 and dilation 2, one seed frame, one reference)
+  with the artifact row's flow, the JAX benchmark's KF=1 row;
+  kf_pair_512x768_fb: the same with the pair trained at 512x768 and fb
+  confidence, when the checkout has it;
 * pair_512x768: the artifact row with the pair trained at 512x768
   (``artifacts/raft_synth_512x768.npz`` and
   ``uncertainty_head_synth_512x768.npz``, ``train_flow_torch.py``) and its
@@ -44,7 +50,9 @@ window after the key frame's ``converted_`` file) under the profiler for
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 temporal_consistency_torch.py [--repeats 2] [--out DIR]
+    python3 temporal_consistency_torch.py [--repeats 2] [--out DIR] [--kf-only]
+
+(``--kf-only``: the naive and keyframe rows alone.)
 
 Prints one line per row and turn, the card line, and a JSON summary as
 the last line. Exits nonzero without a card, or when a row's output is
@@ -193,6 +201,26 @@ def naive_row(proc, sd):
     return outs, time.time() - t0
 
 
+def kf_row(name, frames, sd, sd9, flow, out_root):
+    """The keyframe pipeline's KF=1 row: ``keyframe_inpaint.run`` in
+    ``warp_and_inpaint_crossattn`` over the clip at ``keep_every`` 3 (the
+    JAX row's configuration: the config's defaults but the benchmark's
+    steps, strength and flow batch 8): (AI frames, seconds, None)."""
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        keyframe_inpaint as KI
+    video = KI.VideoWorkspace(f"{out_root}/{name}", frames=frames,
+                              size=(W, H), keep_every=KEEP_EVERY)
+    cfg = KI.KeyframeInpaintConfig(
+        size=(W, H), mode="warp_and_inpaint_crossattn", ddim_steps=STEPS,
+        denoising_strength=STRENGTH, seed=SEED, flow_batch=8)
+    t0 = time.time()
+    KI.run(video, sd, sd9, flow, tagger=None, cfg=cfg)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    return [video.get_ai_frame(i) for i in range(video.num_frames)], secs, \
+        None
+
+
 def timing(frames, sd, sd9, flow, out_root, repeats):
     """s/frame of run (batch 1) and run_batched (batch 8: padded tail,
     unpadded tail, fed by the generator) over the 16 processed frames,
@@ -280,6 +308,9 @@ def main() -> int:
                     help="turns of each timing variant")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "temporal",
                     help="where the rows' PNGs go (emptied first)")
+    ap.add_argument("--kf-only", action="store_true",
+                    help="only the naive and the keyframe pipeline's rows "
+                         "(no pixel-pipeline rows, no timing)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("temporal_consistency_torch: no CUDA device", file=sys.stderr)
@@ -328,13 +359,18 @@ def main() -> int:
     rows = {}
     outs, secs = naive_row(proc, sd)
     rows["naive"] = (outs, secs, None)
-    variants = [("oracle", OracleFlow(), 0.0), ("artifact", artifact, 0.0),
-                ("oracle_ppw", OracleFlow(), 0.9)]
-    if trained:
+    variants = [] if args.kf_only else [
+        ("oracle", OracleFlow(), 0.0), ("artifact", artifact, 0.0),
+        ("oracle_ppw", OracleFlow(), 0.9)]
+    if trained and not args.kf_only:
         variants += [(f"pair_{H}x{W}", trained["learned"], 0.0),
                      (f"pair_{H}x{W}_fb", trained["fb"], 0.0)]
     for name, flow, ppw in variants:
         rows[name] = pixel_row(name, frames, sd, sd9, flow, args.out, ppw)
+    kf_variants = [("kf_artifact", artifact)] + (
+        [(f"kf_pair_{H}x{W}_fb", trained["fb"])] if trained else [])
+    for name, flow in kf_variants:
+        rows[name] = kf_row(name, frames, sd, sd9, flow, args.out)
     table = {}
     for name, (outs, secs, cover) in rows.items():
         ok = len(outs) == len(proc) and all(
@@ -353,8 +389,10 @@ def main() -> int:
               + ("-" if r["mask_coverage_mean"] is None
                  else f"{r['mask_coverage_mean']:.4f}"))
 
-    times = timing(frames, sd, sd9, artifact, args.out, args.repeats)
-    prof = profile_one_batch(frames, sd, sd9, artifact, args.out)
+    times = prof = None
+    if not args.kf_only:
+        times = timing(frames, sd, sd9, artifact, args.out, args.repeats)
+        prof = profile_one_batch(frames, sd, sd9, artifact, args.out)
     summary = {"rows": table, "timing": times, "profile_one_batch": prof,
                "frame_batch": FRAME_BATCH, "steps": STEPS,
                "strength": STRENGTH, "size": [H, W], "card": card}

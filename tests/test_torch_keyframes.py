@@ -175,8 +175,10 @@ def test_helpers_match_jax():
 
 def test_cv2_is_imported_only_by_frame_generator():
     """cv2 is imported nowhere in the port but inside
-    keyframes.frame_generator, and neither the port nor the card scripts
-    (chip_smoke.py, temporal_consistency_torch.py) import JAX."""
+    keyframes.frame_generator and the ``video_path=`` branch of
+    keyframe_inpaint.VideoWorkspace.__init__ (both decode a video file),
+    and neither the port nor the card scripts (chip_smoke.py,
+    temporal_consistency_torch.py) import JAX."""
     files = sorted((REPO / "sd_animation_optical_flow_tpu_torch").rglob(
         "*.py")) + [REPO / "chip_smoke.py",
                     REPO / "temporal_consistency_torch.py"]
@@ -198,7 +200,8 @@ def test_cv2_is_imported_only_by_frame_generator():
                 cv2_at.append((src.name, inside))
             if tops & {"jax", "jaxlib", "sd_animation_optical_flow_tpu"}:
                 jax_at.append(src.name)
-    assert cv2_at == [("keyframes.py", ["frame_generator"])], cv2_at
+    assert cv2_at == [("keyframe_inpaint.py", ["__init__"]),
+                      ("keyframes.py", ["frame_generator"])], cv2_at
     assert not jax_at, jax_at
 
 
