@@ -60,7 +60,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     s per frame by level; the fused prep and ``expand_mask`` card
     against CPU, the K/V store's round trip, the frame pipe's cache hits
     (its C++ library built by g++ into ``build/native/``), a back-fill
-    chunk profiled; and ``ofgen.run`` on 3 frames; then
+    chunk profiled; and ``ofgen.run`` on 3 frames; then the ``[variants]``
+    phase on ``sd15`` and, one after the other, ``sd15-depth`` and
+    ``sd-upscale``: ``txt2img``, ``img2img_invert``, PLMS, DDPM steps,
+    the standalone DPM-Solver++(2M) (plain and inpaint), depth2img with
+    a full-width DPT and latent upscaling at 512x768 (50 steps, CFG 7),
+    a full-width VQ round trip, OpenCLIP and T5, each checked and timed
+    (each entry point: the median of 3 runs after a counted warm-up run);
+    bf16 ``txt2img`` against the same bundle in f32 (>= 40 dB decoded);
+    the standalone DPM++ and ``ddim_sample`` against the multistep
+    engine (>= 40 dB decoded), the class-conditional UNet, the DPT, VQ's
+    indices and the two text encoders card against CPU; #1-#4 launched
+    on every UNet path, #5-#10 on none; then
     the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
@@ -84,6 +95,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1828,6 +1840,456 @@ def _leaves(tree):
     return [tree]
 
 
+# ---------------------------------------------------------------------------
+# the other samplers and model variants
+# ---------------------------------------------------------------------------
+
+VARIANT_KERNELS = PIXEL_KERNELS       # #1-#4 on every UNet path
+# no injection, strip, banded bias or gradient on these paths
+VARIANT_IDLE = ("flash_attention_banded", "flash_attention_keymask",
+                "flash_attention_mfr", "flash_fwd_stats", "flash_bwd_dkv",
+                "flash_bwd_dq")
+VARIANT_F32_LIMIT = 1e-3      # f32 card vs f32 CPU, TF32 off: sum order only
+VARIANT_TIMED = 3             # timed runs of an entry point after its warm-up
+# bf16 txt2img against the same weights in f32 (the dtype JAX's txt2img
+# runs its UNet and VAE in): BASELINE.md's 40 dB quality gate
+VARIANT_BF16_PSNR = 40.0
+
+
+def _psnr_pm1(a, b):
+    """PSNR of two images in [-1, 1] (peak to peak 2)."""
+    mse = (a.float() - b.float()).pow(2).mean().item()
+    return float("inf") if mse == 0 else 10 * math.log10(4.0 / mse)
+
+
+def _median_line(runs, unit="s", scale=1.0):
+    """'median (min-max) unit' of a drive's timed runs."""
+    v = sorted(scale * r for r in runs)
+    return (f"{statistics.median(v):.3f} {unit} (median of {len(v)} after "
+            f"a warm-up; {v[0]:.3f}-{v[-1]:.3f})")
+
+
+def run_variants_phase(sd, kernels, gen, card):
+    """The other samplers and model variants at 512x768, CFG 7, in the
+    ``sd`` bundle's dtype (bf16); each drive runs once with the launch
+    counters reset just before it and read just after, and each timed
+    entry point then runs ``VARIANT_TIMED`` more times (host clock,
+    synchronized; the median is printed, with the spread):
+
+    * ``txt2img`` (50 DDIM steps), ``img2img_invert`` (50 steps, cfg 1),
+      ``plms_decode`` (t_enc 20 of 50 from ``stochastic_encode`` of a
+      VAE-encoded frame; exactly 21 UNet evaluations, read as #4's
+      launches over those of one CFG evaluation), ``p_sample`` (10 DDPM
+      steps from t = 999), the standalone ``dpmpp_2m_decode`` (10 steps
+      from the dpmpp:10 entry level, plain and with the inpaint
+      re-noise), each sampler's latent decoded;
+    * ``txt2img`` on the same weights in f32 (the plain route, the dtype
+      JAX's ``txt2img`` runs in), decoded PSNR >= ``VARIANT_BF16_PSNR``
+      against the bf16 image; beside it, for scale, the f32 run from x_T
+      rounded to bf16 (no gate);
+    * cross-checks on the card: the standalone DPM++ against the
+      multistep engine's ``make_dpmpp_coeffs`` and ``ddim_sample`` from a
+      given x_T against the engine's ``make_ddim_coeffs(ddim, 50)`` (the
+      JAX identities), each pair decoded at >= 40 dB;
+    * ``img2img_depth2img`` on ``create_model("sd15-depth")`` with a
+      full-width ``DPTConfig()`` from random weights (head bias 0.5),
+      strength 0.5, 50 steps, and the DPT's device ms; ``upscale`` on
+      ``create_model("sd-upscale")``, 64x96 -> 512x768 at noise level
+      20, 50 steps; a full-width VQ round trip (``VQConfig()``, bf16);
+      OpenCLIP and T5 at full width on 77 tokens (f32);
+    * card against CPU: the class-conditional UNet with y at full width
+      on a [1, 16, 24, 7] latent, the DPT at 256x384 (the position
+      table resized to a non-square grid), OpenCLIP and T5 at full width
+      with 2 layers (f32 both sides: ``VARIANT_F32_LIMIT``), VQ
+      ``quantize``'s indices (equal on >= 99.9%);
+    * one txt2img UNet evaluation under the profiler.
+
+    #1-#4 must launch on every UNet path, #2 on the VQ round trip, #5-#10
+    on none. Returns (summary, the launch counts of each drive,
+    failures)."""
+    import dataclasses
+
+    from sd_animation_optical_flow_tpu_torch import config as C
+    from sd_animation_optical_flow_tpu_torch.config import _channels_last
+    from sd_animation_optical_flow_tpu_torch.diffusion import ddim as D
+    from sd_animation_optical_flow_tpu_torch.diffusion import ddpm_sampler \
+        as DDPM
+    from sd_animation_optical_flow_tpu_torch.diffusion import multistep as MS
+    from sd_animation_optical_flow_tpu_torch.diffusion.dpm_solver import (
+        dpmpp_2m_decode, uniform_timesteps_desc)
+    from sd_animation_optical_flow_tpu_torch.diffusion.plms import \
+        plms_decode
+    from sd_animation_optical_flow_tpu_torch.diffusion.schedule import \
+        make_ddim_params_traced
+    from sd_animation_optical_flow_tpu_torch.models import depth as DE
+    from sd_animation_optical_flow_tpu_torch.models import text_encoders \
+        as TE
+    from sd_animation_optical_flow_tpu_torch.models import unet as U
+    from sd_animation_optical_flow_tpu_torch.models import vae as V
+    from sd_animation_optical_flow_tpu_torch.models import vq as VQ
+    from sd_animation_optical_flow_tpu_torch.models.layers import Init
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        specializations as SP
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_map
+    failures, summary, all_counts = [], {}, []
+    prompt, neg = "a watercolor fox in the snow", "lowres, blurry"
+    f = sd.vae_cfg.downscale
+    h, w = H // f, W // f
+    ctx_c = sd.get_learned_conditioning(prompt)
+    ctx_u = sd.get_learned_conditioning(neg)
+    cond, uncond = D.CondBundle(ctx_c), D.CondBundle(ctx_u)
+    unet_fn = F._unet_fn(sd)
+    sched = sd.sched
+    ddim = make_ddim_params_traced(sched, STEPS)
+    img = torch.rand((1, H, W, 3), generator=gen, device="cuda") * 2 - 1
+    decode = lambda z: V.decode(sd.vae_params, sd.vae_cfg,
+                                z.to(sd.dtype)).clamp(-1.0, 1.0)
+    decoded = lambda z: (z, decode(z))
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+
+    def check_image(name, out, shape=(1, H, W, 3)):
+        ok = tuple(out.shape) == shape and bool(torch.isfinite(out).all()) \
+            and out.abs().max().item() <= 1.0
+        if not ok:
+            failures.append(f"variants {name}: output {tuple(out.shape)} "
+                            "not finite / in [-1, 1] / of shape "
+                            f"{shape}")
+        return ok
+
+    def drive(name, run, need=VARIANT_KERNELS, timed=0, timed_run=None):
+        """Run once with the counters reset just before and read just
+        after (the warm-up of the timed runs), then ``timed`` more runs
+        of ``timed_run`` (default ``run``; a sampler without its decode)
+        on the host clock, synchronized. Returns (the counted run's
+        output, the timed runs' seconds, counts)."""
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        all_counts.append(counts)
+        for k in need:
+            if counts[k] == 0:
+                failures.append(f"variants {name}: {k} never launched")
+        summary.setdefault("launches", {})[name] = counts
+        runs = []
+        for _ in range(timed):
+            t0 = time.time()
+            (timed_run or run)()
+            torch.cuda.synchronize()
+            runs.append(time.time() - t0)
+        if runs:
+            summary.setdefault("runs_s", {})[name] = runs
+        return out, runs, counts
+
+    # one CFG evaluation as txt2img makes it (f32 carry, bf16 UNet): #4's
+    # launches a evaluation, and its profile
+    x_T = rn(1, h, w, 4)
+    ts = torch.full((1,), int(ddim.timesteps[-1]), dtype=torch.int32,
+                    device="cuda")
+    one_eval = lambda: D.cfg_model_call(unet_fn, x_T, ts, cond, uncond, CFG)
+    _, _, c_eval = drive("one CFG evaluation", one_eval,
+                         need=("flash_attention_tpv", "linear_ln_fused",
+                               "geglu_ff_fused"))
+    n4 = c_eval["geglu_ff_fused"]
+    prof = profile_frame(one_eval, "variants txt2img UNet evaluation")
+    summary["txt2img_eval_busy_wall_ms"] = prof
+
+    # txt2img, then the same weights in f32, then ddim_sample against the
+    # multistep engine
+    out, runs, _ = drive("txt2img", lambda: F.txt2img(
+        sd, prompt, neg, H, W, ddim_steps=STEPS, cfg_scale=CFG, seed=SEED),
+        timed=VARIANT_TIMED)
+    check_image("txt2img", out)
+    log(f"[variants] txt2img {STEPS} steps: {_median_line(runs)} an image, "
+        f"std {out.float().std().item():.4f} [{card}]")
+    summary["txt2img_s"] = statistics.median(runs)
+    t0 = time.time()
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    sd32 = dataclasses.replace(
+        sd, unet_params=f32(sd.unet_params), vae_params=f32(sd.vae_params),
+        clip_params=f32(sd.clip_params), dtype=torch.float32)
+    # the kernels take bf16: f32 attention goes to the plain version (the
+    # FFN's router already sends f32 there)
+    plain = mock.patch.multiple(A, flash_attention_tpv=A.xla_attention,
+                                flash_attention=A.xla_attention)
+    with plain:
+        img32 = F.txt2img(sd32, prompt, neg, H, W, ddim_steps=STEPS,
+                          cfg_scale=CFG, seed=SEED)
+    s32 = time.time() - t0
+    x_T32 = torch.randn((1, h, w, 4), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+    with plain:
+        img32r = F._txt2img_core(
+            sd32, sd32.get_learned_conditioning(prompt),
+            sd32.get_learned_conditioning(neg), x_T32.bfloat16().float(),
+            ddim_steps=STEPS, cfg_scale=CFG)
+    psnr_bf16 = _psnr_pm1(out, img32)
+    psnr_xt = _psnr_pm1(img32r, img32)
+    rel_bf16 = _rel_l2(out, img32.cpu())
+    log(f"[variants] txt2img bf16 (kernels) vs the same weights in f32 (plain "
+        f"route, JAX's dtype here): decoded PSNR {psnr_bf16:.2f} dB (>= "
+        f"{VARIANT_BF16_PSNR:g}), rel L2 "
+        f"{rel_bf16:.3e}; for scale, f32 from x_T rounded to bf16 vs f32: "
+        f"{psnr_xt:.2f} dB (f32 run {s32:.1f} s, one run) [{card}]")
+    summary["txt2img_bf16_vs_f32"] = {"psnr_db": psnr_bf16,
+                                      "rel_l2": rel_bf16,
+                                      "f32_xT_bf16_psnr_db": psnr_xt}
+    if not psnr_bf16 >= VARIANT_BF16_PSNR:
+        failures.append(f"variants: txt2img bf16 vs f32 {psnr_bf16:.2f} dB")
+    del sd32, img32, img32r
+    torch.cuda.empty_cache()
+    (lat_a, img_a), _, _ = drive("ddim_sample", lambda: decoded(
+        D.ddim_sample(unet_fn, sched, ddim, cond, uncond, x_T=x_T,
+                      cfg_scale=CFG)))
+    (lat_b, img_b), _, _ = drive("multistep ddim", lambda: decoded(
+        MS.multistep_decode(unet_fn, MS.make_ddim_coeffs(ddim, STEPS), x_T,
+                            cond, uncond, cfg_scale=CFG)))
+    check_image("ddim_sample", img_a)
+    psnr = _psnr_pm1(img_a, img_b)
+    rel = ((lat_a - lat_b).norm() / lat_b.norm()).item()
+    log(f"[variants] ddim_sample vs multistep_decode(make_ddim_coeffs(ddim, "
+        f"{STEPS})) from one x_T: decoded PSNR {psnr:.2f} dB (>= 40), "
+        f"latent rel L2 {rel:.3e}")
+    summary["ddim_vs_engine"] = {"psnr_db": psnr, "latent_rel": rel}
+    if not psnr >= 40.0:
+        failures.append(f"variants: ddim_sample vs the engine {psnr:.2f} dB")
+
+    # DDIM inversion
+    lat, runs, _ = drive("img2img_invert", lambda: F.img2img_invert(
+        sd, img, prompt, neg, ddim_steps=STEPS, seed=SEED),
+        timed=VARIANT_TIMED)
+    ok = tuple(lat.shape) == (1, h, w, 4) and bool(torch.isfinite(lat).all())
+    if not ok:
+        failures.append(f"variants img2img_invert: latent {tuple(lat.shape)}")
+    log(f"[variants] img2img_invert {STEPS} steps (cfg 1): "
+        f"{_median_line(runs)} an image, latent std "
+        f"{lat.float().std().item():.4f} [{card}]")
+    summary["invert_s"] = statistics.median(runs)
+
+    # PLMS from the main path's stochastic_encode
+    init_latent = V.encode(sd.vae_params, sd.vae_cfg, img.to(sd.dtype),
+                           noise=rn(1, h, w, 4))
+    t_enc = F._t_enc(STRENGTH, STEPS)       # 20 of 50, the main path's
+    x1 = D.stochastic_encode(ddim, init_latent, t_enc, rn(1, h, w, 4))
+    out, runs, c_plms = drive("plms", lambda: decode(plms_decode(
+        unet_fn, sched, ddim, x1, cond, uncond, t_enc, cfg_scale=CFG)),
+        timed=VARIANT_TIMED)
+    check_image("plms", out)
+    evals = c_plms["geglu_ff_fused"] / max(n4, 1)
+    log(f"[variants] plms_decode t_enc {t_enc} of {STEPS} incl. the decode: "
+        f"{_median_line(runs)} an image, {evals:g} UNet evaluations (#4 "
+        f"{c_plms['geglu_ff_fused']} / {n4} an evaluation; t_enc + 1 = "
+        f"{t_enc + 1}) [{card}]")
+    summary["plms_s"], summary["plms_evals"] = statistics.median(runs), evals
+    if evals != t_enc + 1:
+        failures.append(f"variants plms: {evals} UNet evaluations")
+
+    # DDPM ancestral steps from t = 999 (timed without the decode)
+    pc = DDPM.posterior_coefs(sched)
+    ddpm_noise = rn(10, 1, h, w, 4)
+
+    def ddpm():
+        x = x_T
+        for i, t_i in enumerate(range(999, 989, -1)):
+            t = torch.full((1,), t_i, dtype=torch.int32, device="cuda")
+            x = DDPM.p_sample(unet_fn, sched, pc, x, t, cond, uncond,
+                              noise=ddpm_noise[i], cfg_scale=CFG)
+        return x
+    out, runs, _ = drive("ddpm", lambda: decode(ddpm()), timed=VARIANT_TIMED,
+                         timed_run=ddpm)
+    check_image("ddpm", out)
+    log(f"[variants] p_sample 10 DDPM steps from t = 999, without the "
+        f"decode: {_median_line(runs, 'ms', 1e3 / 10)} a step [{card}]")
+    summary["ddpm_ms_step"] = 1e3 * statistics.median(runs) / 10
+
+    # the standalone DPM-Solver++(2M), plain and with the inpaint re-noise
+    # (timed without the decode), and the engine's coefficients on the
+    # same x
+    dts = uniform_timesteps_desc(sched, int(ddim.timesteps[t_enc]), 10)
+    dpmpp = lambda: dpmpp_2m_decode(unet_fn, sched, dts, x1, cond, uncond,
+                                    cfg_scale=CFG)
+    (lat_p, img_p), runs, _ = drive("dpmpp", lambda: decoded(dpmpp()),
+                                    timed=VARIANT_TIMED, timed_run=dpmpp)
+    check_image("dpmpp", img_p)
+    nmask = _blob_mask(h, w, h * 0.5, w * 0.5, h * 0.3, gen)[None, :, :, None]
+    renoise = rn(10, 1, h, w, 4)
+    inpaint = lambda: dpmpp_2m_decode(
+        unet_fn, sched, dts, x1, cond, uncond, cfg_scale=CFG,
+        init_latent=init_latent, nmask=nmask, renoise_gate=[1.0] * 10,
+        renoise_noise=renoise)
+    out, runs_inp, _ = drive("dpmpp inpaint", lambda: decode(inpaint()),
+                             timed=VARIANT_TIMED, timed_run=inpaint)
+    check_image("dpmpp inpaint", out)
+    (lat_e, img_e), _, _ = drive("multistep dpmpp", lambda: decoded(
+        MS.multistep_decode(unet_fn, MS.make_dpmpp_coeffs(sched, dts), x1,
+                            cond, uncond, cfg_scale=CFG)))
+    psnr = _psnr_pm1(img_p, img_e)
+    rel = ((lat_p.float() - lat_e.float()).norm()
+           / lat_e.float().norm()).item()
+    log(f"[variants] dpmpp_2m_decode 10 steps, without the decode: "
+        f"{_median_line(runs, 'ms', 1e3 / 10)} a step; with the inpaint "
+        f"re-noise {_median_line(runs_inp, 'ms', 1e3 / 10)}; vs "
+        f"multistep_decode(make_dpmpp_coeffs): decoded PSNR {psnr:.2f} dB "
+        f"(>= 40), latent rel L2 {rel:.3e} [{card}]")
+    summary["dpmpp_ms_step"] = 1e3 * statistics.median(runs) / 10
+    summary["dpmpp_inpaint_ms_step"] = 1e3 * statistics.median(runs_inp) / 10
+    summary["dpmpp_vs_engine"] = {"psnr_db": psnr, "latent_rel": rel}
+    if not psnr >= 40.0:
+        failures.append(f"variants: dpmpp_2m_decode vs the engine "
+                        f"{psnr:.2f} dB")
+
+    # depth2img with a full-width DPT
+    t0 = time.time()
+    sdd = C.create_model("sd15-depth", dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(5))
+    perturb_zero_convs(sdd.unet_params, gen)
+    dcfg = DE.DPTConfig()
+    dp = _channels_last(DE.dpt_init(Init(torch.Generator("cuda")
+                                         .manual_seed(6), torch.float32,
+                                         "cuda"), dcfg))
+    dp["head"][2]["b"] = torch.full((1,), 0.5, device="cuda")
+    depth = SP.DepthConditioner(dp, dcfg)
+    log(f"[variants] sd15-depth and a DPTConfig() DPT "
+        f"({sum(t.numel() for t in _leaves(dp)) / 1e6:.1f} M parameters, "
+        f"f32) random init in {time.time() - t0:.1f} s")
+    out, runs, _ = drive("depth2img", lambda: SP.img2img_depth2img(
+        sdd, depth, img, prompt, neg, 0.5, ddim_steps=STEPS, cfg_scale=CFG,
+        seed=SEED)[0], timed=VARIANT_TIMED)
+    check_image("depth2img", out)
+    cc = SP.depth_concat(depth, img, (h, w))
+    dpt_ms = cuda_ms(lambda: SP.depth_concat(depth, img, (h, w)), iters=3,
+                     queued=False)
+    log(f"[variants] img2img_depth2img strength 0.5, {STEPS} steps: "
+        f"{_median_line(runs)} an image; the DPT + depth_to_concat at "
+        f"{H}x{W} (f32) {dpt_ms:.1f} ms (CUDA events), depth channel std "
+        f"{cc.std().item():.4f} [{card}]")
+    summary["depth2img_s"] = statistics.median(runs)
+    summary["dpt_ms"] = dpt_ms
+    if not cc.std().item() > 0:
+        failures.append("variants depth2img: a constant depth channel")
+    small = torch.rand((1, H // 2, W // 2, 3), generator=gen,
+                       device="cuda") * 2 - 1
+    d_card = DE.dpt_apply(dp, dcfg, DE.midas_normalize((small + 1) * 0.5))
+    t0 = time.time()
+    d_cpu = DE.dpt_apply(to_cpu_f32(dp), dcfg,
+                         DE.midas_normalize((small.cpu() + 1) * 0.5))
+    rel_dpt = _rel_l2(d_card, d_cpu)
+    grid, p = dcfg.img_size // dcfg.patch, dcfg.patch
+    log(f"[variants] DPT card vs CPU at {H // 2}x{W // 2} (grid "
+        f"{H // 2 // p}x{W // 2 // p} from the {grid}x{grid} table), f32: "
+        f"rel L2 {rel_dpt:.3e} (<= {VARIANT_F32_LIMIT:g}; CPU "
+        f"{time.time() - t0:.1f} s)")
+    summary["dpt_rel_l2_cpu"] = rel_dpt
+    if not rel_dpt <= VARIANT_F32_LIMIT:
+        failures.append(f"variants: DPT card vs CPU {rel_dpt:.3e}")
+    del sdd, depth, dp
+    torch.cuda.empty_cache()
+
+    # the latent upscaler
+    sdu = C.create_model("sd-upscale", dtype=torch.bfloat16, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(4))
+    perturb_zero_convs(sdu.unet_params, gen)
+    x_low = torch.rand((1, h, w, 3), generator=gen, device="cuda") * 2 - 1
+    (out, lvl), runs, _ = drive("upscale", lambda: SP.upscale(
+        sdu, x_low, prompt, neg, noise_level=[20], ddim_steps=STEPS,
+        cfg_scale=CFG, seed=SEED), timed=VARIANT_TIMED)
+    check_image("upscale", out)
+    log(f"[variants] upscale {h}x{w} -> {tuple(out.shape[1:3])}, noise level "
+        f"{lvl.tolist()}, {STEPS} steps: {_median_line(runs)} an image "
+        f"[{card}]")
+    summary["upscale_s"] = statistics.median(runs)
+    if lvl.tolist() != [20]:
+        failures.append(f"variants upscale: level {lvl.tolist()} != [20]")
+    xs = torch.randn((1, 16, 24, 7), generator=gen, device="cuda")
+    tt = torch.full((1,), 401, dtype=torch.int32, device="cuda")
+    yy = torch.tensor([20], device="cuda")
+    f32_card = tree_map(lambda t: t.float(), sdu.unet_params)
+    del sdu
+    torch.cuda.empty_cache()
+    u_card, _ = U.unet_apply(f32_card, C.SD_UPSCALE.unet, xs, tt,
+                             ctx_c.float(), y=yy)
+    t0 = time.time()
+    u_cpu, _ = U.unet_apply(to_cpu_f32(f32_card), C.SD_UPSCALE.unet,
+                            xs.cpu(), tt.cpu(), ctx_c.float().cpu(),
+                            y=yy.cpu())
+    rel_u = _rel_l2(u_card, u_cpu)
+    log(f"[variants] class-conditional UNet (sd-upscale, y = 20) card vs CPU "
+        f"on a [1, 16, 24, 7] latent, f32: rel L2 {rel_u:.3e} (<= "
+        f"{VARIANT_F32_LIMIT:g}; CPU {time.time() - t0:.1f} s)")
+    summary["unet_y_rel_l2_cpu"] = rel_u
+    if not rel_u <= VARIANT_F32_LIMIT:
+        failures.append(f"variants: class-conditional UNet card vs CPU "
+                        f"{rel_u:.3e}")
+    del f32_card, u_card
+    torch.cuda.empty_cache()
+
+    # the VQ first stage
+    vcfg = VQ.VQConfig()
+    vqp = _channels_last(VQ.vq_init(Init(torch.Generator("cuda")
+                                         .manual_seed(7), torch.bfloat16,
+                                         "cuda"), vcfg))
+    vq_trip = lambda: VQ.vq_decode(vqp, vcfg, VQ.vq_encode_prequant(
+        vqp, vcfg, img.to(torch.bfloat16)))
+    out, _, _ = drive("vq round trip", vq_trip, need=("flash_attention",))
+    ok = tuple(out.shape) == (1, H, W, 3) and bool(torch.isfinite(out).all())
+    if not ok:
+        failures.append(f"variants vq: output {tuple(out.shape)} not finite")
+    vq_ms = cuda_ms(vq_trip, iters=3, queued=False)
+    z = VQ.vq_encode_prequant(vqp, vcfg, img.to(torch.bfloat16)).float()
+    _, _, idx_card = VQ.quantize(vqp["quantize"], vcfg, z)
+    _, _, idx_cpu = VQ.quantize(to_cpu_f32(vqp["quantize"]), vcfg, z.cpu())
+    same = (idx_card.cpu() == idx_cpu).float().mean().item()
+    log(f"[variants] VQ round trip (VQConfig(), bf16, n_embed "
+        f"{vcfg.n_embed}) at {H}x{W}: {vq_ms:.1f} ms (CUDA events, 3 "
+        f"calls after 2); quantize's indices card vs CPU equal on "
+        f"{same:.5f} (>= 0.999), {len(idx_cpu.unique())} codes used "
+        f"[{card}]")
+    summary["vq_ms"], summary["vq_index_agreement"] = vq_ms, same
+    if not same >= 0.999:
+        failures.append(f"variants: VQ indices card vs CPU agree on {same}")
+    del vqp
+    torch.cuda.empty_cache()
+
+    # OpenCLIP and T5 at full width
+    for name, cfg_, init_, apply_ in (
+            ("OpenCLIP", TE.OpenCLIPTextConfig(), TE.openclip_text_init,
+             TE.openclip_text_apply),
+            ("T5", TE.T5Config(), TE.t5_encoder_init, TE.t5_encoder_apply)):
+        p = init_(Init(torch.Generator("cuda").manual_seed(8), torch.float32,
+                       "cuda"), cfg_)
+        ids = torch.randint(0, cfg_.vocab_size, (1, 77), generator=gen,
+                            device="cuda")
+        out = apply_(p, cfg_, ids)
+        ms = cuda_ms(lambda: apply_(p, cfg_, ids), iters=3, queued=False)
+        width = out.shape[-1]
+        ok = tuple(out.shape) == (1, 77, width) and bool(
+            torch.isfinite(out).all())
+        two = dataclasses.replace(cfg_, layers=2)
+        p2 = {**p, "layers": p["layers"][:2]}
+        rel = _rel_l2(apply_(p2, two, ids), apply_(to_cpu_f32(p2), two,
+                                                   ids.cpu()))
+        log(f"[variants] {name} full width ({cfg_.layers} layers, f32) on 77 "
+            f"tokens: {ms:.2f} ms (CUDA events), finite {ok}; card vs CPU "
+            f"with 2 layers rel L2 {rel:.3e} (<= {VARIANT_F32_LIMIT:g}) "
+            f"[{card}]")
+        summary[f"{name.lower()}_ms"] = ms
+        summary[f"{name.lower()}_rel_l2_cpu"] = rel
+        if not ok:
+            failures.append(f"variants {name}: output not finite / shape")
+        if not rel <= VARIANT_F32_LIMIT:
+            failures.append(f"variants {name}: card vs CPU {rel:.3e}")
+        del p, p2
+
+    for k in VARIANT_IDLE:
+        n = sum(c[k] for c in all_counts)
+        if n:
+            failures.append(f"variants: {k} launched {n} times")
+    return summary, all_counts, failures
+
+
 FLOWTRAIN_HW = (128, 192)
 FLOWTRAIN_ITERS = 8
 
@@ -2402,6 +2864,12 @@ def main() -> int:
     del sd9, control_bundle
     torch.cuda.empty_cache()
     t0 = time.time()
+    variants, variants_counts, variants_failures = run_variants_phase(
+        sd, kernels, gen, card)
+    phases["variants"] = time.time() - t0
+    failures += variants_failures
+    torch.cuda.empty_cache()
+    t0 = time.time()
     flowtrain, flowtrain_counts, flowtrain_failures = \
         run_flowtrain_phase(kernels)
     phases["flowtrain"] = time.time() - t0
@@ -2413,7 +2881,8 @@ def main() -> int:
     del keys_kv
     inference = list(main.values()) + list(keyframe.values()) \
         + [(None, c, None)
-           for c in pixel_counts + control_counts + kfpipe_counts] \
+           for c in pixel_counts + control_counts + kfpipe_counts
+           + variants_counts] \
         + [(None, banded["counts"], None), (None, flowtrain_counts, None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
@@ -2445,7 +2914,7 @@ def main() -> int:
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
                     "pixel": pixel, "control": control, "kfpipe": kfpipe,
-                    "flowtrain": flowtrain,
+                    "variants": variants, "flowtrain": flowtrain,
                     "banded": banded, "train": train,
                     "unet_rel_err": unet_rel,
                     "card": card}))

@@ -22,7 +22,11 @@ blending, CFG caching, DeepCache; ``models/controlnet.py``,
 pipeline (``pipelines/keyframe_inpaint.py``: the resumable workspace
 behind the native frame pipe, the flow cache, the level pyramid, the
 fused flow + warp + merge prep, the seed strip and the serial and
-level-batched back-fill) with the warp-as-guidance ``pipelines/ofgen.py``
+level-batched back-fill) with the warp-as-guidance ``pipelines/ofgen.py``,
+and the other samplers and model variants (``txt2img``, the DDIM
+inversion, PLMS, DDPM, the standalone DPM-Solver++(2M), class
+conditioning, depth2img with a DPT, latent upscaling, the VQ first stage
+and the OpenCLIP / T5 text encoders)
 —
 
     import sd_animation_optical_flow_tpu_torch as M
@@ -41,6 +45,11 @@ level-batched back-fill) with the warp-as-guidance ``pipelines/ofgen.py``
         keyframe_inpaint as KI
     KI.run(KI.VideoWorkspace("out/ws", frames=clip_bgr_u8), sd, sd9, flow,
            cfg=KI.KeyframeInpaintConfig(level_batch=4))
+    img = M.txt2img(sd, prompt, negative, 512, 768)
+    lat = M.img2img_invert(sd, image, prompt)
+    sdd = M.create_model("sd15-depth", dtype=torch.bfloat16)
+    img, _ = M.img2img_depth2img(sdd, depth, image, prompt, negative)
+    big, lvl = M.upscale(M.create_model("sd-upscale"), x_low, prompt, "")
 """
 
 _LAZY = {
@@ -63,6 +72,17 @@ _LAZY = {
     "img2img_latent_inpaint": (
         "sd_animation_optical_flow_tpu_torch.pipelines.facades",
         "img2img_latent_inpaint"),
+    "txt2img": ("sd_animation_optical_flow_tpu_torch.pipelines.facades",
+                "txt2img"),
+    "img2img_invert": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.facades",
+        "img2img_invert"),
+    "img2img_depth2img": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.specializations",
+        "img2img_depth2img"),
+    "upscale": (
+        "sd_animation_optical_flow_tpu_torch.pipelines.specializations",
+        "upscale"),
     "StripConfig": ("sd_animation_optical_flow_tpu_torch.models.unet",
                     "StripConfig"),
     "FlowConfidenceConfig": (

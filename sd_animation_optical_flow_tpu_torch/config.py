@@ -1,10 +1,10 @@
 """Model configuration and construction.
 
 Counterpart of ``sd_animation_optical_flow_tpu/config.py``: ``BundleSpec``,
-``SD15``, ``SD15_INPAINT9``, ``load_spec`` for their names and
-``create_model``. Models are built
-from random weights drawn from an explicit ``torch.Generator`` straight
-on the target device in the target dtype. Checkpoint loading is not
+``SD15``, ``SD15_INPAINT9``, ``SD15_DEPTH``, ``SD_UPSCALE``, ``load_spec``
+for their names and ``create_model``. Models are built from random
+weights drawn from an explicit ``torch.Generator`` straight on the target
+device in the target dtype. Checkpoint loading and YAML specs are not
 ported yet.
 """
 
@@ -41,10 +41,6 @@ class BundleSpec:
               dtype=torch.float32, device="cuda") -> StableDiffusionBundle:
         """Random-weight bundle on ``device`` (weightless smoke mode).
         ``generator`` defaults to one seeded with 0 on ``device``."""
-        if self.conditioning_key not in ("crossattn", "hybrid"):
-            raise NotImplementedError(
-                f"conditioning_key {self.conditioning_key!r} is not ported "
-                "to the torch package (ROADMAP §1 item 7)")
         device = torch.device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(0)
@@ -83,18 +79,26 @@ SD15 = BundleSpec()
 # latent channels, concatenated before the input conv ('hybrid')
 SD15_INPAINT9 = BundleSpec(conditioning_key="hybrid",
                            unet=UNetConfig(in_channels=9))
+# depth2img: 4 latent + 1 depth channel (pipelines/specializations.py)
+SD15_DEPTH = BundleSpec(conditioning_key="hybrid",
+                        unet=UNetConfig(in_channels=5))
+# the latent upscaler: 4 latent + 3 low-res channels, class-conditional
+# on the low-res image's augmentation noise level
+SD_UPSCALE = BundleSpec(conditioning_key="hybrid",
+                        unet=UNetConfig(in_channels=7, num_classes=1000))
 
 
 def load_spec(path_or_name: str) -> BundleSpec:
-    """A builtin spec by name: 'sd15' or 'sd15-inpaint9'. The depth and
-    upscale builtins and YAML specs wait for their models."""
-    builtins = {"sd15": SD15, "sd15-inpaint9": SD15_INPAINT9}
+    """A builtin spec by name: 'sd15', 'sd15-inpaint9', 'sd15-depth' or
+    'sd-upscale'. YAML specs are not ported yet."""
+    builtins = {"sd15": SD15, "sd15-inpaint9": SD15_INPAINT9,
+                "sd15-depth": SD15_DEPTH, "sd-upscale": SD_UPSCALE}
     if path_or_name in builtins:
         return builtins[path_or_name]
     raise NotImplementedError(
         f"spec {path_or_name!r} is not ported to the torch package yet: "
-        "only 'sd15' and 'sd15-inpaint9' are (depth/upscale specs: "
-        "ROADMAP §1 item 7; YAML specs: item 9)")
+        "only the builtins " + ", ".join(map(repr, builtins)) + " are "
+        "(YAML specs: ROADMAP §1 item 9)")
 
 
 def create_model(path_or_name: str, ckpt_path: Optional[str] = None,

@@ -1,14 +1,15 @@
-"""Classifier-free guidance, the DDIM forward noising and the
-hook-carrying DDIM decode.
+"""Classifier-free guidance, the DDIM forward noising, the
+hook-carrying DDIM decode, full-chain sampling and inversion.
 
 Counterpart of ``sd_animation_optical_flow_tpu/diffusion/ddim.py``
 (``CondBundle``, ``cfg_model_call``, ``guidance_progress``,
-``stochastic_encode``, ``ddim_decode``). A DDIM decode with no hook runs
-through the multistep engine (:mod:`.multistep`); :func:`ddim_decode`
-carries the hooks: guidance blending, ControlNet residuals, CFG caching,
-DeepCache and the sampler options of the reference's DDIM sampler.
-``ddim_sample`` and ``ddim_encode`` are not ported yet (ROADMAP §1 item
-7).
+``stochastic_encode``, ``ddim_decode``, ``ddim_sample``,
+``ddim_encode``). A DDIM decode with no hook runs through the multistep
+engine (:mod:`.multistep`); :func:`ddim_decode` carries the hooks:
+guidance blending, ControlNet residuals, CFG caching, DeepCache and the
+sampler options of the reference's DDIM sampler. :func:`ddim_sample`
+walks the whole chain from noise through it; :func:`ddim_encode` runs
+the deterministic inversion up the chain.
 """
 
 from __future__ import annotations
@@ -285,4 +286,103 @@ def ddim_decode(
                 noise = torch.where(keep, noise / (1.0 - noise_dropout),
                                     torch.zeros_like(noise))
             x = x + noise
+    return x
+
+
+def ddim_sample(
+    model_fn: Callable,
+    sched: DiffusionSchedule,
+    ddim: DDIMParams,
+    cond: CondBundle,
+    uncond: CondBundle,
+    *,
+    shape=None,
+    x_T: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    cfg_scale: float = 7.0,
+    parameterization: str = "eps",
+    mask: Optional[torch.Tensor] = None,
+    x0: Optional[torch.Tensor] = None,
+    renoise_noise: Optional[torch.Tensor] = None,
+    sigma_noise: Optional[torch.Tensor] = None,
+    dropout_keep: Optional[torch.Tensor] = None,
+    temperature: float = 1.0,
+    noise_dropout: float = 0.0,
+    dynamic_threshold: Optional[float] = None,
+    cfg_schedule=None,
+    score_fn: Optional[Callable] = None,
+    dtype=None,
+):
+    """Full-chain DDIM sampling from pure noise: :func:`ddim_decode` over
+    every step of ``ddim`` from ``x_T``.
+
+    ``x_T`` is given, or drawn from ``generator`` (on its device) with
+    ``shape`` in ``dtype``, f32 by default whatever the model's dtype, as
+    the JAX ``ddim_sample`` draws it. ``mask`` [.., h, w, 1]: 1 keeps the
+    known region ``x0``, re-noised before each step with
+    ``renoise_noise[i]`` (the base sampler's polarity, the inverse of
+    the inpaint facades' ``nmask``: nmask = 1 - mask). ``sigma_noise``,
+    ``dropout_keep`` and the sampler options are :func:`ddim_decode`'s."""
+    if x_T is None:
+        if shape is None or generator is None:
+            raise ValueError("ddim_sample needs x_T, or shape and generator")
+        x_T = torch.randn(tuple(shape), generator=generator,
+                          device=generator.device,
+                          dtype=dtype or torch.float32)
+    nmask = None if mask is None else (1.0 - mask)
+    return ddim_decode(
+        model_fn, sched, ddim, x_T, cond, uncond, ddim.num_steps,
+        cfg_scale=cfg_scale, parameterization=parameterization,
+        init_latent=x0, nmask=nmask, renoise_noise=renoise_noise,
+        sigma_noise=sigma_noise, dropout_keep=dropout_keep,
+        dynamic_threshold=dynamic_threshold, temperature=temperature,
+        noise_dropout=noise_dropout, cfg_schedule=cfg_schedule,
+        score_fn=score_fn)
+
+
+def ddim_encode(
+    model_fn: Callable,
+    sched: DiffusionSchedule,
+    ddim: DDIMParams,
+    x0: torch.Tensor,
+    cond: CondBundle,
+    uncond: Optional[CondBundle] = None,
+    t_enc: Optional[int] = None,
+    *,
+    cfg_scale: float = 1.0,
+    timestep_indexing: str = "index",
+):
+    """Deterministic DDIM inversion: run x0 UP the chain for ``t_enc``
+    steps (default all of ``ddim``'s):
+
+      x_{i+1} = sqrt(a_next / a) x_i
+                + sqrt(a_next) (sqrt(1 / a_next - 1) - sqrt(1 / a - 1)) e_t
+
+    with a = alphas_prev[i], a_next = alphas[i], the scalars in x's dtype.
+    CFG (batch doubling, no stem dedup) when ``cfg_scale`` != 1 and
+    ``uncond`` is given, else one model call on ``cond``'s context.
+
+    ``timestep_indexing``: 'index' feeds the model the LOOP INDEX i as
+    the timestep, the reference sampler's quirk, kept bit for bit;
+    'timestep' feeds ``ddim.timesteps[i]``."""
+    del sched   # kept for the JAX signature; the walk reads ``ddim`` only
+    if timestep_indexing not in ("index", "timestep"):
+        raise ValueError(f"unknown timestep_indexing {timestep_indexing!r}")
+    t_enc = t_enc if t_enc is not None else ddim.num_steps
+    x = x0
+    b, dt = x.shape[0], x.dtype
+    use_cfg = cfg_scale != 1.0 and uncond is not None
+    for i in range(t_enc):
+        t_i = i if timestep_indexing == "index" else int(ddim.timesteps[i])
+        ts = torch.full((b,), t_i, dtype=torch.int32, device=x.device)
+        if use_cfg:
+            e_t = cfg_model_call(model_fn, x, ts, cond, uncond, cfg_scale)
+        else:
+            e_t = model_fn(x, ts, cond.crossattn, None)
+        a = rounded(ddim.alphas_prev[i], dt)
+        a_next = rounded(ddim.alphas[i], dt)
+        c_x = torch.sqrt(a_next / a).item()
+        c_e = (torch.sqrt(a_next) * (torch.sqrt(1.0 / a_next - 1.0)
+                                     - torch.sqrt(1.0 / a - 1.0))).item()
+        x = c_x * x + c_e * e_t
     return x

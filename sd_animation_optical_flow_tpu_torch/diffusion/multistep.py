@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from .ddim import CondBundle, cfg_model_call
-from .schedule import DDIMParams, DiffusionSchedule, q_sample, rounded
+from .schedule import (DDIMParams, DiffusionSchedule,
+                       predict_eps_from_z_and_v, q_sample, rounded)
 
 
 class MultistepCoeffs(NamedTuple):
@@ -125,9 +126,10 @@ def multistep_decode(
     renoise_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the coefficient schedule over x (deterministic). The model
-    must predict eps: the engine's update has no v-parameterization
-    branch, so anything else is refused. The prev-x0 mix is combined in
-    f32 and cast back, so a bf16 carry stays bf16.
+    predicts eps, or v with ``parameterization="v"`` (the guided v is
+    turned into eps at the slot's timestep, which needs ``sched``). The
+    prev-x0 mix is combined in f32 and cast back, so a bf16 carry stays
+    bf16.
 
     Inpainting re-noise (``init_latent`` with ``nmask``, the hook of the
     JAX ``ddim_decode`` / ``dpmpp_2m_decode``): before slot i's model
@@ -136,9 +138,11 @@ def multistep_decode(
     is re-imposed as ``x = (1 - nm) * q_sample(init_latent, t_i,
     renoise_noise[i]) + nm * x``. ``renoise_noise`` [S, 1 or B, h, w, c] is the per-slot noise (a
     batch of 1 broadcasts over the batch); it is never drawn here."""
-    if parameterization != "eps":
-        raise ValueError("multistep_decode handles eps-prediction models "
-                         f"only, got parameterization={parameterization!r}")
+    if parameterization not in ("eps", "v"):
+        raise ValueError("multistep_decode handles eps- or v-prediction "
+                         f"models, got parameterization={parameterization!r}")
+    if parameterization == "v" and sched is None:
+        raise ValueError("v-prediction needs sched")
     inpaint = init_latent is not None and nmask is not None
     if inpaint and (sched is None or renoise_gate is None
                     or renoise_noise is None):
@@ -159,6 +163,8 @@ def multistep_decode(
             x = (1.0 - nm) * noised + nm * x
         e = cfg_model_call(model_fn, x, ts, cond, uncond, cfg_scale,
                            dedup=cfg_dedup)
+        if parameterization == "v":
+            e = predict_eps_from_z_and_v(sched, x, t_i, e)
         x0_prev = x0
         x0 = (x - _scalar(coeffs.s1m[i], dt) * e) / _scalar(coeffs.sa[i], dt)
         w = coeffs.w[i]

@@ -3,7 +3,8 @@
 Counterpart of ``sd_animation_optical_flow_tpu/diffusion/schedule.py``
 (``make_linear_schedule``, ``q_sample``, the v-parameterization helpers
 ``get_v``, ``predict_eps_from_z_and_v``, ``predict_start_from_z_and_v``,
-``DDIMParams``, ``make_ddim_params``), and ``rounded``, the samplers'
+``DDIMParams``, ``make_ddim_params``, ``make_ddim_params_traced``), and
+``rounded``, the samplers'
 per-step scalar in the carry's dtype. The
 arrays are host data: float32 tensors on the CPU, computed with numpy in
 the JAX package's precision (f64 schedule, f32 storage), from which the
@@ -135,5 +136,32 @@ def make_ddim_params(sched: DiffusionSchedule, num_steps: int,
         alphas=f32(alphas),
         alphas_prev=f32(alphas_prev),
         sqrt_one_minus_alphas=f32(np.sqrt(1.0 - alphas)),
+        sigmas=f32(sigmas),
+    )
+
+
+def make_ddim_params_traced(sched: DiffusionSchedule, num_steps: int,
+                            eta: float = 0.0) -> DDIMParams:
+    """Uniform DDIM params as the JAX facades build them
+    (``make_ddim_params_traced``): exactly ``num_steps`` timesteps
+    (:func:`make_ddim_params` keeps every multiple of T // num_steps, one
+    more where that does not divide T, and fails where the last is T),
+    gathered from the f32 schedule arrays, with every derived array
+    (``sqrt_one_minus_alphas``, ``sigmas``) computed in f32."""
+    T = sched.num_timesteps
+    c = T // num_steps
+    ts = np.arange(0, T, c, dtype=np.int32)[:num_steps] + np.int32(1)
+    ac = sched.alphas_cumprod.numpy()
+    alphas = ac[ts]
+    alphas_prev = np.concatenate([ac[0:1], ac[ts[:-1]]])
+    one = np.float32(1.0)
+    sigmas = np.float32(eta) * np.sqrt((one - alphas_prev) / (one - alphas)
+                                       * (one - alphas / alphas_prev))
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return DDIMParams(
+        timesteps=torch.from_numpy(ts),
+        alphas=f32(alphas),
+        alphas_prev=f32(alphas_prev),
+        sqrt_one_minus_alphas=f32(np.sqrt(one - alphas)),
         sigmas=f32(sigmas),
     )

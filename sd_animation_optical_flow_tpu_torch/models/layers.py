@@ -167,7 +167,14 @@ def swish(x):
 
 
 def gelu(x):
+    """erf GELU, as the JAX package's ``gelu``."""
     return F.gelu(x)
+
+
+def gelu_tanh(x):
+    """tanh-approximate GELU (``jax.nn.gelu(approximate=True)``, T5 v1.1's
+    gated FF)."""
+    return F.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +204,14 @@ def avg_pool2d(x, window: int = 2, stride: int | None = None):
     no padding (partial windows at the far edges are dropped)."""
     y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride or window)
     return y.permute(0, 2, 3, 1)
+
+
+def nearest_upsample2x(x):
+    """Nearest-neighbour 2x upsampling of an NHWC tensor (each pixel
+    repeated into a 2x2 block)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(
+        b, 2 * h, 2 * w, c)
 
 
 def upsample2x_conv(p, x):

@@ -10,10 +10,12 @@ Ported: ``unet_init``, ``unet_apply`` with and without ``context_pair``,
 cross-frame K/V injection (``ref_kv``), MFR strips (``strip``),
 materialized attention biases (``attn_biases``, e.g. the banded
 multi-frame bias of ``ops/attention.banded_strip_bias``), ControlNet
-residuals (``control``), and DeepCache's partial forward
-(``unet_apply_deepcache``, ``deepcache_feat_shape``). Not yet ported
-(each raises ``NotImplementedError`` naming its ROADMAP item): sequence
-parallelism (``sp``) and class conditioning (``y`` / ``num_classes``).
+residuals (``control``), DeepCache's partial forward
+(``unet_apply_deepcache``, ``deepcache_feat_shape``) and class / adm
+conditioning (``num_classes``, ``y``: a ``label_emb`` row added to the
+time embedding, e.g. the upscaler's noise level). Not yet ported:
+sequence parallelism (``sp``), which raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -296,12 +298,13 @@ def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
 # ---------------------------------------------------------------------------
 
 def unet_init(init: Init, cfg: UNetConfig = UNetConfig()):
-    if cfg.num_classes is not None:
-        _not_ported("class conditioning (num_classes)", "7")
     mc = cfg.model_channels
     ted = cfg.time_embed_dim
     p: dict = {"time_embed": [linear_init(init, mc, ted),
                               linear_init(init, ted, ted)]}
+    if cfg.num_classes is not None:
+        # N(0, 1), torch's nn.Embedding default
+        p["label_emb"] = init.normal((cfg.num_classes, ted))
     input_blocks: list = [{"conv": conv2d_init(init, cfg.in_channels, mc, 3)}]
     ch = mc
     input_chans = [mc]
@@ -382,23 +385,32 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
         last-to-first, 12 to the middle block's output. With
         ``context_pair`` they are added on the decoder side, after the
         batch has doubled, so the stem dedup composes with them.
-      y, sp: not ported yet; passing either raises NotImplementedError.
+      y: [B] int class labels (adm conditioning, e.g. the upscaler's
+        noise level); required iff ``cfg.num_classes`` is set (ValueError
+        otherwise, either way). Not with ``context_pair``.
+      sp: not ported yet; passing it raises NotImplementedError.
 
     Returns:
       (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
     """
     if sp is not None:
         _not_ported("sequence parallelism (sp)", "8")
-    if y is not None or cfg.num_classes is not None:
-        _not_ported("class conditioning (y / num_classes)", "7")
     if context_pair is not None and (ref_kv is not None
-                                     or attn_biases is not None):
+                                     or attn_biases is not None
+                                     or y is not None):
         raise ValueError("context_pair (CFG stem dedup) does not compose "
-                         "with ref_kv or attn_biases")
+                         "with ref_kv, attn_biases or y")
+    if (cfg.num_classes is None) != (y is None):
+        raise ValueError("class labels y are required iff the UNet is "
+                         f"class-conditional (num_classes "
+                         f"{cfg.num_classes}, y given: {y is not None})")
     nh = cfg.num_heads
     t_emb = timestep_embedding(timesteps, cfg.model_channels, dtype=x.dtype)
     emb = linear(params["time_embed"][1],
                  swish(linear(params["time_embed"][0], t_emb)))
+    if y is not None:
+        emb = emb + params["label_emb"][
+            torch.as_tensor(y, device=emb.device).long()].to(emb.dtype)
 
     half = context_pair is not None
     ctx = None if half else context

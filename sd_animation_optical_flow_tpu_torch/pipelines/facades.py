@@ -1,11 +1,12 @@
 """Model facades: img2img, img2img_inpaint, img2img_inpaint_batch,
-img2img_latent_inpaint.
+img2img_latent_inpaint, txt2img, img2img_invert.
 
 Counterpart of ``sd_animation_optical_flow_tpu/pipelines/facades.py``
 (``StableDiffusionBundle``, ``img2img``, ``build_inpaint_conditioning``,
 ``img2img_inpaint`` on its fused path and its ControlNet branch,
 ``img2img_inpaint_batch``, ``img2img_latent_inpaint``,
-``split_kv_batch``): CLIP chunked encode -> VAE encode (sampled) ->
+``split_kv_batch``, ``txt2img`` with ``_txt2img_core``,
+``img2img_invert``): CLIP chunked encode -> VAE encode (sampled) ->
 ``stochastic_encode`` -> CFG UNet steps -> VAE decode, with the K/V
 capture pass (the terminal-step UNet pass whose 16 self-attention (k, v)
 pairs the keyframe pipeline stores and injects into later frames), K/V
@@ -40,7 +41,8 @@ import torch
 from ..diffusion import ddim as D
 from ..diffusion import multistep as M
 from ..diffusion.dpm_solver import uniform_timesteps_desc
-from ..diffusion.schedule import (DiffusionSchedule, make_ddim_params,
+from ..diffusion.schedule import (DiffusionSchedule,
+                                  make_ddim_params_traced,
                                   make_linear_schedule)
 from ..models import clip as CL
 from ..models import unet as U
@@ -102,7 +104,7 @@ def sampler_coeffs(sched: DiffusionSchedule, ddim_steps: int, t_enc: int,
     step ``t_enc`` of a ``ddim_steps`` schedule. 'dpmpp' runs t_enc
     second-order steps; 'dpmpp:N' pins N steps from the same entry noise
     level."""
-    ddim = make_ddim_params(sched, ddim_steps)
+    ddim = make_ddim_params_traced(sched, ddim_steps)
     if check_sampler(sampler) == "ddim":
         return M.make_ddim_coeffs(ddim, t_enc)
     n = int(sampler.split(":", 1)[1]) if ":" in sampler else max(t_enc, 1)
@@ -151,7 +153,7 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
     no injection, controls or strip bias (as in the JAX package); the
     stored pairs are contiguous copies, not views of the fused QKV
     projections."""
-    ddim = make_ddim_params(sd.sched, ddim_steps)
+    ddim = make_ddim_params_traced(sd.sched, ddim_steps)
     x1 = D.stochastic_encode(ddim, init_latent, t_enc, noise)
 
     def model_fn(x, t, ctx, control=None):
@@ -734,3 +736,96 @@ def split_kv_batch(kv_hist, b: int):
         return [None] * b
     return [tuple((k[i:i + 1], v[i:i + 1]) for k, v in kv_hist)
             for i in range(b)]
+
+
+# ---------------------------------------------------------------------------
+# txt2img and DDIM inversion
+# ---------------------------------------------------------------------------
+
+def _unet_fn(sd: StableDiffusionBundle, **kw):
+    """``model_fn(x, t, ctx, control)`` of the bundle's UNet (plain CFG
+    batching; ``kw`` go to ``unet_apply``). The UNet runs in the
+    bundle's dtype and its output takes x's dtype, so an f32 carry stays
+    f32 (see :func:`_txt2img_core`)."""
+    def model_fn(x, t, ctx, control=None):
+        out, _ = U.unet_apply(sd.unet_params, sd.unet_cfg, x.to(sd.dtype), t,
+                              ctx, **kw)
+        return out.to(x.dtype)
+    return model_fn
+
+
+def _txt2img_core(sd: StableDiffusionBundle, ctx_cond, ctx_uncond, x_T, *,
+                  ddim_steps: int, cfg_scale: float, eta: float = 0.0,
+                  sigma_noise: Optional[torch.Tensor] = None):
+    """``ddim_sample`` over every step of the f32-traced DDIM schedule from
+    ``x_T`` (plain CFG batching, no stem dedup, as in JAX), then the VAE
+    decode, clipped to [-1, 1]. ``sigma_noise`` [ddim_steps, B, h, w, c]
+    is needed where eta > 0.
+
+    The JAX sampler draws x_T in f32, so its DDIM carry is f32 whatever
+    the bundle's dtype; here too. The JAX layers then run the UNet and
+    the VAE in f32 as well; here they run in the bundle's dtype (the
+    card's kernels take bf16), the carry cast to it for each call."""
+    ddim = make_ddim_params_traced(sd.sched, ddim_steps, eta=eta)
+    lat = D.ddim_sample(
+        _unet_fn(sd), sd.sched, ddim, D.CondBundle(ctx_cond),
+        D.CondBundle(ctx_uncond), x_T=x_T, cfg_scale=cfg_scale,
+        parameterization=sd.parameterization, sigma_noise=sigma_noise)
+    img = V.decode(sd.vae_params, sd.vae_cfg, lat.to(sd.dtype))
+    return img.clamp(-1.0, 1.0)
+
+
+def txt2img(sd: StableDiffusionBundle, c_text: str, uc_text: str = "",
+            height: int = 512, width: int = 768, ddim_steps: int = 50,
+            cfg_scale: float = 7.0, eta: float = 0.0, seed: int = 1234,
+            batch: int = 1):
+    """Generation from pure noise: [batch, height, width, 3] in [-1, 1].
+    x_T (f32) and, with eta > 0, the per-step noise are drawn from
+    ``torch.Generator(sd.device).manual_seed(seed)``."""
+    ctx_c = sd.get_learned_conditioning(c_text)
+    ctx_u = sd.get_learned_conditioning(uc_text)
+    if batch > 1:
+        ctx_c = ctx_c.repeat(batch, 1, 1)
+        ctx_u = ctx_u.repeat(batch, 1, 1)
+    f = sd.vae_cfg.downscale
+    shape = (batch, height // f, width // f, sd.vae_cfg.z_channels)
+    gen = torch.Generator(sd.device).manual_seed(seed)
+    x_T = torch.randn(shape, generator=gen, device=sd.device)
+    sigma_noise = torch.randn((ddim_steps,) + shape, generator=gen,
+                              device=sd.device) if eta > 0 else None
+    return _txt2img_core(sd, ctx_c, ctx_u, x_T, ddim_steps=ddim_steps,
+                         cfg_scale=cfg_scale, eta=eta,
+                         sigma_noise=sigma_noise)
+
+
+def _invert_core(sd: StableDiffusionBundle, img, ctx_cond, ctx_uncond,
+                 enc_noise, *, t_enc: Optional[int], ddim_steps: int,
+                 cfg_scale: float, timestep_indexing: str):
+    """VAE encode (posterior sample with ``enc_noise``) then
+    ``ddim_encode`` on the f32-traced DDIM schedule."""
+    lat = V.encode(sd.vae_params, sd.vae_cfg, img.to(sd.dtype),
+                   noise=enc_noise)
+    ddim = make_ddim_params_traced(sd.sched, ddim_steps)
+    return D.ddim_encode(_unet_fn(sd), sd.sched, ddim, lat,
+                         D.CondBundle(ctx_cond), D.CondBundle(ctx_uncond),
+                         t_enc, cfg_scale=cfg_scale,
+                         timestep_indexing=timestep_indexing)
+
+
+def img2img_invert(sd: StableDiffusionBundle, img, c_text: str,
+                   uc_text: str = "", t_enc: Optional[int] = None,
+                   ddim_steps: int = 50, cfg_scale: float = 1.0,
+                   seed: int = 1234, timestep_indexing: str = "index"):
+    """Deterministic DDIM inversion of an image up the noise chain; returns
+    the encoded latent. ``cfg_scale`` 1 (the default) makes one
+    single-batch UNet call a step. The encode's posterior noise is drawn
+    from ``torch.Generator(sd.device).manual_seed(seed)``."""
+    img = torch.as_tensor(img, device=sd.device)
+    ctx_c = sd.get_learned_conditioning(c_text)
+    ctx_u = sd.get_learned_conditioning(uc_text)
+    gen = torch.Generator(sd.device).manual_seed(seed)
+    enc_noise = torch.randn(_latent_shape(sd, img.shape), generator=gen,
+                            device=sd.device)
+    return _invert_core(sd, img, ctx_c, ctx_u, enc_noise, t_enc=t_enc,
+                        ddim_steps=ddim_steps, cfg_scale=cfg_scale,
+                        timestep_indexing=timestep_indexing)

@@ -2,7 +2,8 @@
 
 Counterpart of ``sd_animation_optical_flow_tpu/training/losses.py``: the
 simple diffusion objective (noise x0 at a timestep t, predict, MSE) with
-the eps / v / x0 parameterizations and channel-concat conditioning.
+the eps / v / x0 parameterizations, channel-concat conditioning and
+class labels.
 The JAX ``p_losses`` draws t and the noise from its rng key; here both
 are inputs, so a test can feed both frameworks the same arrays, and
 :func:`p_losses_sampled` draws them from an explicit ``torch.Generator``.
@@ -38,12 +39,10 @@ def p_losses(unet_params, unet_cfg: U.UNetConfig, sched: DiffusionSchedule,
     t [B] int (kept on the host for the schedule lookups); noise shaped
     as x0. ``c_concat``: channel-concat conditioning appended clean to
     the noised latent (the inpainting UNet's mask and masked-image
-    latent). The mean is taken in f32 (the JAX mean of a bf16 array
-    returns bf16). ``y`` (class / adm labels) is not ported yet."""
-    if y is not None:
-        raise NotImplementedError("class / adm conditioning (y) is not ported "
-                                  "to the torch package yet (ROADMAP §1 "
-                                  "item 7)")
+    latent, the depth model's depth, the upscaler's low-res image).
+    ``y``: [B] int class / adm labels of a class-conditional UNet (the
+    upscaler's noise level). The mean is taken in f32 (the JAX mean of a
+    bf16 array returns bf16)."""
     if parameterization not in ("eps", "v", "x0"):
         raise ValueError(parameterization)
     t = torch.as_tensor(t).long().cpu()
@@ -52,7 +51,7 @@ def p_losses(unet_params, unet_cfg: U.UNetConfig, sched: DiffusionSchedule,
     if c_concat is not None:
         x_noisy = torch.cat([x_noisy, c_concat.to(x_noisy.dtype)], dim=-1)
     pred, _ = U.unet_apply(unet_params, unet_cfg, x_noisy, t.to(x0.device),
-                           context)
+                           context, y=y)
     target = {"eps": lambda: noise, "x0": lambda: x0,
               "v": lambda: get_v(sched, x0, t, noise)}[parameterization]()
     return (pred.float() - target.float()).pow(2).mean()

@@ -121,11 +121,14 @@ def test_multistep_decode_toy_model(np_rng, sampler):
                               TD.CondBundle(np_t(ctx[:1])),
                               cfg_scale=7.0, cfg_dedup=True)
     assert rel_err(out, ref) < 1e-5
-    with pytest.raises(ValueError, match="eps"):
-        TM.multistep_decode(tfn, args[1], np_t(x),
-                            TD.CondBundle(np_t(ctx[1:])),
-                            TD.CondBundle(np_t(ctx[:1])),
-                            parameterization="v")
+    # eps and v (v needs the schedule; held to JAX's dpmpp_2m_decode in
+    # test_torch_samplers.py); any other parameterization is refused
+    for kw, match in ((dict(parameterization="x0"), "eps- or v"),
+                      (dict(parameterization="v"), "sched")):
+        with pytest.raises(ValueError, match=match):
+            TM.multistep_decode(tfn, args[1], np_t(x),
+                                TD.CondBundle(np_t(ctx[1:])),
+                                TD.CondBundle(np_t(ctx[:1])), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -212,8 +215,11 @@ def test_img2img_api_on_cpu(bundles):
 def test_create_model_boundaries():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TC.create_model("sd15", ckpt_path="model.safetensors", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.load_spec("sd15-depth")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TC.load_spec("configs/sd15.yaml")
+    depth, up = TC.load_spec("sd15-depth"), TC.load_spec("sd-upscale")
+    assert depth.unet.in_channels == 5 and depth.unet.num_classes is None
+    assert up.unet.in_channels == 7 and up.unet.num_classes == 1000
     assert TC.load_spec("sd15-inpaint9").unet.in_channels == 9
     assert TC.load_spec("sd15-inpaint9").conditioning_key == "hybrid"
     spec = TC.load_spec("sd15")

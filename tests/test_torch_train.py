@@ -224,12 +224,24 @@ def test_ema_update_matches_jax():
 
 
 def test_unported_training_options_raise(models):
+    """Sharding the train state (item 8) is refused; class labels ``y``
+    (ported) give the JAX loss."""
+    ycfg = dict(UNET_KW, channel_mult=(1, 2), attention_resolutions=(1,),
+                num_classes=4)
+    with numpy_init():
+        yparams = JU.unet_init(jax.random.PRNGKey(7), JU.UNetConfig(**ycfg))
+    perturb_zero_convs(yparams, np.random.default_rng(7))
+    x0, ctx, _ = _batch(7)
+    x0 = x0[:, :8, :8]
+    rng = jax.random.PRNGKey(5)
+    jloss = jax.jit(JL.p_losses, static_argnames="unet_cfg")(
+        yparams, JU.UNetConfig(**ycfg), JSCHED, jnp.asarray(x0),
+        jnp.asarray(ctx), rng, y=jnp.array([3, 0]))
+    t, noise = jax_t_noise(rng, x0)
+    loss = TL.p_losses(to_port(yparams), TU.UNetConfig(**ycfg), TSCHED,
+                       np_t(x0), np_t(ctx), t, noise, y=torch.tensor([3, 0]))
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
     params = TT.trainable(to_port(models[4][1]))
-    x0 = torch.zeros(1, 8, 8, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TL.p_losses(params, TU.UNetConfig(**UNET_KW), TSCHED, x0,
-                    torch.zeros(1, 3, 64), torch.tensor([5]),
-                    torch.zeros_like(x0), y=torch.tensor([1]))
     state = TT.TrainState(params, TT.make_optimizer(tree_leaves(params)))
     with pytest.raises(NotImplementedError, match="item 8"):
         TT.shard_train_state(state, mesh=None)

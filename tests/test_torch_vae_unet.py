@@ -107,13 +107,16 @@ def test_unet_unported_arguments_raise(models):
     x = torch.zeros((2, 8, 12, 4))
     t = torch.zeros((2,), dtype=torch.int32)
     ctx = torch.zeros((2, 13, 64))
-    for kw in ({"sp": object()}, {"y": torch.zeros(2)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TU.unet_apply(tp, tu, x, t, ctx, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TU.unet_apply(tp, tu, x, t, ctx, sp=object())
+    # class labels are ported: refused on a UNet without num_classes
+    with pytest.raises(ValueError, match="class-conditional"):
+        TU.unet_apply(tp, tu, x, t, ctx, y=torch.zeros(2, dtype=torch.int64))
     # ported, but not with the stem dedup (the CFG halves differ)
-    with pytest.raises(ValueError, match="context_pair"):
-        TU.unet_apply(tp, tu, x[:1], t[:1], None, attn_biases={},
-                      context_pair=(ctx[:1], ctx[1:]))
+    for kw in ({"attn_biases": {}}, {"y": torch.zeros(1, dtype=torch.int64)}):
+        with pytest.raises(ValueError, match="context_pair"):
+            TU.unet_apply(tp, tu, x[:1], t[:1], None,
+                          context_pair=(ctx[:1], ctx[1:]), **kw)
 
 
 @pytest.mark.parametrize("clip_skip", [0, 2])
