@@ -71,7 +71,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     the standalone DPM++ and ``ddim_sample`` against the multistep
     engine (>= 40 dB decoded), the class-conditional UNet, the DPT, VQ's
     indices and the two text encoders card against CPU; #1-#4 launched
-    on every UNet path, #5-#10 on none; then
+    on every UNet path, #5-#10 on none; then the ``[parallel]`` phase on
+    an NCCL process group of world size 1 and ``make_mesh(dp=1)``: the
+    keyframe pipeline's 2-tile 512x1536 seed strip with ``sp`` and
+    without (>= 40 dB, equal launches of #1, #3, #4 and #10, #10 > 0,
+    both profiled), ``img2img_inpaint_batch`` with ``mesh`` against the
+    plain batch (2e-2 x max |out|, #6 launched) and ``run_batched`` at
+    dp 1 against dp 0 (equal files); then
     the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
@@ -2290,6 +2296,231 @@ def run_variants_phase(sd, kernels, gen, card):
     return summary, all_counts, failures
 
 
+# ---------------------------------------------------------------------------
+# the serving side of parallel/ at world size 1
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS, PARALLEL_STRENGTH = 20, 0.4
+PARALLEL_PSNR = 40.0            # BASELINE.md's gate, decoded frames
+PARALLEL_BATCH_LIMIT = 2e-2     # x max |out|, the kernel rows' limit
+PARALLEL_KERNELS = ("flash_attention_tpv", "linear_ln_fused",
+                    "geglu_ff_fused", "flash_attention_mfr")
+
+
+def _psnr255(a, b):
+    import numpy as np
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
+    """The serving side of ``parallel/`` on one card: an NCCL process group
+    of world size 1 over a ``file://`` store in a temporary directory
+    (no gloo fallback: the phase fails if NCCL does not start) and
+    ``make_mesh(dp=1)`` on cuda, then, each run with the launch counters
+    reset just before it and read just after (host clock, synchronized):
+
+    (a) the keyframe pipeline's 2-tile 'mutual' seed strip at 512x1536
+        (``generate_seed_frames``, sd15, 20 steps at strength 0.4, CFG 7,
+        K/V captured) with ``cfg.sp`` (rows sharded over the mesh's dp
+        axis: halo convolutions, reduced GroupNorms, Ulysses with #10
+        inside) and without: decoded frames at >= ``PARALLEL_PSNR`` of
+        each other, the launches of #1, #3, #4 and #10 equal, #10 > 0;
+    (b) ``img2img_inpaint_batch`` on sd15-inpaint9, 2 frames of 512x768
+        with per-frame K/V of the two keyframes, with ``mesh`` (dp 1) and
+        without: within ``PARALLEL_BATCH_LIMIT`` x max |out|, the K/V
+        stores equal in shape, #6 launched;
+    (c) ``pixel_inpaint.run_batched`` on 3 frames (a key frame, then one
+        batch of 2) at dp 1 and dp 0: the same files, byte for byte.
+
+    Each pair of (a) and (b) runs plain, parallel, plain, parallel (the
+    first two counted; the lesser time of each printed), and (a) once
+    more each under the profiler; (c) runs once each. At world size 1
+    the collectives
+    move nothing between cards: the s/image beside each pair is the cost
+    of the collectives and the re-slicing, not a speed-up. The group is
+    destroyed at the end.
+    Returns (summary, the launch counts of each run, failures)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from sd_animation_optical_flow_tpu_torch.models.unet import \
+        SeqParallelConfig
+    from sd_animation_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        keyframe_inpaint as KI
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        pixel_inpaint as PI
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
+        load_flow_estimator
+    failures, summary, all_counts = [], {}, []
+    prompt, neg = "a watercolor fox in the snow", "lowres, blurry"
+    out_root = Path(__file__).resolve().parent / "build"
+    out_root.mkdir(parents=True, exist_ok=True)
+
+    def counted(run):
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        all_counts.append(counts)
+        return out, secs, counts
+
+    def pair(calls):
+        """{name: run} of the plain call and the parallel one: each run
+        once counted, in that order, then once more; {name: (the counted
+        run's output, the lesser of its two times, its counts)}."""
+        res = {name: list(counted(run)) for name, run in calls.items()}
+        for name, run in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run()
+            torch.cuda.synchronize()
+            res[name][1] = min(res[name][1], time.time() - t0)
+        return res
+
+    with tempfile.TemporaryDirectory(dir=out_root) as tmp:
+        os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        try:
+            torch.cuda.set_device(0)
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                    world_size=1, rank=0)
+            mesh = make_mesh(dp=1)
+            warm = torch.ones(1, device="cuda")
+            dist.all_reduce(warm, group=mesh.get_group("dp"))
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:
+            failures.append(f"parallel: NCCL at world size 1 did not start "
+                            f"({e})")
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            return summary, all_counts, failures
+        log(f"[parallel] process group {dist.get_backend()} world size "
+            f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
+            f"{tuple(mesh.mesh.shape)} on {mesh.device_type}")
+        try:
+            # (a) the seed strip, sp and not
+            frames = _pan_frames(np.random.default_rng(SEED + 3), 2, H, W)
+            video = KI.VideoWorkspace(f"{tmp}/ws", frames=frames,
+                                      size=(W, H), keep_every=1)
+            def seed_strip(sp):
+                cfg = KI.KeyframeInpaintConfig(
+                    size=(W, H), keep_every=1, ddim_steps=PARALLEL_STEPS,
+                    denoising_strength=PARALLEL_STRENGTH, sp=sp)
+                return lambda: KI.generate_seed_frames(
+                    sd, None, video, KI.FrameIndices([0, 1]), cfg)
+            calls = {"plain": seed_strip(None),
+                     "sp": seed_strip(SeqParallelConfig(mesh))}
+            strips = pair(calls)
+            (tiles_sp, kv_sp), (tiles, kv) = strips["sp"][0], \
+                strips["plain"][0]
+            psnr = min(_psnr255(a, b) for a, b in zip(tiles_sp, tiles))
+            same = {k: (strips["sp"][2][k], strips["plain"][2][k])
+                    for k in PARALLEL_KERNELS}
+            kv_ok = [tuple(k.shape) for k, _ in kv_sp] \
+                == [tuple(k.shape) for k, _ in kv]
+            summary["seed_strip"] = {
+                "psnr_db": psnr, "s_sp": strips["sp"][1],
+                "s_plain": strips["plain"][1], "launches": same,
+                "profile_busy_wall_ms": {
+                    name: profile_frame(run, f"parallel seed strip {name}")
+                    for name, run in calls.items()}}
+            if not psnr >= PARALLEL_PSNR:
+                failures.append(f"parallel: seed strip sp vs plain "
+                                f"{psnr:.2f} dB < {PARALLEL_PSNR}")
+            if any(a != b for a, b in same.values()) \
+                    or not same["flash_attention_mfr"][0]:
+                failures.append(f"parallel: seed strip launches {same}")
+            if not kv_ok:
+                failures.append("parallel: seed strip K/V shapes differ")
+
+            # (b) the dp batch, mesh and not
+            ka, kb = keys_kv
+            per_frame = tuple(
+                tuple(torch.cat([torch.cat([a[i], b[i]], 1),
+                                 torch.cat([b[i], a[i]], 1)])
+                      for i in range(2))
+                for a, b in zip(ka, kb))
+            imgs = torch.rand((2, H, W, 3), generator=gen,
+                              device="cuda") * 2 - 1
+            refs = torch.rand((2, H, W, 3), generator=gen,
+                              device="cuda") * 2 - 1
+            mask = _blob_mask(H, W, H * 0.49, W * 0.51, H * 0.29, gen)
+            masks = torch.stack([mask, mask.flip(1)])
+            def batch(m):
+                return lambda: F.img2img_inpaint_batch(
+                    sd9, imgs, [prompt, prompt], neg, masks, refs,
+                    PARALLEL_STRENGTH, ddim_steps=PARALLEL_STEPS,
+                    mask_blur=4, cfg_scale=CFG, seed=SEED,
+                    reference_kv=per_frame, capture_kv=True, mesh=m)
+            batches = pair({"plain": batch(None), "mesh": batch(mesh)})
+            (out, bkv), (ref, ref_kv) = batches["mesh"][0], \
+                batches["plain"][0]
+            err = (out.float() - ref.float()).abs().max().item() \
+                / max(ref.float().abs().max().item(), 1e-12)
+            kv_ok = [tuple(k.shape) for k, _ in bkv] \
+                == [tuple(k.shape) for k, _ in ref_kv]
+            summary["inpaint_batch"] = {
+                "rel_err": err, "s_mesh": batches["mesh"][1],
+                "s_plain": batches["plain"][1],
+                "keymask_launches": batches["mesh"][2][
+                    "flash_attention_keymask"]}
+            if not (err <= PARALLEL_BATCH_LIMIT and kv_ok
+                    and tuple(out.shape) == (2, H, W, 3)):
+                failures.append(f"parallel: dp batch rel err {err:.3e}, K/V "
+                                f"shapes equal {kv_ok}")
+            if not batches["mesh"][2]["flash_attention_keymask"]:
+                failures.append("parallel: dp batch never launched #6")
+
+            # (c) run_batched, dp 1 and dp 0
+            est = load_flow_estimator(device="cuda")
+            triples = [(f, i == 0, i) for i, f in enumerate(
+                _pan_frames(np.random.default_rng(SEED + 4), 3, H, W))]
+            files, pixel_s = {}, {}
+            for dp in (0, 1):
+                cfg = PI.PixelInpaintConfig(
+                    name="smoke", denoising_strength=PARALLEL_STRENGTH,
+                    ddim_steps=PARALLEL_STEPS, frame_batch=2, dp=dp,
+                    write_vis=False)
+                out_dir, secs, _ = counted(lambda: PI.run_batched(
+                    iter(triples), f"{tmp}/dp{dp}", sd, sd9, est,
+                    tagger=None, cfg=cfg))
+                files[dp] = {n: Path(out_dir, n).read_bytes()
+                             for n in sorted(os.listdir(out_dir))}
+                pixel_s[dp] = secs / len(triples)
+            equal = len(files[1]) == 3 and files[1] == files[0]
+            summary["run_batched"] = {"files_equal": equal,
+                                      "s_a_frame_dp1": pixel_s[1],
+                                      "s_a_frame_dp0": pixel_s[0]}
+            if not equal:
+                failures.append("parallel: run_batched dp 1 files differ "
+                                f"from dp 0 ({sorted(files[1])})")
+        finally:
+            dist.destroy_process_group()
+    s = summary
+    log(f"[parallel] world size 1, s/image sp vs not (host clock, "
+        f"synchronized): seed strip 512x1536 {s['seed_strip']['s_sp']:.3f} "
+        f"vs {s['seed_strip']['s_plain']:.3f} s ({PARALLEL_STEPS} steps at "
+        f"{PARALLEL_STRENGTH}, decoded PSNR {s['seed_strip']['psnr_db']:.2f} "
+        f"dB, launches sp/plain {s['seed_strip']['launches']}); dp batch of "
+        f"2 at 512x768 {s['inpaint_batch']['s_mesh'] / 2:.3f} vs "
+        f"{s['inpaint_batch']['s_plain'] / 2:.3f} s a frame (rel err "
+        f"{s['inpaint_batch']['rel_err']:.3e}, #6 "
+        f"{s['inpaint_batch']['keymask_launches']}); run_batched 3 frames "
+        f"dp 1 vs 0 {s['run_batched']['s_a_frame_dp1']:.3f} vs "
+        f"{s['run_batched']['s_a_frame_dp0']:.3f} s a frame (files equal "
+        f"{s['run_batched']['files_equal']}) [{card}]")
+    return summary, all_counts, failures
+
+
 FLOWTRAIN_HW = (128, 192)
 FLOWTRAIN_ITERS = 8
 
@@ -2861,13 +3092,19 @@ def main() -> int:
         sd, sd9, control_bundle, kernels, card)
     phases["kfpipe"] = time.time() - t0
     failures += kfpipe_failures
-    del sd9, control_bundle
+    del control_bundle
     torch.cuda.empty_cache()
     t0 = time.time()
     variants, variants_counts, variants_failures = run_variants_phase(
         sd, kernels, gen, card)
     phases["variants"] = time.time() - t0
     failures += variants_failures
+    t0 = time.time()
+    parallel, parallel_counts, parallel_failures = run_parallel_phase(
+        sd, sd9, keys_kv, kernels, gen, card)
+    phases["parallel"] = time.time() - t0
+    failures += parallel_failures
+    del sd9
     torch.cuda.empty_cache()
     t0 = time.time()
     flowtrain, flowtrain_counts, flowtrain_failures = \
@@ -2882,7 +3119,7 @@ def main() -> int:
     inference = list(main.values()) + list(keyframe.values()) \
         + [(None, c, None)
            for c in pixel_counts + control_counts + kfpipe_counts
-           + variants_counts] \
+           + variants_counts + parallel_counts] \
         + [(None, banded["counts"], None), (None, flowtrain_counts, None)]
     # the training kernels run only where a gradient is recorded
     for name in TRAIN_KERNELS:
@@ -2914,7 +3151,8 @@ def main() -> int:
     log(json.dumps({"frame_s": {s: v[0] for s, v in main.items()},
                     "keyframe_step_s": {s: v[0] for s, v in keyframe.items()},
                     "pixel": pixel, "control": control, "kfpipe": kfpipe,
-                    "variants": variants, "flowtrain": flowtrain,
+                    "variants": variants, "parallel": parallel,
+                    "flowtrain": flowtrain,
                     "banded": banded, "train": train,
                     "unet_rel_err": unet_rel,
                     "card": card}))

@@ -13,9 +13,10 @@ multi-frame bias of ``ops/attention.banded_strip_bias``), ControlNet
 residuals (``control``), DeepCache's partial forward
 (``unet_apply_deepcache``, ``deepcache_feat_shape``) and class / adm
 conditioning (``num_classes``, ``y``: a ``label_emb`` row added to the
-time embedding, e.g. the upscaler's noise level). Not yet ported:
-sequence parallelism (``sp``), which raises ``NotImplementedError``
-naming its ROADMAP item.
+time embedding, e.g. the upscaler's noise level) and sequence
+parallelism (``sp``: the latent's rows sharded over a mesh axis, the
+layers that mix rows from ``parallel/spatial.py``, every self-attention
+through ``parallel/ring_attention.ulysses_attention``).
 """
 
 from __future__ import annotations
@@ -24,11 +25,14 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops._cuda import records_grad
 from ..ops.attention import attention, attention_injected, strip_attention
 from ..ops.ffn import (geglu_ff_fused, geglu_ff_plain, linear_ln_fused,
                       linear_ln_plain)
+from ..parallel import spatial as S
+from ..parallel.ring_attention import ulysses_attention
 from .layers import (Init, conv2d, conv2d_init, group_norm, linear,
                      linear_init, norm_init, swish, timestep_embedding,
                      upsample2x_conv)
@@ -53,6 +57,32 @@ class StripConfig:
 
 
 @dataclass(frozen=True)
+class SeqParallelConfig:
+    """Sequence parallelism over the ranks of ``mesh``'s ``axis``: the
+    latent's H (row) axis is sharded over them (row-major tokens, so each
+    rank's token range is contiguous), the convolutions exchange halo
+    rows and the GroupNorms reduce their statistics across ranks
+    (``parallel/spatial.py``), and every self-attention runs Ulysses-style
+    (one all-to-all to a head sharding, full-sequence attention on the
+    rank's heads, all-to-all back), which composes with the MFR strip
+    bias since each rank sees the whole sequence. Needs num_heads and
+    every level's row count divisible by the axis size.
+
+    ``mesh``: a ``torch.distributed`` DeviceMesh (``parallel.mesh.
+    make_mesh``); every rank of the axis calls the same function with the
+    same whole inputs. The axis defaults to "dp", the axis ``make_mesh``
+    builds and the JAX CLI shards strips over (the JAX dataclass defaults
+    to a name its own mesh does not have)."""
+    mesh: DeviceMesh
+    axis: str = "dp"
+
+    def __post_init__(self):
+        if not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(f"SeqParallelConfig.mesh must be a torch "
+                            f"DeviceMesh, got {type(self.mesh).__name__}")
+
+
+@dataclass(frozen=True)
 class UNetConfig:
     in_channels: int = 4
     out_channels: int = 4
@@ -68,11 +98,6 @@ class UNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.model_channels * 4
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to the torch package "
-                              f"yet (ROADMAP §1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -92,12 +117,12 @@ def _resblock_init(init: Init, in_ch, out_ch, emb_dim):
     return p
 
 
-def _resblock(p, x, emb):
-    h = swish(group_norm(p["in_norm"], x))
-    h = conv2d(p["in_conv"], h)
+def _resblock(p, x, emb, sp=None):
+    h = swish(S.group_norm(p["in_norm"], x, sp))
+    h = S.conv2d(p["in_conv"], h, sp)
     h = h + linear(p["emb_lin"], swish(emb))[:, None, None, :]
-    h = swish(group_norm(p["out_norm"], h))
-    h = conv2d(p["out_conv"], h)
+    h = swish(S.group_norm(p["out_norm"], h, sp))
+    h = S.conv2d(p["out_conv"], h, sp)
     if "skip" in p:
         x = conv2d(p["skip"], x)
     return x + h
@@ -166,12 +191,15 @@ def _fused_route(x, *weights) -> bool:
 
 
 def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, bias=None,
-                    strip=None, hw=None):
+                    strip=None, hw=None, sp=None):
     """Self-attention with the block's norm1 folded into one fused
     [C, 3C] QKV projection; returns (out, (k, v)) with k/v [B, N, C]
     (views of the projection, post-projection, pre-head-split).
 
-    ``strip``: the MFR strip route (``hw`` is the latent's (h, w_strip)).
+    ``strip``: the MFR strip route (``hw`` is the latent's (h, w_strip),
+    h the whole latent's rows under ``sp``).
+    ``sp``: x holds this rank's tokens; the attention runs through
+    :func:`ulysses_attention` (the strip attention as its ``attn_fn``).
     ``ref_kv`` = (rk, rv) [Br, Nr, C], the JAX package's three injection
     cases: Br equal to x's batch replaces K/V wholesale; under the CFG
     batch (Br 1 or B // 2) the cond half attends to the reference K/V
@@ -189,6 +217,15 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, bias=None,
     q, k, v = proj(x, wqkv, pre_ln["scale"], pre_ln["bias"]).chunk(3, dim=-1)
     captured = (k, v)
     heads = lambda t: _heads(t, n_heads)
+    if sp is not None:
+        attn_fn = None
+        if strip is not None and strip.n_tiles > 1:
+            attn_fn = lambda qh, kh, vh: strip_attention(
+                qh, kh, vh, h=hw[0], w_strip=hw[1], n_tiles=strip.n_tiles,
+                mode=strip.mode)
+        out = ulysses_attention(heads(q), heads(k), heads(v), sp.mesh,
+                                seq_axis=sp.axis, attn_fn=attn_fn)
+        return linear(p["to_out"], _merge_heads(out)), captured
     if strip is not None and strip.n_tiles > 1:
         if ref_kv is not None or bias is not None:
             raise ValueError("strip MFR attention does not compose with "
@@ -256,10 +293,10 @@ def _ff_tail(p, x):
 
 
 def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
-                         attn_bias=None, strip=None, cfg_pair=None):
+                         attn_bias=None, strip=None, cfg_pair=None, sp=None):
     """Returns (out, kv_list) — one (k, v) per depth block.
     ``attn_bias``: the additive bias of every self-attention (see
-    :func:`_self_attention`).
+    :func:`_self_attention`). ``sp``: x holds this rank's rows.
 
     ``cfg_pair=(ctx_u, ctx_c)``: CFG stem dedup — ``x`` arrives at HALF
     the CFG batch, the self-attention runs once on it, and the batch
@@ -267,15 +304,16 @@ def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
     Returns a full-batch output."""
     b, h, w, c = x.shape
     res = x
-    x = group_norm(p["norm"], x, eps=1e-6)
+    x = S.group_norm(p["norm"], x, sp, eps=1e-6)
     x = conv2d(p["proj_in"], x)
     x = x.reshape(b, h * w, c)
     kvs = []
     expand = cfg_pair is not None
+    h_all = h if sp is None else h * S.group_of(sp)[2]
     for blk in p["blocks"]:
         a1, kv = _self_attention(blk["attn1"], x, n_heads, blk["norm1"],
                                  ref_kv=ref_kv, bias=attn_bias, strip=strip,
-                                 hw=(h, w))
+                                 hw=(h_all, w), sp=sp)
         x = x + a1
         kvs.append(kv)
         if expand:
@@ -354,8 +392,10 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
                control: Optional[Tuple] = None,
                attn_biases: Optional[dict] = None,
                y: Optional[torch.Tensor] = None,
-               strip: Optional[StripConfig] = None, sp=None,
-               context_pair: Optional[Tuple] = None):
+               strip: Optional[StripConfig] = None,
+               sp: Optional[SeqParallelConfig] = None,
+               context_pair: Optional[Tuple] = None,
+               capture_kv: bool = True):
     """Forward pass.
 
     Args:
@@ -388,18 +428,44 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
       y: [B] int class labels (adm conditioning, e.g. the upscaler's
         noise level); required iff ``cfg.num_classes`` is set (ValueError
         otherwise, either way). Not with ``context_pair``.
-      sp: not ported yet; passing it raises NotImplementedError.
+      sp: optional SeqParallelConfig — every rank of its mesh axis passes
+        the same whole inputs; each slices its rows of x (and of the
+        ControlNet residuals), runs the blocks on them and all-gathers
+        the output rows once, so the call takes and returns whole
+        latents, as the JAX function does under GSPMD. Composes with
+        ``strip``, ``control`` and ``y``; not with ``ref_kv``,
+        ``attn_biases`` or ``context_pair`` (ValueError). Needs
+        ``num_heads`` and the row count of every level divisible by the
+        axis size (ValueError).
+      capture_kv: under ``sp``, whether kv_hist is wanted: its K/V are
+        gathered to whole tokens (two all-gathers a layer) only then, and
+        kv_hist is None otherwise. Without ``sp`` the pairs are views of
+        the projections and are always returned.
 
     Returns:
       (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
     """
-    if sp is not None:
-        _not_ported("sequence parallelism (sp)", "8")
     if context_pair is not None and (ref_kv is not None
                                      or attn_biases is not None
                                      or y is not None):
         raise ValueError("context_pair (CFG stem dedup) does not compose "
                          "with ref_kv, attn_biases or y")
+    if sp is not None:
+        if not isinstance(sp, SeqParallelConfig):
+            raise TypeError(f"sp must be a SeqParallelConfig, got "
+                            f"{type(sp).__name__}")
+        if ref_kv is not None or attn_biases is not None \
+                or context_pair is not None:
+            raise ValueError("sequence parallelism (sp) does not compose "
+                             "with ref_kv, attn_biases or context_pair")
+        n = S.group_of(sp)[2]
+        if cfg.num_heads % n:
+            raise ValueError(f"{cfg.num_heads} heads do not divide over "
+                             f"{n} sequence-parallel ranks")
+        S.check_rows(sp, x.shape[1], len(cfg.channel_mult))
+        x = S.shard_rows(x, sp)
+        if control is not None:
+            control = tuple(S.shard_rows(c, sp) for c in control)
     if (cfg.num_classes is None) != (y is None):
         raise ValueError("class labels y are required iff the UNet is "
                          f"class-conditional (num_classes "
@@ -425,7 +491,7 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
             rkv = ref_kv[layer - 1] if ref_kv is not None else None
             bias = attn_biases.get(layer - 1) if attn_biases else None
             h, kvs = _spatial_transformer(p, h, ctx, nh, ref_kv=rkv,
-                                          attn_bias=bias, strip=strip)
+                                          attn_bias=bias, strip=strip, sp=sp)
             kv_hist.extend(kvs)
             return h
         h, kvs = _spatial_transformer(p, h, None, nh, strip=strip,
@@ -442,18 +508,18 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
     h = x
     for blk in params["input_blocks"]:
         if "conv" in blk:
-            h = conv2d(blk["conv"], h)
+            h = S.conv2d(blk["conv"], h, sp)
         elif "down" in blk:
-            h = conv2d(blk["down"], h, stride=2, padding=1)
+            h = S.conv2d(blk["down"], h, sp, stride=2, padding=1)
         else:
-            h = _resblock(blk["res"], h, emb)
+            h = _resblock(blk["res"], h, emb, sp)
             if "transformer" in blk:
                 h = tfm(blk["transformer"], h)
         hs.append(h)
 
-    h = _resblock(params["middle"]["res1"], h, emb)
+    h = _resblock(params["middle"]["res1"], h, emb, sp)
     h = tfm(params["middle"]["transformer"], h)
-    h = _resblock(params["middle"]["res2"], h, emb)
+    h = _resblock(params["middle"]["res2"], h, emb, sp)
     if control is not None:
         h = h + control[-1].to(h.dtype)     # the middle residual is last
 
@@ -463,15 +529,20 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
             # the encoder residuals, consumed last-to-first
             skip = skip + control[len(control) - 2 - i].to(h.dtype)
         h = torch.cat([h, skip], dim=-1)
-        h = _resblock(blk["res"], h, emb)
+        h = _resblock(blk["res"], h, emb, sp)
         if "transformer" in blk:
             h = tfm(blk["transformer"], h)
         if "up" in blk:
-            h = upsample2x_conv(blk["up"], h)
+            h = S.upsample2x_conv(blk["up"], h, sp)
 
-    h = swish(group_norm(params["out"]["norm"], h))
-    out = conv2d(params["out"]["conv"], h)
-    return out, tuple(kv_hist)
+    h = swish(S.group_norm(params["out"]["norm"], h, sp))
+    out = S.conv2d(params["out"]["conv"], h, sp)
+    if sp is None:
+        return out, tuple(kv_hist)
+    kv_hist = tuple(
+        tuple(S.gather(torch.stack(kv), sp, dim=2).unbind(0))
+        for kv in kv_hist) if capture_kv else None
+    return S.gather(out, sp), kv_hist
 
 
 def unet_apply_deepcache(params, cfg: UNetConfig, x, timesteps, context,

@@ -10,7 +10,10 @@ Counterpart of ``sd_animation_optical_flow_tpu/pipelines/facades.py``
 ``stochastic_encode`` -> CFG UNet steps -> VAE decode, with the K/V
 capture pass (the terminal-step UNet pass whose 16 self-attention (k, v)
 pairs the keyframe pipeline stores and injects into later frames), K/V
-injection (``reference_kv``) and MFR strips (``strip``).
+injection (``reference_kv``), MFR strips (``strip``), sequence
+parallelism (``sp``: the UNet's rows sharded over a mesh axis, the VAE and
+the sampler's elementwise updates replicated) and data-parallel batches
+(``img2img_inpaint_batch``'s ``mesh``).
 
 A call with no hook runs its steps through the multistep engine (DDIM
 or DPM-Solver++(2M); stem dedup unless K/V are injected; the inpaint
@@ -50,6 +53,7 @@ from ..models import vae as V
 from ..models.controlnet import control_residuals, control_step_weights
 from ..ops.filters import fill_masked, gaussian_blur
 from ..ops.resize import resize
+from ..parallel import mesh as PM
 from .tokenizer import PromptTokenizer
 
 _SAMPLER = re.compile(r"ddim|dpmpp(:[1-9][0-9]*)?")
@@ -112,9 +116,10 @@ def sampler_coeffs(sched: DiffusionSchedule, ddim_steps: int, t_enc: int,
     return M.make_dpmpp_coeffs(sched, dts)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to the torch package "
-                              f"yet (ROADMAP §1 item {item})")
+def _check_sp(sp):
+    if sp is not None and not isinstance(sp, U.SeqParallelConfig):
+        raise TypeError(f"sp must be a SeqParallelConfig, got "
+                        f"{type(sp).__name__}")
 
 
 def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
@@ -126,7 +131,7 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
                  guidance_space: str = "latent", guidance_noise=None,
                  guidance_encode_noise=None, controls=(),
                  control_weights=None, cfg_interval: int = 1,
-                 deepcache_interval: int = 0):
+                 deepcache_interval: int = 0, sp=None):
     """The JAX ``_img2img_core``: ``stochastic_encode`` with ``noise`` ->
     CFG decode (with the inpaint re-noise when ``nmask`` is given) ->
     optional final composite -> optional K/V capture -> VAE decode.
@@ -145,14 +150,17 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
     change the image (the JAX DPM++ decode has no such hooks: it drops
     the residuals it computed), so no residual is computed.
 
-    Stem dedup is on unless ``ref_kv`` is given (the CFG halves then see
-    different K/V) or CFG caching or DeepCache is on; with ``c_concat``
+    Stem dedup is on unless ``ref_kv`` or ``sp`` is given (the CFG halves
+    then see different K/V; the sharded UNet takes no ``context_pair``) or
+    CFG caching or DeepCache is on; with ``c_concat``
     both CondBundles share the one tensor, so dedup holds for the
     inpaint model too. The capture pass runs the UNet once more at t = 1
     on the final latent (with ``c_concat`` appended), ``ctx_cond`` only,
     no injection, controls or strip bias (as in the JAX package); the
     stored pairs are contiguous copies, not views of the fused QKV
-    projections."""
+    projections. Under ``sp`` every UNet evaluation is row-sharded and
+    gathers its output; the capture pass also gathers its K/V to whole
+    tokens."""
     ddim = make_ddim_params_traced(sd.sched, ddim_steps)
     x1 = D.stochastic_encode(ddim, init_latent, t_enc, noise)
 
@@ -161,7 +169,7 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
         out, _ = U.unet_apply(sd.unet_params, sd.unet_cfg, x, t,
                               None if pair is not None else ctx,
                               ref_kv=ref_kv, control=control, strip=strip,
-                              context_pair=pair)
+                              sp=sp, context_pair=pair, capture_kv=False)
         return out
 
     inpaint = nmask is not None
@@ -177,7 +185,8 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
     if not hooked:
         decoded = M.multistep_decode(
             model_fn, sampler_coeffs(sd.sched, ddim_steps, t_enc, sampler),
-            x1, cond, uncond, cfg_scale=cfg_scale, cfg_dedup=ref_kv is None,
+            x1, cond, uncond, cfg_scale=cfg_scale,
+            cfg_dedup=ref_kv is None and sp is None,
             parameterization=sd.parameterization, sched=sd.sched,
             init_latent=init_latent if inpaint else None, nmask=nmask,
             renoise_gate=renoise_gate, renoise_noise=renoise_noise)
@@ -205,10 +214,10 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
             renoise_gate=renoise_gate, renoise_noise=renoise_noise,
             control_residuals=residuals, control_weights=control_weights,
             cfg_interval=cfg_interval,
-            cfg_dedup=(ref_kv is None and cfg_interval == 1
+            cfg_dedup=(ref_kv is None and sp is None and cfg_interval == 1
                        and deepcache_interval == 0),
             **_deepcache_kwargs(sd, deepcache_interval, ref_kv, controls,
-                                c_concat, strip))
+                                c_concat, strip, sp))
     if final_composite and inpaint:
         # the mask in the latent's dtype: an f32 mask would promote the
         # composite, and with it the capture pass, to f32
@@ -222,24 +231,25 @@ def _latent_core(sd: StableDiffusionBundle, init_latent, ctx_cond,
         x_cap = decoded if c_concat is None else \
             torch.cat([decoded, c_concat.to(decoded.dtype)], dim=-1)
         _, kv = U.unet_apply(sd.unet_params, sd.unet_cfg, x_cap, ts,
-                             ctx_cond)
+                             ctx_cond, sp=sp)
         kv_hist = tuple((k.contiguous(), v.contiguous()) for k, v in kv)
     img = V.decode(sd.vae_params, sd.vae_cfg, decoded)
     return img.clamp(-1.0, 1.0), decoded, kv_hist
 
 
 def _deepcache_kwargs(sd: StableDiffusionBundle, deepcache_interval: int,
-                      ref_kv, controls, c_concat, strip):
+                      ref_kv, controls, c_concat, strip, sp=None):
     """``ddim_decode``'s DeepCache arguments when the knob is on: plain
     cross-attention img2img only (the partial forward has no K/V
-    injection, ControlNet, concat conditioning or strip bias)."""
+    injection, ControlNet, concat conditioning, strip bias or sequence
+    parallelism)."""
     if deepcache_interval <= 0:
         return {}
     if ref_kv is not None or controls or c_concat is not None \
-            or strip is not None:
+            or strip is not None or sp is not None:
         raise ValueError("deepcache_interval supports only plain "
                          "cross-attention img2img: no reference_kv, "
-                         "control_specs, inpaint conditioning or strip")
+                         "control_specs, inpaint conditioning, strip or sp")
 
     def full_fn(x, t, ctx):
         return U.unet_apply_deepcache(sd.unet_params, sd.unet_cfg, x, t, ctx)
@@ -355,10 +365,13 @@ def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
 
     The JAX facade's limits hold: DPM++ refuses ``target_img``, and on
     DPM++ ``control_specs``, ``cfg_interval`` and ``deepcache_interval``
-    do not change the image. ``sp`` (sequence parallelism) is not ported
-    yet and raises NotImplementedError."""
-    if sp is not None:
-        _not_ported("sp (sequence parallelism)", "8")
+    do not change the image.
+
+    ``sp``: a ``SeqParallelConfig`` — every rank of its mesh axis calls
+    with the same arguments; the UNet's rows are sharded over them (the
+    stem dedup off, as in JAX), everything else runs replicated, and
+    every rank returns the whole image."""
+    _check_sp(sp)
     check_sampler(sampler)
     img = img.to(sd.device)
     ctx_c = sd.get_learned_conditioning(c_text)
@@ -391,7 +404,7 @@ def img2img(sd: StableDiffusionBundle, img, c_text: str, uc_text: str,
         cfg_scale=cfg_scale, sampler=sampler, ref_kv=reference_kv,
         capture_kv=capture_kv, strip=strip, controls=controls,
         control_weights=weights, cfg_interval=cfg_interval,
-        deepcache_interval=deepcache_interval, **hooks)
+        deepcache_interval=deepcache_interval, sp=sp, **hooks)
     return out, kv
 
 
@@ -451,7 +464,7 @@ def _inpaint_fused(sd: StableDiffusionBundle, image, reference_img, mask01,
                    cfg_scale: float, capture_kv: bool,
                    final_composite: bool, has_reference: bool,
                    want_init_decoded: bool, sampler: str = "ddim",
-                   cfg_interval: int = 1, strip=None):
+                   cfg_interval: int = 1, strip=None, sp=None):
     """image / reference_img [B, H, W, 3]; mask01 [B, H, W]. Mask blur ->
     composite (or the multi-radius fill without a reference) -> VAE
     encode -> binarised latent mask -> 5-channel conditioning -> the
@@ -491,7 +504,7 @@ def _inpaint_fused(sd: StableDiffusionBundle, image, reference_img, mask01,
         c_concat=c_concat, nmask=nmask, renoise_gate=gates,
         renoise_noise=noise.renoise, ref_kv=ref_kv, capture_kv=capture_kv,
         final_composite=final_composite, strip=strip,
-        cfg_interval=cfg_interval)
+        cfg_interval=cfg_interval, sp=sp)
     init_decoded = V.decode(sd.vae_params, sd.vae_cfg, init_latent).clamp(
         -1.0, 1.0) if want_init_decoded else None
     return out, composited, init_decoded, kv
@@ -535,10 +548,9 @@ def img2img_inpaint(sd: StableDiffusionBundle, image, c_text: str,
     branch: the mask blurred as one [H, W] map, the composite (without a
     reference: the image itself, not the multi-radius fill), then DDIM
     with ``cfg_interval`` 1 whatever ``sampler`` and ``cfg_interval``
-    say, as the JAX branch passes neither on. ``sp`` is not ported yet
-    and raises NotImplementedError."""
-    if sp is not None:
-        _not_ported("sp (sequence parallelism)", "8")
+    say, as the JAX branch passes neither on. ``sp``: sequence
+    parallelism of the UNet, as in :func:`img2img`."""
+    _check_sp(sp)
     if mask is None:
         raise ValueError("img2img_inpaint requires a mask")
     check_sampler(sampler)
@@ -568,14 +580,14 @@ def img2img_inpaint(sd: StableDiffusionBundle, image, c_text: str,
             mask_blur=mask_blur, t_enc=t_enc, ddim_steps=ddim_steps,
             cfg_scale=cfg_scale, capture_kv=capture_kv,
             final_composite=final_composite,
-            want_init_decoded=want_init_decoded, strip=strip)
+            want_init_decoded=want_init_decoded, strip=strip, sp=sp)
     return _inpaint_fused(
         sd, img_d, ref_d, mask01[None], ctx_c, ctx_u, gates, reference_kv,
         noise, mask_blur=mask_blur, t_enc=t_enc, ddim_steps=ddim_steps,
         cfg_scale=cfg_scale, capture_kv=capture_kv,
         final_composite=final_composite, has_reference=has_reference,
         want_init_decoded=want_init_decoded, sampler=sampler,
-        cfg_interval=cfg_interval, strip=strip)
+        cfg_interval=cfg_interval, strip=strip, sp=sp)
 
 
 def _blurred_mask(mask01, mask_blur: int):
@@ -590,7 +602,7 @@ def _inpaint_controlled(sd: StableDiffusionBundle, image, reference_img,
                         mask_blur: int, t_enc: int, ddim_steps: int,
                         cfg_scale: float, capture_kv: bool,
                         final_composite: bool, want_init_decoded: bool,
-                        strip=None):
+                        strip=None, sp=None):
     """The ControlNet branch of ``img2img_inpaint`` (the JAX facade's
     unfused path): image [1, H, W, 3], reference_img the same or None
     (then the image itself is encoded and its masked latent randomised
@@ -618,7 +630,7 @@ def _inpaint_controlled(sd: StableDiffusionBundle, image, reference_img,
         c_concat=c_concat, nmask=nmask, renoise_gate=gates,
         renoise_noise=noise.renoise, ref_kv=ref_kv, capture_kv=capture_kv,
         final_composite=final_composite, strip=strip, controls=controls,
-        control_weights=weights)
+        control_weights=weights, sp=sp)
     init_decoded = V.decode(sd.vae_params, sd.vae_cfg, init_latent).clamp(
         -1.0, 1.0) if want_init_decoded else None
     return out, composited, init_decoded, kv
@@ -697,17 +709,20 @@ def img2img_inpaint_batch(sd: StableDiffusionBundle, images, c_texts,
     batch B (each frame injects its own references) or 1 (one set for
     all). ``cfg_interval`` > 1: CFG caching (DDIM). Returns images [B, H,
     W, 3], and with ``capture_kv`` also the batch's kv_hist (split it per
-    frame with :func:`split_kv_batch`). ``mesh`` (data parallelism) is
-    not ported yet and raises NotImplementedError."""
-    if mesh is not None:
-        _not_ported("mesh (data-parallel batches)", "8")
+    frame with :func:`split_kv_batch`).
+
+    ``mesh``: a DeviceMesh with a 'dp' axis (``parallel.mesh.make_mesh``)
+    — data parallelism: every rank of the axis calls with the same
+    arguments and denoises its B / dp frames (the same tiled noise, its
+    slice of a per-frame ``reference_kv``); the images and the captured
+    K/V are all-gathered, so every rank returns the whole batch."""
     check_sampler(sampler)
     images = torch.as_tensor(images, device=sd.device).to(sd.dtype)
+    refs = torch.as_tensor(reference_imgs, device=sd.device).to(sd.dtype)
+    masks = torch.as_tensor(masks, dtype=torch.float32, device=sd.device)
     b = images.shape[0]
     if len(c_texts) != b:
         raise ValueError(f"{len(c_texts)} prompts for {b} frames")
-    ctx_c = torch.cat([sd.get_learned_conditioning(t) for t in c_texts])
-    ctx_u = sd.get_learned_conditioning(uc_text).expand(b, -1, -1)
     t_enc = _t_enc(denoising_strength, ddim_steps)
     gates, final_composite = _gates(guidance_schedule_func, t_enc,
                                     ddim_steps)
@@ -717,15 +732,31 @@ def img2img_inpaint_batch(sd: StableDiffusionBundle, images, c_texts,
                                has_reference=True, tile_noise=True,
                                tile_renoise=sampler == "ddim",
                                device=sd.device)
+    ctx_c = torch.cat([sd.get_learned_conditioning(t) for t in c_texts])
+    if mesh is not None:
+        shard = lambda t: PM.shard_batch(t, mesh)
+        images, refs, masks, ctx_c = map(shard, (images, refs, masks, ctx_c))
+        # the DPM++ re-noise is per frame ([S, B, ...]); the rest is tiled
+        if noise.renoise.shape[1] == b:
+            noise = noise._replace(
+                renoise=shard(noise.renoise.movedim(1, 0)).movedim(0, 1))
+        if reference_kv is not None:
+            reference_kv = tuple(
+                kv if kv is None or kv[0].shape[0] != b
+                else tuple(map(shard, kv)) for kv in reference_kv)
+    ctx_u = sd.get_learned_conditioning(uc_text).expand(images.shape[0], -1,
+                                                        -1)
     out, _, _, kv = _inpaint_fused(
-        sd, images, torch.as_tensor(reference_imgs,
-                                    device=sd.device).to(sd.dtype),
-        torch.as_tensor(masks, dtype=torch.float32, device=sd.device),
-        ctx_c, ctx_u, gates, reference_kv, noise, mask_blur=mask_blur,
-        t_enc=t_enc, ddim_steps=ddim_steps, cfg_scale=cfg_scale,
-        capture_kv=capture_kv, final_composite=final_composite,
-        has_reference=True, want_init_decoded=False, sampler=sampler,
-        cfg_interval=cfg_interval)
+        sd, images, refs, masks, ctx_c, ctx_u, gates, reference_kv, noise,
+        mask_blur=mask_blur, t_enc=t_enc, ddim_steps=ddim_steps,
+        cfg_scale=cfg_scale, capture_kv=capture_kv,
+        final_composite=final_composite, has_reference=True,
+        want_init_decoded=False, sampler=sampler, cfg_interval=cfg_interval)
+    if mesh is not None:
+        out = PM.gather_batch(out, mesh)
+        if kv is not None:
+            kv = tuple(tuple(PM.gather_batch(t, mesh) for t in pair)
+                       for pair in kv)
     return (out, kv) if capture_kv else out
 
 

@@ -47,7 +47,7 @@ import torch
 from ..models.controlnet import ControlSpec, canny_hint, hed_hint
 from ..models.flowconf import _flow_conf_batch
 from ..models.raft import pad_to_multiple
-from ..models.unet import StripConfig
+from ..models.unet import SeqParallelConfig, StripConfig
 from ..ops.filters import (bgr_to_gray_u8, dilate, ellipse_kernel,
                            laplacian_abs_u8)
 from ..ops.resize import resize_u8
@@ -648,9 +648,11 @@ class KeyframeInpaintConfig:
     # is injected into every frame of the next. 1: the reference's
     # serial loop
     level_batch: int = 1
-    # sequence parallelism of the strips (ROADMAP §1 item 8, not ported:
-    # a value other than None reaches the facades, which raise)
-    sp: Optional[object] = None
+    # sequence parallelism of the seed and target strips: a
+    # SeqParallelConfig whose mesh axis shards the UNet's rows (every rank
+    # runs the pipeline on the same video, each in a workspace of its own:
+    # the workspace's files are not shared between ranks)
+    sp: Optional[SeqParallelConfig] = None
     guidance_schedule_func = staticmethod(lambda p: 1.0)
 
 

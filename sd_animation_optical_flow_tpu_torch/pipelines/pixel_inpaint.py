@@ -16,7 +16,8 @@ Outputs keep the reference's contract: ``converted_%06d.png``, the
 ``<save_dir>_pixel_warp-<name>``. ``run_video`` decodes a video file and
 detects its key frames (``keyframes.frame_generator``, which needs cv2);
 ``run_batched`` denoises the non-key frames of a key frame's segment in
-batches of ``frame_batch``, with the same outputs as ``run``.
+batches of ``frame_batch``, with the same outputs as ``run``, and with
+``dp`` splits each batch over data-parallel ranks.
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.flowconf import FlowConfidenceEstimator
 from ..ops.filters import dilate, ellipse_kernel
 from ..ops.warp import warp_mask_fused
+from ..parallel import mesh as PM
 from ..utils.images import (PngWriter, bgr_f32_to_u8, bgr_f32d_to_model,
                             bgr_u8_to_model, model_to_bgr_f32d,
                             model_to_bgr_u8, queue_host_copies, write_png)
@@ -64,7 +67,10 @@ class PixelInpaintConfig:
     frame_batch: int = 1
     # flow pairs per RAFT call in run_batched (0: the whole batch)
     flow_chunk: int = 4
-    # > 0: shard the frame batch over this many devices (not ported yet)
+    # > 0: shard run_batched's frame batches over the 'dp' axis of a mesh
+    # of this many ranks (an initialised process group of world size dp;
+    # every rank runs run_batched on the same frames, rank 0 writes);
+    # frame_batch % dp must be 0
     dp: int = 0
     # pad a segment's ragged tail batch up to frame_batch by repeating its
     # last frame (the padding's outputs are dropped): every batch then has
@@ -309,14 +315,18 @@ def _dispatch_batch_flow(batch, reference_frame, flow_estimator,
 
 def _dispatch_batch_denoise(batch, flow_pair, reference_frame,
                             reference_ai_frame, sd_inpaint, tagger, cfg,
-                            n_real=None):
+                            mesh=None, n_real=None):
     """Queue one batch's device work (warp + mask, the batched inpaint,
     the propagated-pixel mix, the uint8 conversion) and its copies to
     the host, without a host sync. Returns what the finalize needs: the
     host buffers, their event, and the host state captured now.
-    ``n_real``: with tail padding, how many leading frames are real."""
+    ``n_real``: with tail padding, how many leading frames are real.
+    ``mesh``: the inpaint's frames split over its 'dp' ranks; a ragged
+    batch (not a multiple of dp) is denoised whole on every rank."""
     if n_real is None:
         n_real = len(batch)
+    if mesh is not None and len(batch) % PM.axis_group(mesh, "dp")[2]:
+        mesh = None
     flow_d, conf_d, frames_u8_d = flow_pair
     dev = sd_inpaint.device
     ref_ai_d = torch.as_tensor(np.ascontiguousarray(reference_ai_frame),
@@ -337,7 +347,7 @@ def _dispatch_batch_denoise(batch, flow_pair, reference_frame,
         refs_model, denoising_strength=cfg.denoising_strength,
         ddim_steps=cfg.ddim_steps, mask_blur=cfg.mask_blur,
         guidance_schedule_func=cfg.guidance_schedule_func, seed=cfg.seed,
-        sampler=cfg.sampler, cfg_interval=cfg.cfg_interval)
+        sampler=cfg.sampler, cfg_interval=cfg.cfg_interval, mesh=mesh)
     outs_bgr = torch.clamp(outs.float() * 127.5 + 127.5, 0, 255).flip(-1)
     if cfg.propagated_pixel_weight >= 0.001:
         wt = cfg.propagated_pixel_weight
@@ -408,13 +418,29 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
 
     A three-stage software pipeline on the one stream: while batch k's
     denoise runs on the card, batch k+1's flow is queued behind it and
-    batch k-1's frames are read back (its own event) and written. ``dp``
-    (data parallelism) is not ported yet and raises."""
-    if cfg.dp > 0:
-        F._not_ported("dp (data-parallel frame batches)", "8")
+    batch k-1's frames are read back (its own event) and written.
+
+    ``cfg.dp`` > 0: data parallelism over a mesh of dp ranks (the
+    initialised process group; ``make_mesh`` raises without one). Every
+    rank calls with the same frames and bundles: the bundles' weights are
+    broadcast from rank 0 (``replicate_tree``, in place), every rank
+    computes the same flow and key frames, each denoises its frame_batch
+    / dp frames of a batch, and rank 0 alone writes the files."""
     out_dir = f"{save_dir}_pixel_warp-{cfg.name}"
-    os.makedirs(out_dir, exist_ok=True)
     bsz = max(cfg.frame_batch, 1)
+    mesh = None
+    if cfg.dp > 0:
+        if bsz % cfg.dp:
+            raise ValueError(f"frame_batch={bsz} not divisible by "
+                             f"dp={cfg.dp}")
+        mesh = PM.make_mesh(dp=cfg.dp,
+                            device_type=sd_inpaint.device.type)
+        for bundle in (sd, sd_inpaint):
+            PM.replicate_tree((bundle.unet_params, bundle.vae_params,
+                               bundle.clip_params), mesh)
+    write = mesh is None or dist.get_rank() == 0
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
 
     reference_frame = None
     reference_ai_frame = None
@@ -430,8 +456,8 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
             inflight = None
             res = _dispatch_batch_denoise(
                 batch, flow_pair, reference_frame, reference_ai_frame,
-                sd_inpaint, tagger, cfg, n_real=n_real)
-            prev, denoised = denoised, res
+                sd_inpaint, tagger, cfg, mesh=mesh, n_real=n_real)
+            prev, denoised = denoised, (res if write else None)
             if prev is not None:
                 _finalize_batch(prev, out_dir, cfg, writer)
 
@@ -459,6 +485,8 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
                 ai_frame = keyframe_img2img(sd, tagger, frame_bgr, cfg)
                 reference_frame = frame_bgr
                 reference_ai_frame = ai_frame
+                if not write:
+                    continue
                 writer.submit(f"{out_dir}/converted_{counter:06d}.png",
                               ai_frame)
                 if cfg.write_vis:

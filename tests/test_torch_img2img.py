@@ -194,8 +194,9 @@ def test_img2img_slice_matches_jax(bundles, np_rng, sampler):
 
 def test_img2img_api_on_cpu(bundles):
     """The public entry point end to end on the CPU: seeded noise is
-    deterministic, both samplers run, and the unported ``sp`` hook and
-    bad sampler strings are refused at the boundary."""
+    deterministic, both samplers run, and an ``sp`` that is not a
+    SeqParallelConfig and bad sampler strings are refused at the
+    boundary."""
     _, sd = bundles
     img = torch.rand((1, 32, 48, 3)) * 2 - 1
     a, kv = TF.img2img(sd, img, "a fox", "", 0.4, ddim_steps=5, seed=7)
@@ -208,7 +209,7 @@ def test_img2img_api_on_cpu(bundles):
     for bad in ("ddpm", "dpm", "dpmpp:", "dpmpp:x", "dpmpp:0", "DDIM"):
         with pytest.raises(ValueError, match="sampler"):
             TF.img2img(sd, img, "a fox", "", sampler=bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="SeqParallelConfig"):
         TF.img2img(sd, img, "a fox", "", sp=object())
 
 

@@ -289,7 +289,7 @@ def test_unet_refuses_what_is_not_ported(unet_pair):
     x = torch.zeros((2, 8, 12, 4))
     t = torch.ones(2, dtype=torch.int32)
     ctx = torch.zeros((2, 7, 64))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="SeqParallelConfig"):
         TU.unet_apply(tp, tu, x, t, ctx, sp=object())
     for kw in ({"ref_kv": (None,) * 11}, {"attn_biases": {}}):
         with pytest.raises(ValueError, match="context_pair"):

@@ -363,9 +363,9 @@ def test_facades_on_cpu(models):
         strip=TU.StripConfig(2, "target"))
     assert t_out.shape == (1, H, 2 * W, 3) and torch.isfinite(t_out).all()
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="SeqParallelConfig"):
         TF.img2img_inpaint(tsd9, key_b, "", "", mask=mask, sp=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TF.img2img_inpaint_batch(tsd9, batch, ["", ""], "", masks, batch,
                                  mesh=object())
     with pytest.raises(ValueError, match="mask"):

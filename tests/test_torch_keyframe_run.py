@@ -120,7 +120,7 @@ def _cfg(mod, **kw):
 def test_keyframe_config_prompt_and_controls_match_jax(tmp_path, models):
     """The config's fields and defaults, the prompt and the default
     controls' hints equal JAX's; a sequence-parallel ``sp`` reaches the
-    facades, which refuse it naming ROADMAP item 8."""
+    facades, which refuse one that is not a SeqParallelConfig."""
     jd, td = JKI.KeyframeInpaintConfig().__dict__, \
         TKI.KeyframeInpaintConfig().__dict__
     assert jd == td
@@ -147,7 +147,7 @@ def test_keyframe_config_prompt_and_controls_match_jax(tmp_path, models):
         assert np.abs(g.hint.numpy() - np.asarray(w.hint)).max() < 1e-6
     ws = TKI.VideoWorkspace(str(tmp_path / "ws"), frames=[frame],
                             size=(64, 64), keep_every=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
+    with pytest.raises(TypeError, match="SeqParallelConfig"):
         TKI.generate_seed_frames(models[1][0], None, ws,
                                  TKI.FrameIndices([0]),
                                  _cfg(TKI, sp=object(), **KW))

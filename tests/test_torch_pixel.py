@@ -22,6 +22,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import jax
@@ -180,8 +181,9 @@ def test_generate_mask_and_mix_match_jax(np_rng):
 
 def test_prompt_and_unported_hooks():
     """The prompt falls back to the fixed prefix without a tagger (or an
-    unavailable one) and takes the tagger's otherwise; run_batched
-    refuses data parallelism (dp > 0), naming its ROADMAP item."""
+    unavailable one) and takes the tagger's otherwise; run_batched's
+    data parallelism (dp > 0) needs a process group of world size dp and
+    raises without one (no fallback to one device)."""
     class Tagger:
         available = True
 
@@ -200,8 +202,9 @@ def test_prompt_and_unported_hooks():
     for k, v in TPI.PixelInpaintConfig().__dict__.items():
         if k != "guidance_schedule_func":
             assert v == getattr(JPI.PixelInpaintConfig(), k), k
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        TPI.run_batched(iter([]), "out", None, None, None,
+    with pytest.raises(RuntimeError, match="process group"):
+        TPI.run_batched(iter([]), "out", None,
+                        SimpleNamespace(device=torch.device("cpu")), None,
                         cfg=TPI.PixelInpaintConfig(frame_batch=2, dp=2))
 
 

@@ -107,7 +107,7 @@ def test_unet_unported_arguments_raise(models):
     x = torch.zeros((2, 8, 12, 4))
     t = torch.zeros((2,), dtype=torch.int32)
     ctx = torch.zeros((2, 13, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="SeqParallelConfig"):
         TU.unet_apply(tp, tu, x, t, ctx, sp=object())
     # class labels are ported: refused on a UNet without num_classes
     with pytest.raises(ValueError, match="class-conditional"):
