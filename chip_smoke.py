@@ -76,8 +76,13 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     keyframe pipeline's 2-tile 512x1536 seed strip with ``sp`` and
     without (>= 40 dB, equal launches of #1, #3, #4 and #10, #10 > 0,
     both profiled), ``img2img_inpaint_batch`` with ``mesh`` against the
-    plain batch (2e-2 x max |out|, #6 launched) and ``run_batched`` at
-    dp 1 against dp 0 (equal files); then
+    plain batch (2e-2 x max |out|, #6 launched), ``run_batched`` at
+    dp 1 against dp 0 (equal files), on ``make_mesh(dp=1, tp=1)`` one
+    UNet evaluation on the ``shard_params`` tree with ``tp`` against the
+    whole params (2e-2 x max |eps|, equal launches of #1, #3 and #4) and
+    two sharded fine-tuning steps (``shard_train_state``) against two
+    unsharded ones (losses, params and EMA within 1e-6; #7-#9 ten each
+    a step); then
     the ``[banded]`` phase: one full-width UNet
     evaluation with the two keyframes' K/V injected and the banded
     cross-frame bias materialized at every self-attention
@@ -2332,25 +2337,34 @@ def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
         without: within ``PARALLEL_BATCH_LIMIT`` x max |out|, the K/V
         stores equal in shape, #6 launched;
     (c) ``pixel_inpaint.run_batched`` on 3 frames (a key frame, then one
-        batch of 2) at dp 1 and dp 0: the same files, byte for byte.
+        batch of 2) at dp 1 and dp 0: the same files, byte for byte;
+    (d) one sd15 UNet evaluation at 512x768 (CFG batch 2, bf16) on the
+        ``shard_params`` tree with ``tp`` (tp 1: the collectives run, #4
+        with its bias and residual added after the reduction) and on the
+        whole params without: eps within ``PARALLEL_BATCH_LIMIT`` x max
+        |eps|, the launches of #1, #3 and #4 equal and above 0;
+    (e) the sharded train step (:func:`check_sharded_train`).
 
-    Each pair of (a) and (b) runs plain, parallel, plain, parallel (the
-    first two counted; the lesser time of each printed), and (a) once
-    more each under the profiler; (c) runs once each. At world size 1
+    Each pair of (a), (b) and (d) runs plain, parallel, plain, parallel
+    (the first two counted; the lesser time of each printed), and (a)
+    once more each under the profiler; (c) runs once each. At world size 1
     the collectives
     move nothing between cards: the s/image beside each pair is the cost
     of the collectives and the re-slicing, not a speed-up. The group is
     destroyed at the end.
-    Returns (summary, the launch counts of each run, failures)."""
+    Returns (summary, the launch counts of each inference run, those of
+    each sharded train step, failures)."""
     import os
     import tempfile
 
     import numpy as np
     import torch.distributed as dist
 
-    from sd_animation_optical_flow_tpu_torch.models.unet import \
-        SeqParallelConfig
+    from sd_animation_optical_flow_tpu_torch.models.unet import (
+        SeqParallelConfig, TensorParallelConfig, unet_apply)
     from sd_animation_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    from sd_animation_optical_flow_tpu_torch.parallel.sharding import \
+        shard_params
     from sd_animation_optical_flow_tpu_torch.pipelines import facades as F
     from sd_animation_optical_flow_tpu_torch.pipelines import \
         keyframe_inpaint as KI
@@ -2358,7 +2372,7 @@ def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
         pixel_inpaint as PI
     from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
         load_flow_estimator
-    failures, summary, all_counts = [], {}, []
+    failures, summary, all_counts, train_counts = [], {}, [], []
     prompt, neg = "a watercolor fox in the snow", "lowres, blurry"
     out_root = Path(__file__).resolve().parent / "build"
     out_root.mkdir(parents=True, exist_ok=True)
@@ -2393,7 +2407,7 @@ def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
             torch.cuda.set_device(0)
             dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                     world_size=1, rank=0)
-            mesh = make_mesh(dp=1)
+            mesh = make_mesh(dp=1, tp=1)
             warm = torch.ones(1, device="cuda")
             dist.all_reduce(warm, group=mesh.get_group("dp"))
             torch.cuda.synchronize()
@@ -2402,7 +2416,7 @@ def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
                             f"({e})")
             if dist.is_initialized():
                 dist.destroy_process_group()
-            return summary, all_counts, failures
+            return summary, all_counts, train_counts, failures
         log(f"[parallel] process group {dist.get_backend()} world size "
             f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
             f"{tuple(mesh.mesh.shape)} on {mesh.device_type}")
@@ -2503,6 +2517,42 @@ def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
             if not equal:
                 failures.append("parallel: run_batched dp 1 files differ "
                                 f"from dp 0 ({sorted(files[1])})")
+
+            # (d) the tp forward at tp 1 against the whole params
+            local, _ = shard_params(sd.unet_params, mesh)
+            lat = torch.randn((1, H // 8, W // 8, 4), generator=gen,
+                              device="cuda").to(sd.dtype).repeat(2, 1, 1, 1)
+            t = torch.full((2,), 401, dtype=torch.int32, device="cuda")
+            ctx = torch.cat([sd.get_learned_conditioning(neg),
+                             sd.get_learned_conditioning(prompt)]).to(sd.dtype)
+
+            def evaluate(params, tp):
+                def run():
+                    with torch.no_grad():
+                        return unet_apply(params, sd.unet_cfg, lat, t, ctx,
+                                          tp=tp)[0]
+                return run
+            evals = pair({"plain": evaluate(sd.unet_params, None),
+                          "tp": evaluate(local, TensorParallelConfig(mesh))})
+            eps, eps_tp = (evals[k][0].float() for k in ("plain", "tp"))
+            err = (eps_tp - eps).abs().max().item() \
+                / max(eps.abs().max().item(), 1e-12)
+            same = {k: (evals["tp"][2][k], evals["plain"][2][k])
+                    for k in PARALLEL_KERNELS[:3]}
+            summary["tp_forward"] = {
+                "rel_err": err, "s_tp": evals["tp"][1],
+                "s_plain": evals["plain"][1], "launches": same}
+            if not (err <= PARALLEL_BATCH_LIMIT
+                    and bool(torch.isfinite(eps_tp).all())):
+                failures.append(f"parallel: tp forward rel err {err:.3e}")
+            if any(a != b or not a for a, b in same.values()):
+                failures.append(f"parallel: tp forward launches {same}")
+            del local, evals, eps, eps_tp
+
+            # (e) the sharded train step at dp 1 x tp 1
+            summary["sharded_train"], train_counts, train_failures = \
+                check_sharded_train(sd, mesh, kernels, gen)
+            failures += train_failures
         finally:
             dist.destroy_process_group()
     s = summary
@@ -2517,8 +2567,11 @@ def run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card):
         f"{s['inpaint_batch']['keymask_launches']}); run_batched 3 frames "
         f"dp 1 vs 0 {s['run_batched']['s_a_frame_dp1']:.3f} vs "
         f"{s['run_batched']['s_a_frame_dp0']:.3f} s a frame (files equal "
-        f"{s['run_batched']['files_equal']}) [{card}]")
-    return summary, all_counts, failures
+        f"{s['run_batched']['files_equal']}); tp forward at tp 1 "
+        f"{s['tp_forward']['s_tp']:.4f} vs {s['tp_forward']['s_plain']:.4f} "
+        f"s an evaluation (rel err {s['tp_forward']['rel_err']:.3e}, "
+        f"launches tp/plain {s['tp_forward']['launches']}) [{card}]")
+    return summary, all_counts, train_counts, failures
 
 
 FLOWTRAIN_HW = (128, 192)
@@ -2705,6 +2758,26 @@ def _grad_list(params, cfg, sched, x0, ctx, t, noise):
     return loss.item(), list(torch.autograd.grad(loss, leaves))
 
 
+def _train_batch(sd, gen):
+    """The training batch: ``TRAIN_BATCH`` VAE-encoded random 512x768
+    images and CLIP encodings of 77-token prompts, both in the bundle's
+    dtype."""
+    from sd_animation_optical_flow_tpu_torch.models import clip as CL
+    from sd_animation_optical_flow_tpu_torch.models import vae as V
+    prompts = ["a watercolor fox in the snow, " * 12,
+               "an oil painting of a harbour at dusk, " * 10]
+    with torch.no_grad():
+        imgs = torch.rand((TRAIN_BATCH, H, W, 3), generator=gen,
+                          device="cuda") * 2 - 1
+        x0 = V.encode(sd.vae_params, sd.vae_cfg, imgs.to(sd.dtype),
+                      generator=gen)
+        ids = torch.stack([torch.from_numpy(sd.tokenizer.chunked(p)[0])
+                           for p in prompts]).long().to("cuda")
+        ctx = CL.clip_text_apply(sd.clip_params, sd.clip_cfg, ids,
+                                 clip_skip=sd.clip_skip).to(sd.dtype)
+    return x0, ctx
+
+
 def run_train_phase(sd, kernels, gen):
     """The diffusion fine-tuning step at full SD-1.5 width: f32 master
     weights (the bundle's UNet, zero-init convs perturbed) with bf16
@@ -2717,8 +2790,6 @@ def run_train_phase(sd, kernels, gen):
     before and read just after, then one profiled step. Returns
     (summary dict, per-step counts, failures)."""
     import functools
-    from sd_animation_optical_flow_tpu_torch.models import clip as CL
-    from sd_animation_optical_flow_tpu_torch.models import vae as V
     from sd_animation_optical_flow_tpu_torch.ops import attention as A
     from sd_animation_optical_flow_tpu_torch.training import losses as TL
     from sd_animation_optical_flow_tpu_torch.training import optim as TO
@@ -2727,17 +2798,7 @@ def run_train_phase(sd, kernels, gen):
     failures = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prompts = ["a watercolor fox in the snow, " * 12,
-               "an oil painting of a harbour at dusk, " * 10]
-    with torch.no_grad():
-        imgs = torch.rand((TRAIN_BATCH, H, W, 3), generator=gen,
-                          device="cuda") * 2 - 1
-        x0 = V.encode(sd.vae_params, sd.vae_cfg, imgs.to(sd.dtype),
-                      generator=gen)
-        ids = torch.stack([torch.from_numpy(sd.tokenizer.chunked(p)[0])
-                           for p in prompts]).long().to("cuda")
-        ctx = CL.clip_text_apply(sd.clip_params, sd.clip_cfg, ids,
-                                 clip_skip=sd.clip_skip).to(sd.dtype)
+    x0, ctx = _train_batch(sd, gen)
     cfg, sched = sd.unet_cfg, sd.sched
     state = TT.init_train_state(sd.unet_params, functools.partial(
         TO.adamw_with_ema_wings, lr=TRAIN_LR))
@@ -2834,6 +2895,103 @@ def run_train_phase(sd, kernels, gen):
                "grad_rel_l2": grad_rel, "grad_cos": grad_cos,
                "peak_gib": peak, "plain_route_peak_gib": plain_peak,
                "profile_busy_wall_ms": prof}
+    return summary, counts, failures
+
+
+SHARDED_STEPS = 2
+SHARDED_TOL = 1e-6      # losses relative; leaves x max |leaf|
+
+
+def check_sharded_train(sd, mesh, kernels, gen):
+    """``[parallel]`` (e): the sharded fine-tuning step at dp 1 x tp 1 on
+    ``mesh``, beside the unsharded one. The ``[train]`` phase's set-up
+    (f32 master weights from the bundle's UNet, bf16 activations, batch
+    ``TRAIN_BATCH`` of 512x768, ``adamw_with_ema_wings`` at
+    ``TRAIN_LR``, eps): ``SHARDED_STEPS`` steps of an unsharded state,
+    then of a state built from the same params through
+    ``shard_train_state``, both on the same t and noise; the first state
+    is freed (its params and EMA kept for the comparison) before the
+    second is built. Each step timed (host clock, synchronized) with the
+    launch counters reset just before it and read just after. Passes
+    when the losses agree within ``SHARDED_TOL`` relative, every gathered
+    param and EMA leaf within ``SHARDED_TOL`` x its max |leaf|, and every
+    sharded step launched #7 = #8 = #9 = 10, #1 >= 10 and no #3, #4 or
+    #6. Returns (summary, the sharded steps' counts, failures)."""
+    import functools
+    from sd_animation_optical_flow_tpu_torch.parallel.sharding import \
+        gather_params
+    from sd_animation_optical_flow_tpu_torch.training import losses as TL
+    from sd_animation_optical_flow_tpu_torch.training import optim as TO
+    from sd_animation_optical_flow_tpu_torch.training import train_step as TT
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
+    failures, counts, runs = [], [], {}
+    x0, ctx = _train_batch(sd, gen)
+    draws = [TL.sample_t_noise(sd.sched, x0, gen)
+             for _ in range(SHARDED_STEPS)]
+    make_opt = functools.partial(TO.adamw_with_ema_wings, lr=TRAIN_LR)
+    step = TT.make_train_step(sd.unet_cfg, sd.sched)
+    for name in ("plain", "sharded"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = TT.init_train_state(sd.unet_params, make_opt)
+        if name == "sharded":
+            state = TT.shard_train_state(state, mesh)
+        losses, times = [], []
+        for t, noise in draws:
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            losses.append(step(state, x0, ctx, t, noise).item())
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            if name == "sharded":
+                counts.append({k: fn.launches for k, fn in kernels.items()})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params = state.params
+        ema = TO.ema_params_of(state.opt, params)
+        if name == "sharded":
+            params, ema = (gather_params(tree, state.specs, mesh)
+                           for tree in (params, ema))
+        runs[name] = (losses, times, peak,
+                      [p.detach() for p in tree_leaves(params)],
+                      tree_leaves(ema))
+        del state, params, ema      # the moments and gradients go
+    (loss_p, time_p, peak_p, par_p, ema_p), \
+        (loss_s, time_s, peak_s, par_s, ema_s) = runs["plain"], \
+        runs["sharded"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_s, loss_p))
+    leaf_err = {
+        what: max((a - b).abs().max().item()
+                  / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(mine, ref))
+        for what, mine, ref in (("param", par_s, par_p),
+                                ("ema", ema_s, ema_p))}
+    del runs, par_p, par_s, ema_p, ema_s
+    for i, c in enumerate(counts):
+        if c["flash_attention_tpv"] < 10 or c["linear_ln_fused"] \
+                or c["geglu_ff_fused"] or c["flash_attention_keymask"] \
+                or any(c[k] != 10 for k in TRAIN_KERNELS):
+            failures.append(f"parallel: sharded train step {i + 1} "
+                            f"launches {c} (want #7 = #8 = #9 = 10, #1 >= "
+                            "10, #3 = #4 = #6 = 0)")
+    if not (loss_err <= SHARDED_TOL and all(math.isfinite(x)
+                                            for x in loss_s)):
+        failures.append(f"parallel: sharded losses {loss_s} vs {loss_p}")
+    if not max(leaf_err.values()) <= SHARDED_TOL:
+        failures.append(f"parallel: sharded params / EMA after "
+                        f"{SHARDED_STEPS} steps: {leaf_err}")
+    log(f"[parallel] sharded train step at dp 1 x tp 1 vs unsharded, "
+        f"batch {TRAIN_BATCH} at 512x768: s/step {time_s[-1]:.3f} vs "
+        f"{time_p[-1]:.3f} (step 1 {time_s[0]:.3f} vs {time_p[0]:.3f}; host "
+        f"clock, synchronized), losses {loss_s} vs {loss_p} (rel err "
+        f"{loss_err:.3e}), max leaf err {leaf_err}, peak device memory "
+        f"{peak_s:.2f} vs {peak_p:.2f} GiB (the unsharded state's params "
+        f"and EMA kept through the sharded run), launches {counts}")
+    summary = {"s_per_step": time_s[-1], "s_per_step_plain": time_p[-1],
+               "step_s": time_s, "step_s_plain": time_p, "losses": loss_s,
+               "losses_plain": loss_p, "loss_rel_err": loss_err,
+               "leaf_rel_err": leaf_err, "peak_gib": peak_s,
+               "peak_gib_plain": peak_p}
     return summary, counts, failures
 
 
@@ -3100,8 +3258,8 @@ def main() -> int:
     phases["variants"] = time.time() - t0
     failures += variants_failures
     t0 = time.time()
-    parallel, parallel_counts, parallel_failures = run_parallel_phase(
-        sd, sd9, keys_kv, kernels, gen, card)
+    parallel, parallel_counts, sharded_counts, parallel_failures = \
+        run_parallel_phase(sd, sd9, keys_kv, kernels, gen, card)
     phases["parallel"] = time.time() - t0
     failures += parallel_failures
     del sd9
@@ -3131,7 +3289,8 @@ def main() -> int:
     failures += train_failures
 
     table = []
-    paths = inference + [(None, c, None) for c in train_counts]
+    paths = inference + [(None, c, None)
+                         for c in train_counts + sharded_counts]
     for name, fn in kernels.items():
         mine = [r for r in rows if r["name"].startswith(name + " ")]
         launches = sum(c[name] for _, c, _ in paths)

@@ -26,7 +26,11 @@ level-batched back-fill) with the warp-as-guidance ``pipelines/ofgen.py``,
 and the other samplers and model variants (``txt2img``, the DDIM
 inversion, PLMS, DDPM, the standalone DPM-Solver++(2M), class
 conditioning, depth2img with a DPT, latent upscaling, the VQ first stage
-and the OpenCLIP / T5 text encoders)
+and the OpenCLIP / T5 text encoders), and ``parallel/`` (sequence
+parallelism and dp batches for serving; tensor x data parallel
+fine-tuning, ``training/train_step.shard_train_state``), and the
+host-side training data and logging (flow datasets and augmentors, BSRGAN
+degradations, flow IO and visualization, image panels, profiling)
 —
 
     import sd_animation_optical_flow_tpu_torch as M

@@ -16,7 +16,10 @@ conditioning (``num_classes``, ``y``: a ``label_emb`` row added to the
 time embedding, e.g. the upscaler's noise level) and sequence
 parallelism (``sp``: the latent's rows sharded over a mesh axis, the
 layers that mix rows from ``parallel/spatial.py``, every self-attention
-through ``parallel/ring_attention.ulysses_attention``).
+through ``parallel/ring_attention.ulysses_attention``) and tensor
+parallelism (``tp``: the transformer blocks' heads and GEGLU columns
+split over a mesh axis, ``parallel/sharding.py``'s layout, the
+collectives of ``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ from ..ops.attention import attention, attention_injected, strip_attention
 from ..ops.ffn import (geglu_ff_fused, geglu_ff_plain, linear_ln_fused,
                       linear_ln_plain)
 from ..parallel import spatial as S
+from ..parallel.mesh import axis_group
 from ..parallel.ring_attention import ulysses_attention
-from .layers import (Init, conv2d, conv2d_init, group_norm, linear,
-                     linear_init, norm_init, swish, timestep_embedding,
-                     upsample2x_conv)
+from ..parallel.tensor import copy_to_tp, reduce_from_tp
+from .layers import (Init, conv2d, conv2d_init, group_norm, layer_norm,
+                     linear, linear_init, norm_init, swish,
+                     timestep_embedding, upsample2x_conv)
 
 # SD-1.5 has 16 spatial transformers: 6 encoder, 1 middle, 9 decoder.
 NUM_KV_LAYERS = 16
@@ -79,6 +84,29 @@ class SeqParallelConfig:
     def __post_init__(self):
         if not isinstance(self.mesh, DeviceMesh):
             raise TypeError(f"SeqParallelConfig.mesh must be a torch "
+                            f"DeviceMesh, got {type(self.mesh).__name__}")
+
+
+@dataclass(frozen=True)
+class TensorParallelConfig:
+    """Tensor parallelism over the ranks of ``mesh``'s 'tp' axis (Megatron
+    style, the layout of ``parallel/sharding.py``): each rank holds the
+    local tree of ``shard_params`` (``num_heads / tp`` heads and ``4 *
+    dim / tp`` GEGLU columns of every transformer block) and the whole
+    inputs. The column-split projections (q / k / v, GEGLU up) take the
+    LayerNorm's output, or the context, through ``copy_to_tp``; the
+    row-split ones (``to_out``, ``ff_out``) give partial sums, reduced
+    by ``reduce_from_tp``, after which the whole bias and the residual
+    are added once. Convolutions, norms and the time embedding run whole
+    on every rank.
+
+    ``mesh``: a ``torch.distributed`` DeviceMesh (``parallel.mesh.
+    make_mesh``, whose 'tp' axis ``shard_params`` splits over)."""
+    mesh: DeviceMesh
+
+    def __post_init__(self):
+        if not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(f"TensorParallelConfig.mesh must be a torch "
                             f"DeviceMesh, got {type(self.mesh).__name__}")
 
 
@@ -173,11 +201,15 @@ def _merge_heads(x):
     return x.reshape(b, n, h * d)
 
 
-def _fused_route(x, *weights) -> bool:
-    """Gate for the LN-prologue projection and GEGLU kernels (the JAX
-    gates minus their TPU test): bf16, feature dim <= 640, at least 4096
-    rows. Other shapes take the plain chain, as JAX leaves them to XLA;
-    on the CPU the routed call computes its plain version too.
+def _fused_route(x, *weights, dout=None, dff=None) -> bool:
+    """Gate for the LN-prologue projection (#3, give its ``dout``) and
+    GEGLU (#4, give its ``dff``) kernels: the JAX gates minus their TPU
+    test (bf16, feature dim <= 640, at least 4096 rows), and the shapes
+    the kernels take: #3 din and dout multiples of 16, #4 din and dff
+    multiples of 64. Tensor parallelism gives local shapes they may not
+    take (SD's 320 channels over 8 ranks: a QKV of 120 columns, a GEGLU
+    of 160). Other shapes take the plain chain, as JAX leaves them to
+    XLA; on the CPU the routed call computes its plain version too.
 
     Neither kernel has a backward, in JAX as here: where a gradient is
     recorded through x or the block's ``weights`` (training), the gate
@@ -185,13 +217,42 @@ def _fused_route(x, *weights) -> bool:
     training path runs where its bf16 gate is off."""
     if records_grad(x, *weights):
         return False
+    din = x.shape[-1]
     n_rows = x.shape[0] * x.shape[1] if x.ndim == 3 else x.shape[0]
-    return (x.shape[-1] <= 640 and n_rows >= 4096
-            and x.dtype == torch.bfloat16)
+    if dout is not None and (din % 16 or dout % 16):
+        return False
+    if dff is not None and (din % 64 or dff % 64):
+        return False
+    return din <= 640 and n_rows >= 4096 and x.dtype == torch.bfloat16
+
+
+def _ln_proj(x, w, pre_ln, tp=None):
+    """``LN(x) @ w^T``: kernel #3 on its gate, else the plain chain. Under
+    ``tp`` (the 'tp' process group; w holds this rank's columns) the
+    normalised x enters through ``copy_to_tp``, so the LayerNorm's and
+    x's gradients sum every rank's columns; the fused route runs only
+    where no gradient is recorded, and there the collective is the
+    identity."""
+    if _fused_route(x, w, *pre_ln.values(), dout=w.shape[0]):
+        return linear_ln_fused(x, w, pre_ln["scale"], pre_ln["bias"])
+    if tp is None:
+        return linear_ln_plain(x, w, pre_ln["scale"], pre_ln["bias"])
+    xn = copy_to_tp(layer_norm(pre_ln, x, eps=1e-5), tp)
+    return xn @ w.to(x.dtype).t()
+
+
+def _out_proj(p, h, tp=None):
+    """``to_out``: under ``tp`` h holds this rank's heads and w its input
+    columns; the partial products are reduced over 'tp' and the whole
+    bias is added once after, as ``linear`` adds it after the product."""
+    if tp is None:
+        return linear(p, h)
+    y = reduce_from_tp(h @ p["w"].to(h.dtype).t(), tp)
+    return y + p["b"].to(h.dtype)
 
 
 def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, bias=None,
-                    strip=None, hw=None, sp=None):
+                    strip=None, hw=None, sp=None, tp=None):
     """Self-attention with the block's norm1 folded into one fused
     [C, 3C] QKV projection; returns (out, (k, v)) with k/v [B, N, C]
     (views of the projection, post-projection, pre-head-split).
@@ -209,12 +270,12 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, bias=None,
     (Nk the reference's tokens under ``ref_kv``), taken by the router's
     plain route as in JAX. Under the CFG injection the uncond rows' key
     mask (0 / -1e9) joins it and the sum goes to the same route, as the
-    JAX package composes them."""
+    JAX package composes them.
+    ``tp``: the 'tp' process group; the block holds this rank's
+    ``n_heads`` heads, and the captured k / v are their columns."""
     wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]],
                      dim=0).to(x.dtype)
-    proj = linear_ln_fused if _fused_route(x, wqkv, *pre_ln.values()) \
-        else linear_ln_plain
-    q, k, v = proj(x, wqkv, pre_ln["scale"], pre_ln["bias"]).chunk(3, dim=-1)
+    q, k, v = _ln_proj(x, wqkv, pre_ln, tp).chunk(3, dim=-1)
     captured = (k, v)
     heads = lambda t: _heads(t, n_heads)
     if sp is not None:
@@ -264,39 +325,58 @@ def _self_attention(p, x, n_heads, pre_ln, ref_kv=None, bias=None,
             mask[: b // 2, n:] = -1e9
             bias = bias + mask[:, None, None, :]
     out = attention(heads(q), heads(k), heads(v), bias=bias)
-    return linear(p["to_out"], _merge_heads(out)), captured
+    return _out_proj(p["to_out"], _merge_heads(out), tp), captured
 
 
-def _cross_attention(p, x, context, n_heads, pre_ln):
-    # LN2 feeds only the Q projection (K/V come from the context)
-    proj = linear_ln_fused \
-        if _fused_route(x, p["to_q"]["w"], *pre_ln.values()) \
-        else linear_ln_plain
-    q = proj(x, p["to_q"]["w"], pre_ln["scale"], pre_ln["bias"])
+def _cross_attention(p, x, context, n_heads, pre_ln, tp=None):
+    # LN2 feeds only the Q projection (K/V come from the context, which
+    # under tp enters this rank's columns through copy_to_tp too)
+    q = _ln_proj(x, p["to_q"]["w"], pre_ln, tp)
     wkv = torch.cat([p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
-    k, v = (context.to(x.dtype) @ wkv.t()).chunk(2, dim=-1)
+    context = context.to(x.dtype)
+    if tp is not None:
+        context = copy_to_tp(context, tp)
+    k, v = (context @ wkv.t()).chunk(2, dim=-1)
     out = attention(_heads(q, n_heads), _heads(k, n_heads),
                     _heads(v, n_heads))
-    return linear(p["to_out"], _merge_heads(out))
+    return _out_proj(p["to_out"], _merge_heads(out), tp)
 
 
-def _ff_tail(p, x):
+def _ff_tail(p, x, tp=None):
     """The transformer-block tail ``x + FF(LN3(x))``: the fused GEGLU
     kernel (LN prologue, residual epilogue) on the JAX package's gate,
-    else the plain composition."""
-    ff = geglu_ff_fused if _fused_route(
-        x, *p["ff_proj"].values(), *p["ff_out"].values(),
-        *p["norm3"].values()) else geglu_ff_plain
-    return ff(x, p["ff_proj"]["w"], p["ff_proj"]["b"], p["ff_out"]["w"],
-              p["ff_out"]["b"], p["norm3"]["scale"], p["norm3"]["bias"],
-              residual=True)
+    else the plain composition.
+
+    Under ``tp`` (the 'tp' process group; ``ff_proj`` holds this rank's
+    paired value and gate rows, ``ff_out`` its input columns) each rank's
+    product is a partial sum: the kernel runs with ``residual=False`` and
+    a zero bias (the plain chain likewise, on ``copy_to_tp`` of the
+    normalised x), the partial sums are reduced over 'tp', and then
+    ``ff_out``'s bias and the residual x are added once, on every rank."""
+    w1, b1 = p["ff_proj"]["w"], p["ff_proj"]["b"]
+    w2, b2 = p["ff_out"]["w"], p["ff_out"]["b"]
+    ln = p["norm3"]
+    fused = _fused_route(x, w1, b1, w2, b2, *ln.values(), dff=w2.shape[1])
+    if tp is None:
+        ff = geglu_ff_fused if fused else geglu_ff_plain
+        return ff(x, w1, b1, w2, b2, ln["scale"], ln["bias"], residual=True)
+    zero = torch.zeros_like(b2, dtype=x.dtype)
+    if fused:
+        part = geglu_ff_fused(x, w1, b1, w2, zero, ln["scale"], ln["bias"],
+                              residual=False)
+    else:
+        xn = copy_to_tp(layer_norm(ln, x, eps=1e-5), tp)
+        part = geglu_ff_plain(xn, w1, b1, w2, zero)
+    return x + (reduce_from_tp(part, tp) + b2.to(x.dtype))
 
 
 def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
-                         attn_bias=None, strip=None, cfg_pair=None, sp=None):
+                         attn_bias=None, strip=None, cfg_pair=None, sp=None,
+                         tp=None):
     """Returns (out, kv_list) — one (k, v) per depth block.
     ``attn_bias``: the additive bias of every self-attention (see
-    :func:`_self_attention`). ``sp``: x holds this rank's rows.
+    :func:`_self_attention`). ``sp``: x holds this rank's rows. ``tp``:
+    the 'tp' process group; ``n_heads`` is this rank's head count.
 
     ``cfg_pair=(ctx_u, ctx_c)``: CFG stem dedup — ``x`` arrives at HALF
     the CFG batch, the self-attention runs once on it, and the batch
@@ -313,7 +393,7 @@ def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
     for blk in p["blocks"]:
         a1, kv = _self_attention(blk["attn1"], x, n_heads, blk["norm1"],
                                  ref_kv=ref_kv, bias=attn_bias, strip=strip,
-                                 hw=(h_all, w), sp=sp)
+                                 hw=(h_all, w), sp=sp, tp=tp)
         x = x + a1
         kvs.append(kv)
         if expand:
@@ -324,8 +404,8 @@ def _spatial_transformer(p, x, context, n_heads, ref_kv=None,
             b = x.shape[0]
             expand = False
         x = x + _cross_attention(blk["attn2"], x, context, n_heads,
-                                 blk["norm2"])
-        x = _ff_tail(blk, x)
+                                 blk["norm2"], tp)
+        x = _ff_tail(blk, x, tp)
     x = x.reshape(b, h, w, c)
     x = conv2d(p["proj_out"], x)
     return x + res, kvs
@@ -395,7 +475,8 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
                strip: Optional[StripConfig] = None,
                sp: Optional[SeqParallelConfig] = None,
                context_pair: Optional[Tuple] = None,
-               capture_kv: bool = True):
+               capture_kv: bool = True,
+               tp: Optional[TensorParallelConfig] = None):
     """Forward pass.
 
     Args:
@@ -441,6 +522,15 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
         gathered to whole tokens (two all-gathers a layer) only then, and
         kv_hist is None otherwise. Without ``sp`` the pairs are views of
         the projections and are always returned.
+      tp: optional TensorParallelConfig — ``params`` is this rank's local
+        tree (``parallel.sharding.shard_params``) and every rank of the
+        mesh axis passes the same whole inputs and gets the whole output.
+        The captured K/V hold this rank's heads' columns. The collectives
+        run whenever ``tp`` is given, at an axis of size 1 too. Composes
+        with ``context_pair``, ``strip``, ``control`` and ``y``; not with
+        ``sp``, ``ref_kv`` or ``attn_biases`` (ValueError). Needs
+        ``num_heads`` divisible by the axis size, and so every level's
+        GEGLU width (ValueError); GSPMD pads instead.
 
     Returns:
       (out [B, H, W, out_channels], kv_hist tuple of per-layer (k, v)).
@@ -450,6 +540,9 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
                                      or y is not None):
         raise ValueError("context_pair (CFG stem dedup) does not compose "
                          "with ref_kv, attn_biases or y")
+    if tp is not None and sp is not None:
+        raise ValueError("tensor parallelism (tp) does not compose with "
+                         "sequence parallelism (sp)")
     if sp is not None:
         if not isinstance(sp, SeqParallelConfig):
             raise TypeError(f"sp must be a SeqParallelConfig, got "
@@ -466,11 +559,26 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
         x = S.shard_rows(x, sp)
         if control is not None:
             control = tuple(S.shard_rows(c, sp) for c in control)
+    tp_group = None
+    nh = cfg.num_heads
+    if tp is not None:
+        if not isinstance(tp, TensorParallelConfig):
+            raise TypeError(f"tp must be a TensorParallelConfig, got "
+                            f"{type(tp).__name__}")
+        if ref_kv is not None or attn_biases is not None:
+            raise ValueError("tensor parallelism (tp) does not compose with "
+                             "ref_kv or attn_biases")
+        tp_group, _, n = axis_group(tp.mesh, "tp")
+        # every level's channels split into whole heads, so the GEGLU
+        # width (4 x channels) divides over the ranks where the heads do
+        if nh % n:
+            raise ValueError(f"{nh} heads do not divide over {n} "
+                             f"tensor-parallel ranks")
+        nh //= n
     if (cfg.num_classes is None) != (y is None):
         raise ValueError("class labels y are required iff the UNet is "
                          f"class-conditional (num_classes "
                          f"{cfg.num_classes}, y given: {y is not None})")
-    nh = cfg.num_heads
     t_emb = timestep_embedding(timesteps, cfg.model_channels, dtype=x.dtype)
     emb = linear(params["time_embed"][1],
                  swish(linear(params["time_embed"][0], t_emb)))
@@ -491,11 +599,12 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context,
             rkv = ref_kv[layer - 1] if ref_kv is not None else None
             bias = attn_biases.get(layer - 1) if attn_biases else None
             h, kvs = _spatial_transformer(p, h, ctx, nh, ref_kv=rkv,
-                                          attn_bias=bias, strip=strip, sp=sp)
+                                          attn_bias=bias, strip=strip, sp=sp,
+                                          tp=tp_group)
             kv_hist.extend(kvs)
             return h
         h, kvs = _spatial_transformer(p, h, None, nh, strip=strip,
-                                      cfg_pair=context_pair)
+                                      cfg_pair=context_pair, tp=tp_group)
         kv_hist.extend(kvs)
         half = False
         emb = torch.cat([emb, emb], dim=0)

@@ -5,8 +5,12 @@ Counterpart of ``sd_animation_optical_flow_tpu/parallel/mesh.py``: a
 runs one program over many devices and lets GSPMD place the data; here
 every rank runs the same program on its own device (SPMD), holds whole
 (replicated) tensors unless a function says otherwise, and the
-collectives of ``parallel/ring_attention.py`` and ``parallel/spatial.py``
-stand where GSPMD and ``shard_map`` insert theirs.
+collectives of ``parallel/ring_attention.py``, ``parallel/spatial.py``
+and ``parallel/tensor.py`` stand where GSPMD and ``shard_map`` insert
+theirs. The 'dp' axis carries batches (``shard_batch``, the sharded
+train step's gradient mean) and strips (``sp``); the 'tp' axis splits
+the UNet's transformer weights (``parallel/sharding.py``, the UNet's
+``tp``).
 
 ``make_mesh`` never starts a process group of its own: the caller
 initialises one (``torch.distributed.init_process_group``, world size dp

@@ -1,7 +1,10 @@
 """Port of sd_animation_optical_flow_tpu/training: the diffusion
-fine-tuning step, and the flow-training path (synthetic scenes, the RAFT
-sequence loss and train step, the uncertainty-head step, pretraining and
-evaluation). The flow-training names resolve lazily."""
+fine-tuning step (on one card or sharded dp x tp), the flow-training path
+(synthetic scenes, the RAFT sequence loss and train step, the
+uncertainty-head step, pretraining and evaluation), and the host-side
+training data (``flow_data.py``: augmentors and the dataset catalog;
+``degradation.py``: the BSRGAN degradations). The flow-training names
+resolve lazily."""
 
 _LAZY = {
     "FlowScene": "synthetic_flow",

@@ -29,7 +29,7 @@ def sample_t_noise(sched: DiffusionSchedule, x0, generator: torch.Generator):
 
 def p_losses(unet_params, unet_cfg: U.UNetConfig, sched: DiffusionSchedule,
              x0, context, t, noise, *, parameterization: str = "eps",
-             c_concat=None, y=None):
+             c_concat=None, y=None, tp=None):
     """Mean squared error of the UNet's prediction at ``x_t =
     q_sample(x0, t, noise)`` against the ``parameterization`` target:
     ``noise`` (eps), ``get_v(x0, t, noise)`` (v) or ``x0``.
@@ -41,8 +41,9 @@ def p_losses(unet_params, unet_cfg: U.UNetConfig, sched: DiffusionSchedule,
     the noised latent (the inpainting UNet's mask and masked-image
     latent, the depth model's depth, the upscaler's low-res image).
     ``y``: [B] int class / adm labels of a class-conditional UNet (the
-    upscaler's noise level). The mean is taken in f32 (the JAX mean of a
-    bf16 array returns bf16)."""
+    upscaler's noise level). ``tp``: a ``TensorParallelConfig``, with
+    ``unet_params`` this rank's local tree (``models/unet.py``). The mean
+    is taken in f32 (the JAX mean of a bf16 array returns bf16)."""
     if parameterization not in ("eps", "v", "x0"):
         raise ValueError(parameterization)
     t = torch.as_tensor(t).long().cpu()
@@ -51,7 +52,7 @@ def p_losses(unet_params, unet_cfg: U.UNetConfig, sched: DiffusionSchedule,
     if c_concat is not None:
         x_noisy = torch.cat([x_noisy, c_concat.to(x_noisy.dtype)], dim=-1)
     pred, _ = U.unet_apply(unet_params, unet_cfg, x_noisy, t.to(x0.device),
-                           context, y=y)
+                           context, y=y, tp=tp)
     target = {"eps": lambda: noise, "x0": lambda: x0,
               "v": lambda: get_v(sched, x0, t, noise)}[parameterization]()
     return (pred.float() - target.float()).pow(2).mean()

@@ -25,3 +25,19 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, *rest, path=()):
+    """``fn(path, leaf, *other_leaves)`` over ``tree``'s structure, path
+    the tuple of keys / indices (as str) down to the leaf; the other
+    trees are indexed by its keys, so a tuple standing at a leaf of
+    ``tree`` (a spec) is one leaf there."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                             path=path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree, *rest)

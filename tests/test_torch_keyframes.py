@@ -177,6 +177,8 @@ def test_cv2_is_imported_only_by_frame_generator():
     """cv2 is imported nowhere in the port but inside
     keyframes.frame_generator and the ``video_path=`` branch of
     keyframe_inpaint.VideoWorkspace.__init__ (both decode a video file),
+    and the ``_cv2`` helpers of the host-side training data modules
+    (training/degradation.py, training/flow_data.py, utils/flow_io.py),
     and neither the port nor the card scripts (chip_smoke.py,
     temporal_consistency_torch.py) import JAX."""
     files = sorted((REPO / "sd_animation_optical_flow_tpu_torch").rglob(
@@ -201,7 +203,10 @@ def test_cv2_is_imported_only_by_frame_generator():
             if tops & {"jax", "jaxlib", "sd_animation_optical_flow_tpu"}:
                 jax_at.append(src.name)
     assert cv2_at == [("keyframe_inpaint.py", ["__init__"]),
-                      ("keyframes.py", ["frame_generator"])], cv2_at
+                      ("keyframes.py", ["frame_generator"]),
+                      ("degradation.py", ["_cv2"]),
+                      ("flow_data.py", ["_cv2"]),
+                      ("flow_io.py", ["_cv2"])], cv2_at
     assert not jax_at, jax_at
 
 

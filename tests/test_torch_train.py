@@ -35,8 +35,9 @@ from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
     train_state_from_jax
 from sd_animation_optical_flow_tpu_torch.utils.tree import (tree_leaves,
                                                             tree_map)
-from torch_port_common import (UNET_KW, jax_models, np_t, perturb_zero_convs,
-                               rel_err, to_port)
+from torch_port_common import (UNET_KW, close_tree, fill_zero_leaves,
+                               jax_models, jax_t_noise, np_t,
+                               perturb_zero_convs, to_port)
 
 T = 1000
 # SD fine-tuning's learning rate. Adam divides by sqrt(nu) + eps, so an
@@ -59,41 +60,6 @@ def _batch(seed, c_concat=0):
     cc = rng.standard_normal((2, 16, 16, c_concat), dtype=np.float32) \
         if c_concat else None
     return x0, ctx, cc
-
-
-def jax_t_noise(rng, x0):
-    """The t and noise the JAX ``p_losses`` draws from ``rng``."""
-    k_t, k_noise = jax.random.split(rng)
-    t = jax.random.randint(k_t, (x0.shape[0],), 0, T)
-    noise = jax.random.normal(k_noise, x0.shape, jnp.float32)
-    return torch.from_numpy(np.array(t)), np_t(noise)
-
-
-def _close_tree(port_tree, jax_tree, tol, what):
-    """Leaf by leaf: max |port - jax| <= tol * max |jax| (JAX leaves in
-    the port's layout). A leaf whose JAX values all lie below 1e-6 of the
-    tree's largest is structurally zero (in the small UNet, 32 channels in
-    32 groups, a per-channel shift before a GroupNorm has no gradient:
-    both sides hold f32 noise there), and both sides must stay below
-    that floor."""
-    pairs = _leaf_pairs(port_tree, to_port(jax_tree))
-    floor = 1e-6 * max(float(b.abs().max()) for _, (_, b) in pairs)
-    for name, (a, b) in pairs:
-        a = a.detach()
-        if float(b.abs().max()) < floor:
-            assert float(a.abs().max()) < floor, f"{what} {name}: not ~0"
-            continue
-        err = rel_err(a.numpy(), b.numpy())
-        assert err <= tol, f"{what} {name}: {err:.2e} > {tol:g}"
-
-
-def _leaf_pairs(a, b, path=""):
-    if isinstance(a, dict):
-        return [p for k in a for p in _leaf_pairs(a[k], b[k], f"{path}/{k}")]
-    if isinstance(a, (list, tuple)):
-        return [p for i in range(len(a))
-                for p in _leaf_pairs(a[i], b[i], f"{path}/{i}")]
-    return [(path, (a, b))]
 
 
 @pytest.fixture(scope="module")
@@ -131,16 +97,7 @@ def test_p_losses_value_and_grad_match_jax(models, parameterization,
     it = iter(grads)
     gtree = tree_map(lambda _: next(it), params)
     assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
-    _close_tree(gtree, jgrads, 1e-4, "grad")
-
-
-def _fill_zero_leaves(tree, rng):
-    """A copy with small random values in the all-zero leaves (the norm
-    biases): after three steps of ~lr those would hold ~3e-5, no scale
-    for a relative tolerance."""
-    return jax.tree.map(
-        lambda a: a if np.asarray(a).any() else
-        (0.05 * rng.standard_normal(np.shape(a))).astype(np.float32), tree)
+    close_tree(gtree, jgrads, 1e-4, "grad")
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +106,7 @@ def jax_run(models):
     UNet's weights: the starting params (numpy), the batches, the losses,
     the state after step 2 (numpy) and after step 3."""
     jcfg, _, _ = models[4]
-    jparams = _fill_zero_leaves(models[4][1], np.random.default_rng(5))
+    jparams = fill_zero_leaves(models[4][1], np.random.default_rng(5))
     tx = JO.adamw_with_ema_wings(**OPT)
     step = JT.make_train_step(jcfg, JSCHED, tx)
     # a copy per leaf: the wings' EMA starts as the params' own buffers,
@@ -185,8 +142,8 @@ def test_train_steps_with_ema_wings_match_optax(jax_run):
     losses = [_port_step(state, b) for b in batches]
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
     assert state.step == 3 and state.opt.ema_step == 3
-    _close_tree(state.params, jstate.params, 1e-5, "param")
-    _close_tree(TO.ema_params_of(state.opt, state.params),
+    close_tree(state.params, jstate.params, 1e-5, "param")
+    close_tree(TO.ema_params_of(state.opt, state.params),
                 JO.ema_params_of(jstate.opt_state), 1e-5, "ema")
 
 
@@ -202,8 +159,8 @@ def test_train_state_from_jax_resumes(jax_run):
     assert state.step == 2 and state.opt.ema_step == 2
     loss = _port_step(state, batches[2])
     assert abs(loss - jlosses[2]) <= 1e-5 * abs(jlosses[2])
-    _close_tree(state.params, jstate.params, 1e-5, "param")
-    _close_tree(TO.ema_params_of(state.opt, state.params),
+    close_tree(state.params, jstate.params, 1e-5, "param")
+    close_tree(TO.ema_params_of(state.opt, state.params),
                 JO.ema_params_of(jstate.opt_state), 1e-5, "ema")
 
 
@@ -224,8 +181,10 @@ def test_ema_update_matches_jax():
 
 
 def test_unported_training_options_raise(models):
-    """Sharding the train state (item 8) is refused; class labels ``y``
-    (ported) give the JAX loss."""
+    """Sharding the train state over anything but a torch DeviceMesh is
+    refused (TypeError; the sharded step itself is held to JAX in
+    tests/test_torch_sharding.py); class labels ``y`` give the JAX
+    loss."""
     ycfg = dict(UNET_KW, channel_mult=(1, 2), attention_resolutions=(1,),
                 num_classes=4)
     with numpy_init():
@@ -243,5 +202,5 @@ def test_unported_training_options_raise(models):
     assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
     params = TT.trainable(to_port(models[4][1]))
     state = TT.TrainState(params, TT.make_optimizer(tree_leaves(params)))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TT.shard_train_state(state, mesh=None)

@@ -289,3 +289,136 @@ def seed_strip(rank, inputs):
                                              KI.FrameIndices(case["seeds"]),
                                              cfg)
     return {"frames": frames, "kv_shapes": [tuple(k.shape) for k, _ in kv]}
+
+
+# ---------------------------------------------------------------------------
+# jobs: tensor x data parallelism (parallel/sharding.py, unet_apply(tp=),
+# the sharded train step)
+# ---------------------------------------------------------------------------
+
+def _tp_mesh(tp=2):
+    from sd_animation_optical_flow_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(dp=dist.get_world_size() // tp, tp=tp,
+                     device_type="cpu")
+
+
+def tp_jobs(rank, inputs):
+    """On a (world / 2, 2) ('dp', 'tp') mesh: the specs, shard_params then
+    gather_params (equal to the input, bit for bit), this rank's local
+    GEGLU rows of the first transformer block, the tp forward of the
+    whole batch (each 'dp' rank its slice, gathered over 'dp'), a stepped
+    AdamW state (``make_optimizer``'s) through ``shard_train_state``
+    (whether its class, hyperparameters, step counts and gathered moments
+    are the whole state's), and the refusals (heads off the mesh, tp with
+    sp)."""
+    import dataclasses
+
+    from sd_animation_optical_flow_tpu_torch.models import unet as U
+    from sd_animation_optical_flow_tpu_torch.parallel import mesh as M
+    from sd_animation_optical_flow_tpu_torch.parallel import sharding as SH
+    from sd_animation_optical_flow_tpu_torch.training import train_step as TT
+    from sd_animation_optical_flow_tpu_torch.utils.tree import (tree_leaves,
+                                                                tree_map)
+    case = inputs["tp"]
+    cfg, params = case["cfg"], case["params"]
+    mesh = _tp_mesh()
+    tp = U.TensorParallelConfig(mesh)
+    local, specs = SH.shard_params(params, mesh)
+    back = SH.gather_params(local, specs, mesh)
+    x, t, ctx = (M.shard_batch(torch.from_numpy(case[k]), mesh)
+                 for k in ("x", "t", "ctx"))
+    out, _ = U.unet_apply(local, cfg, x, t, ctx, tp=tp)
+    refusals = []
+    for kw in ({"cfg": dataclasses.replace(cfg, num_heads=1)},
+               {"sp": U.SeqParallelConfig(mesh, "dp")}):
+        try:
+            U.unet_apply(local, kw.get("cfg", cfg), x, t, ctx, tp=tp,
+                         sp=kw.get("sp"))
+            refusals.append(None)
+        except ValueError as e:
+            refusals.append(str(e))
+    whole = TT.init_train_state(params)
+    for p in tree_leaves(whole.params):
+        p.grad = torch.full_like(p, 0.01)
+    whole.opt.step()
+    sharded = TT.shard_train_state(whole, mesh)
+    hyper = lambda o: {k: v for k, v in o.param_groups[0].items()
+                       if k != "params"}
+    adamw = type(sharded.opt) is torch.optim.AdamW \
+        and hyper(sharded.opt) == hyper(whole.opt)
+    state = lambda s, key: tree_map(lambda p: s.opt.state[p][key], s.params)
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+        got = state(sharded, key)
+        if key != "step":       # the moments gathered; the counts whole
+            got = SH.gather_params(got, sharded.specs, mesh)
+        adamw &= all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got), tree_leaves(state(whole, key))))
+    blk = local["input_blocks"][1]["transformer"]["blocks"][0]
+    return {"specs": specs if rank == 0 else None, "adamw_sharded": adamw,
+            "round_trip": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(back), tree_leaves(params))),
+            "ff_proj": _np(blk["ff_proj"]["w"]),
+            "tp_rank": mesh.get_local_rank("tp"),
+            "out": _np(M.gather_batch(out, mesh)), "refusals": refusals}
+
+
+def tp_train(rank, inputs):
+    """``shard_train_state`` of ``adamw_with_ema_wings`` on a (world / 2,
+    2) mesh, then the sharded ``make_train_step`` on the whole batches:
+    from the given params for every batch ("fresh"), and from the given
+    state (a port state from ``train_state_from_jax``, carried here by
+    its params and ``opt.state_dict()``) for the last batch ("resume").
+    Each: the losses, the step counts, the gradients of the whole
+    (replicated) leaves after its last step, and on rank 0 the gathered
+    params and EMA."""
+    import functools
+
+    from sd_animation_optical_flow_tpu_torch.parallel import sharding as SH
+    from sd_animation_optical_flow_tpu_torch.training import optim as TO
+    from sd_animation_optical_flow_tpu_torch.training import train_step as TT
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_leaves
+    case = inputs["train"]
+    mesh = _tp_mesh()
+    make_opt = functools.partial(TO.adamw_with_ema_wings, **case["opt"])
+    step = TT.make_train_step(case["cfg"], case["sched"])
+    batches = [tuple(torch.from_numpy(np.asarray(a)) for a in b)
+               for b in case["batches"]]
+    out = {"tp_rank": mesh.get_local_rank("tp"),
+           "dp_rank": mesh.get_local_rank("dp")}
+    resume = case["resume"]
+    for name, params, first in (("fresh", case["params"], 0),
+                                ("resume", resume["params"],
+                                 resume["step"])):
+        state = TT.init_train_state(params, make_opt)
+        if name == "resume":
+            state.opt.load_state_dict(resume["opt"])
+            state.opt.ema_step, state.step = resume["ema_step"], first
+        state = TT.shard_train_state(state, mesh)
+        losses = [step(state, *b).item() for b in batches[first:]]
+        res = {"losses": losses, "step": state.step,
+               "ema_step": state.opt.ema_step,
+               "whole_grads": [
+                   p.grad.clone() for p, s in zip(
+                       tree_leaves(state.params), _spec_leaves(state.specs))
+                   if "tp" not in s]}
+        whole = SH.gather_params(state.params, state.specs, mesh)
+        ema = SH.gather_params(TO.ema_params_of(state.opt, state.params),
+                               state.specs, mesh)
+        if rank == 0:
+            res["params"], res["ema"] = _detached(whole), _detached(ema)
+        out[name] = res
+    return out
+
+
+def _spec_leaves(specs):
+    """The spec tuples of a spec tree, in leaf order."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in _spec_leaves(v)]
+    if isinstance(specs, list):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [specs]
+
+
+def _detached(tree):
+    from sd_animation_optical_flow_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.detach().clone(), tree)

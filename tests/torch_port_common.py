@@ -92,3 +92,48 @@ def rel_err(a, b):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def jax_t_noise(rng, x0, num_timesteps=1000):
+    """The t and noise the JAX ``p_losses`` draws from ``rng`` (``k_t,
+    k_noise = split(rng)``, then ``randint``, then ``normal``)."""
+    k_t, k_noise = jax.random.split(rng)
+    t = jax.random.randint(k_t, (x0.shape[0],), 0, num_timesteps)
+    noise = jax.random.normal(k_noise, x0.shape, np.float32)
+    return torch.from_numpy(np.array(t)), np_t(noise)
+
+
+def close_tree(port_tree, jax_tree, tol, what):
+    """Leaf by leaf: max |port - jax| <= tol * max |jax| (JAX leaves in
+    the port's layout). A leaf whose JAX values all lie below 1e-6 of the
+    tree's largest is structurally zero (in the small UNet, 32 channels in
+    32 groups, a per-channel shift before a GroupNorm has no gradient:
+    both sides hold f32 noise there), and both sides must stay below
+    that floor."""
+    pairs = _leaf_pairs(port_tree, to_port(jax_tree))
+    floor = 1e-6 * max(float(b.abs().max()) for _, (_, b) in pairs)
+    for name, (a, b) in pairs:
+        a = a.detach()
+        if float(b.abs().max()) < floor:
+            assert float(a.abs().max()) < floor, f"{what} {name}: not ~0"
+            continue
+        err = rel_err(a.numpy(), b.numpy())
+        assert err <= tol, f"{what} {name}: {err:.2e} > {tol:g}"
+
+
+def _leaf_pairs(a, b, path=""):
+    if isinstance(a, dict):
+        return [p for k in a for p in _leaf_pairs(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [p for i in range(len(a))
+                for p in _leaf_pairs(a[i], b[i], f"{path}/{i}")]
+    return [(path, (a, b))]
+
+
+def fill_zero_leaves(tree, rng):
+    """A copy with small random values in the all-zero leaves (the norm
+    biases): after three steps of ~lr those would hold ~3e-5, no scale
+    for a relative tolerance."""
+    return jax.tree.map(
+        lambda a: a if np.asarray(a).any() else
+        (0.05 * rng.standard_normal(np.shape(a))).astype(np.float32), tree)
