@@ -93,7 +93,16 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
     one step's gradient against the f32 plain route, three steps with
     their launches checked (#7, #8, #9 ten each, #1 at least ten, the
     fused FFN kernels none), the parameters and the EMA checked, timed
-    and profiled. No pipeline path runs kernel #5 (none does in JAX):
+    and profiled; then the ``[cli]`` phase: ``tests/torch_sd_ref.py``'s
+    UNets (4 and 9 channels) and VAE at SD-1.5 width with CLIP ViT-L keys
+    saved as two ldm-named float16 ``.ckpt`` files, loaded with
+    ``create_model(ckpt_path=)`` in f32 and held to the torch modules
+    (rel L2 <= 1e-3; s per GB of checkpoint), ``cli port``'s npz equal
+    to the loaded params, a ``pixel-inpaint`` argv through the CLI's
+    parser, ``_build_models`` (bf16, its UNet against the f32 output
+    within 0.1) and ``run_batched`` on 8 frames given as arrays (#1-#4
+    launched), and ``cli txt2img`` in a subprocess (a 512x768 PNG).
+    No pipeline path runs kernel #5 (none does in JAX):
     its launches are those of one call per check shape through
     ``flash_attention_banded``, made apart from the comparisons;
  6. print the kernel table as one JSON line, each phase's wall seconds
@@ -2995,6 +3004,375 @@ def check_sharded_train(sd, mesh, kernels, gen):
     return summary, counts, failures
 
 
+# ---------------------------------------------------------------------------
+# checkpoints, YAML specs and the CLI
+# ---------------------------------------------------------------------------
+
+CLI_FRAMES = 8
+CLI_STEPS = 10                  # DDIM steps of the phase's CLI runs
+CLI_F32_LIMIT = 1e-3            # VARIANT_F32_LIMIT: f32 both sides, TF32 off
+CLI_BF16_LIMIT = 0.1            # check_unet_against_cpu's, bf16 vs f32
+CLI_KERNELS = PIXEL_KERNELS     # #1-#4 on the loaded bundles' paths
+# the UNet's: #2 is the VAE's
+CLI_UNET_KERNELS = tuple(k for k in CLI_KERNELS if k != "flash_attention")
+# full_scale_parity.py's f32 CPU figures (DECISIONS.md), the JAX package's
+# port of the same modules: printed beside this run's
+CLI_CPU_PSNR = {"unet": 128.52, "vae_encode": 99.50, "vae_decode": 106.17}
+
+
+def run_cli_phase(kernels, card):
+    """Checkpoints, YAML specs and the CLI (``utils/port_weights.py``,
+    ``config.create_model(ckpt_path=)``, ``cli.py``) at full SD-1.5 width:
+
+    1. ``tests/torch_sd_ref.py``'s UNet (4 and 9 input channels) and VAE
+       at SD-1.5's widths on the card, f32 from ``torch.manual_seed``,
+       their weights rounded to float16, with random CLIP ViT-L text
+       weights under the HF names (``tests/torch_ckpt_common.py``: the
+       card has no transformers), saved as two ldm-named ``.ckpt`` files
+       of float16 tensors (a temporary directory under ``build/``, removed
+       at the end);
+    2. each loaded with ``create_model(..., ckpt_path=)`` in f32 (timed:
+       s per GB of checkpoint), one UNet evaluation (2 x 64 x 96 latents,
+       2 x 77 x 768 context) and the VAE's encode mean and decode at
+       512x768 against the torch modules: rel L2 <= ``CLI_F32_LIMIT``,
+       PSNR beside full_scale_parity.py's CPU figures (attention on the
+       plain route on both sides: the kernels take bf16);
+    3. ``cli port --ckpt``: its unet.npz read back with
+       ``jax_params.load_npz_tree`` equal to the f32 bundle's UNet params,
+       bit for bit, and vae.npz / clip.npz written;
+    4. a ``pixel-inpaint`` argv (``--ckpt``, ``--inpaint-ckpt``, ``--bf16``,
+       ``--flow-uncertainty learned``, ``--frame-batch 4``) through the
+       CLI's parser, the bundles from ``cli._build_models`` and the config
+       from ``cli.pixel_inpaint_config``: the bf16 UNet against the f32
+       output (rel L2 <= ``CLI_BF16_LIMIT``; #1, #3, #4 launched in it,
+       counted apart), then ``run_batched`` on an
+       8-frame 512x768 pan clip through ``array_frame_generator`` (the
+       card has no cv2; a key frame threshold that leaves non-key frames,
+       so the flow, its learned confidence and the inpainting bundle
+       run): 8 ``converted_`` files of the asked size; launches
+       counted over the run alone (#1-#4 launched, #5-#10 not);
+    5. ``python -m sd_animation_optical_flow_tpu_torch.cli txt2img --ckpt
+       <sd15.ckpt> --bf16`` in a subprocess started once step 2's loads
+       are timed and run beside the rest: exit 0 and a 512x768 PNG.
+    Returns (summary, the run's launch counts, failures)."""
+    import os
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "tests"))
+    from torch_ckpt_common import clip_text_state_dict
+    from torch_sd_ref import TorchUNet, TorchVAEDecoder, TorchVAEEncoder
+
+    from sd_animation_optical_flow_tpu_torch import cli
+    from sd_animation_optical_flow_tpu_torch import config as C
+    from sd_animation_optical_flow_tpu_torch.models import unet as U
+    from sd_animation_optical_flow_tpu_torch.models import vae as V
+    from sd_animation_optical_flow_tpu_torch.ops import attention as A
+    from sd_animation_optical_flow_tpu_torch.pipelines import \
+        pixel_inpaint as PI
+    from sd_animation_optical_flow_tpu_torch.pipelines.keyframes import (
+        FrameGenConfig, array_frame_generator)
+    from sd_animation_optical_flow_tpu_torch.pipelines.tokenizer import \
+        PromptTokenizer
+    from sd_animation_optical_flow_tpu_torch.utils.images import \
+        read_png_bgr
+    from sd_animation_optical_flow_tpu_torch.utils.jax_params import \
+        load_npz_tree
+    from sd_animation_optical_flow_tpu_torch.utils.parity import psnr
+    from sd_animation_optical_flow_tpu_torch.utils.tree import (tree_leaves,
+                                                                tree_map)
+
+    failures, summary = [], {}
+    proc = None
+    start = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cli_phase_", dir=root / "build"))
+    plain = mock.patch.multiple(A, flash_attention_tpv=A.xla_attention,
+                                flash_attention=A.xla_attention)
+    rel = lambda out, ref: ((out.float() - ref).norm() / ref.norm()).item()
+
+    def psnr_range(ref, out):
+        """full_scale_parity.py's PSNR: the peak is ref's peak to peak."""
+        return psnr(ref.double().cpu().numpy(), out.double().cpu().numpy(),
+                    peak=(ref.max() - ref.min()).item())
+
+    def trees_equal(a, b):
+        """Same keys, and every leaf of the same dtype, shape and bits."""
+        same = tree_map(lambda p, q: p.dtype == q.dtype
+                        and p.shape == q.shape and torch.equal(p, q), a, b)
+        return (len(tree_leaves(a)) == len(tree_leaves(b))
+                and all(tree_leaves(same)))
+    try:
+        log(f"[cli] {shutil.disk_usage(tmp).free / 2**30:.0f} GiB free on "
+            f"the disk of {tmp}")
+        # 1. the torch modules and the two checkpoints
+        t0 = time.time()
+        torch.manual_seed(SEED)
+        spec = C.load_spec("sd15")           # the builtin's widths
+        u, v = spec.unet, spec.vae
+        ukw = dict(model_channels=u.model_channels,
+                   channel_mult=tuple(u.channel_mult),
+                   attention_resolutions=tuple(u.attention_resolutions),
+                   num_heads=u.num_heads, context_dim=u.context_dim)
+        vkw = dict(ch=v.ch, ch_mult=tuple(v.ch_mult),
+                   num_res_blocks=v.num_res_blocks)
+        e = v.embed_dim
+        with torch.device("cuda"):
+            unets = {n: TorchUNet(in_channels=n, **ukw).eval() for n in (4, 9)}
+            enc = TorchVAEEncoder(**vkw).eval()
+            dec = TorchVAEDecoder(**vkw).eval()
+            quant, post = torch.nn.Conv2d(2 * e, 2 * e, 1), \
+                torch.nn.Conv2d(e, e, 1)
+        mods = [*unets.values(), enc, dec, quant, post]
+        with torch.no_grad():
+            for m in mods:       # the values a float16 checkpoint holds
+                for p in m.parameters():
+                    p.copy_(p.half())
+        shared = {}
+        for prefix, m in (("encoder.", enc), ("decoder.", dec),
+                          ("quant_conv.", quant), ("post_quant_conv.", post)):
+            shared.update({"first_stage_model." + prefix + k: v
+                           for k, v in m.state_dict().items()})
+        c = spec.clip
+        shared.update(clip_text_state_dict(
+            c.width, c.layers, c.vocab_size, c.max_position,
+            gen=torch.Generator().manual_seed(SEED)))
+        ckpts = {}
+        for n, name in ((4, "sd15.ckpt"), (9, "sd15_inpaint9.ckpt")):
+            sd = {"model.diffusion_model." + k: v
+                  for k, v in unets[n].state_dict().items()} | shared
+            sd = {k: (v.half() if v.is_floating_point() else v).cpu()
+                  for k, v in sd.items()}
+            ckpts[n] = str(tmp / name)
+            torch.save({"state_dict": sd, "global_step": 0}, ckpts[n])
+            del sd
+        gb = {n: os.path.getsize(p) / 1e9 for n, p in ckpts.items()}
+        summary["ckpt_gb"] = gb[4]
+        summary["write_s"] = time.time() - t0
+        log(f"[cli] torch_sd_ref UNet (4 and 9 channels) + VAE at SD-1.5 "
+            f"width and CLIP ViT-L keys -> two ldm .ckpt files of float16, "
+            f"{gb[4]:.3f} / {gb[9]:.3f} GB, in {summary['write_s']:.1f} s")
+
+        # 2. f32 loads against the torch modules
+        g = torch.Generator("cuda").manual_seed(SEED)
+        x = torch.randn((2, H // 8, W // 8, 9), generator=g, device="cuda")
+        t = torch.tensor([401, 801], device="cuda")
+        ctx = torch.randn((2, 77, u.context_dim), generator=g,
+                          device="cuda")
+        img = torch.rand((1, H, W, 3), generator=g, device="cuda") * 2 - 1
+        z = torch.randn((1, H // 8, W // 8, 4), generator=g, device="cuda")
+        errs, db, load_s, bundles = {}, {}, {}, {}
+        # the bundle's tokenizer tries transformers once a process: not a
+        # cost of the load
+        t0 = time.time()
+        PromptTokenizer()
+        summary["tokenizer_s"] = time.time() - t0
+        for n, name in ((4, "sd15"), (9, "sd15-inpaint9")):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            bundles[n] = C.create_model(name, ckpts[n], dtype=torch.float32,
+                                        device="cuda")
+            torch.cuda.synchronize()
+            load_s[n] = time.time() - t0
+
+        # 5. cli txt2img in a subprocess, started once the loads are timed
+        # and run beside the rest of the phase (a new process's start and
+        # load are host work, as the port is)
+        png, sub_log = tmp / "txt2img.png", tmp / "txt2img.log"
+        t_sub = time.time()
+        with open(sub_log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "sd_animation_optical_flow_tpu_torch.cli", "txt2img",
+                 "--ckpt", ckpts[4], "--bf16", "--ddim-steps",
+                 str(CLI_STEPS), "-o", str(png)],
+                cwd=root, stdout=out, stderr=subprocess.STDOUT)
+
+        # 2. the f32 bundles against the torch modules
+        for n in (4, 9):
+            b = bundles[n]
+            xn = x[..., :n].contiguous()
+            # cuda as the default device: the reference's timestep
+            # embedding makes its frequencies without one
+            with torch.no_grad(), torch.device("cuda"), \
+                    sdpa_kernel(SDPBackend.MATH):
+                ref = unets[n](xn.permute(0, 3, 1, 2), t, ctx).permute(
+                    0, 2, 3, 1)
+            with torch.no_grad(), plain:
+                out, _ = U.unet_apply(b.unet_params, b.unet_cfg, xn, t, ctx)
+            key = f"unet{n}"
+            errs[key], db[key] = rel(out, ref), psnr_range(ref, out)
+            if n == 4:
+                out32 = out
+                with torch.no_grad(), sdpa_kernel(SDPBackend.MATH):
+                    mom = quant(enc(img.permute(0, 3, 1, 2)))
+                    mean_ref = mom.chunk(2, dim=1)[0].permute(0, 2, 3, 1)
+                    dec_ref = dec(post(z.permute(0, 3, 1, 2))).permute(
+                        0, 2, 3, 1)
+                with torch.no_grad(), plain:
+                    mean, _ = V.encode_moments(b.vae_params, b.vae_cfg, img)
+                    dec_out = V.decode(b.vae_params, b.vae_cfg,
+                                       z * b.vae_cfg.scale_factor)
+                errs["vae_encode"] = rel(mean, mean_ref)
+                db["vae_encode"] = psnr_range(mean_ref, mean)
+                errs["vae_decode"] = rel(dec_out, dec_ref)
+                db["vae_decode"] = psnr_range(dec_ref, dec_out)
+        b32 = bundles.pop(4)
+        del unets, enc, dec, quant, post, mods, shared, bundles, b
+        torch.cuda.empty_cache()
+        s_gb = {n: load_s[n] / gb[n] for n in load_s}
+        summary.update({"f32_rel_err": errs, "f32_psnr_db": db,
+                        "f32_load_s": load_s, "f32_load_s_per_gb": s_gb})
+        log(f"[cli] create_model(ckpt_path=) f32: "
+            f"{load_s[4]:.2f} / {load_s[9]:.2f} s, {s_gb[4]:.2f} / "
+            f"{s_gb[9]:.2f} s per GB of checkpoint (torch.load, mmap, then "
+            f"leaf by leaf onto the card; page cache warm: just written; "
+            f"the tokenizer before them {summary['tokenizer_s']:.2f} s)")
+        for k in errs:
+            cpu = CLI_CPU_PSNR.get(k[:4] if k.startswith("unet") else k)
+            log(f"[cli] f32 {k} against the torch module: rel L2 "
+                f"{errs[k]:.3e} (<= {CLI_F32_LIMIT:g}), PSNR {db[k]:.2f} "
+                f"dB (JAX's port on the CPU, full_scale_parity.py: "
+                f"{cpu} dB) [{card}]")
+            if not errs[k] <= CLI_F32_LIMIT:
+                failures.append(f"cli: f32 {k} rel err {errs[k]:.3e}")
+
+        # 3. cli port: its unet.npz read back equals the f32 UNet params
+        # (the VAE and CLIP trees take the same path, and are held bit for
+        # bit on the CPU)
+        t0 = time.time()
+        cli.main(["port", "--ckpt", ckpts[4], "-o", str(tmp / "ported")])
+        port_s = time.time() - t0
+        written = sorted(os.listdir(tmp / "ported"))
+        tree = load_npz_tree(str(tmp / "ported" / "unet.npz"), device="cuda")
+        same = trees_equal(b32.unet_params, tree)
+        del tree, b32
+        torch.cuda.empty_cache()
+        summary["port"] = {"s": port_s, "written": written,
+                           "unet_equal": same}
+        log(f"[cli] cli port --ckpt: {port_s:.1f} s, wrote {written}; "
+            f"unet.npz through load_npz_tree bit-equal to the loaded f32 "
+            f"UNet params: {same}")
+        if not same or written != ["clip.npz", "unet.npz", "vae.npz"]:
+            failures.append(f"cli: port wrote {written}, unet equal {same}")
+        shutil.rmtree(tmp / "ported")
+
+        # 4. the CLI's pixel-inpaint configuration on frames given as arrays
+        argv = ["pixel-inpaint", "-i", "<arrays>", "-o", str(tmp / "clip"),
+                "--ckpt", ckpts[4], "--inpaint-ckpt", ckpts[9], "--bf16",
+                "--flow-uncertainty", "learned", "--frame-batch", "4",
+                "--keep-every", "1", "--ddim-steps", str(CLI_STEPS),
+                "--width", str(W), "--height", str(H),
+                # the pan moves the edges ~30 a frame (mean pixel distance):
+                # at the default 24 every frame is a key frame, and neither
+                # the flow nor the inpainting bundle would run
+                "--key-frame-thres", "64"]
+        args = cli.build_parser().parse_args(argv)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sd, sd9, est, tagger = cli._build_models(args)
+        torch.cuda.synchronize()
+        summary["bf16_build_models_s"] = time.time() - t0
+        cfg = cli.pixel_inpaint_config(args)
+        reset_counts(kernels)
+        with torch.no_grad():
+            out16, _ = U.unet_apply(sd.unet_params, sd.unet_cfg,
+                                    x[..., :4].bfloat16(), t,
+                                    ctx.bfloat16())
+        rel16 = rel(out16, out32)
+        # the comparison's launches: a check, not the main path's
+        cmp_counts = {k: fn.launches for k, fn in kernels.items()}
+        frames = _pan_frames(np.random.default_rng(SEED), CLI_FRAMES, H, W)
+        triples = list(array_frame_generator(frames, FrameGenConfig(
+            size=cfg.size, keep_every=cfg.keep_every,
+            threshold=cfg.key_frame_thres), device="cuda"))
+        keys = sum(k for _, k, _ in triples)
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out_dir = PI.run_batched(triples, args.output, sd, sd9, est, tagger,
+                                 cfg)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        names = sorted(f for f in os.listdir(out_dir)
+                       if f.startswith("converted_"))
+        shapes = {read_png_bgr(os.path.join(out_dir, f)).shape
+                  for f in names}
+        summary["pixel_inpaint"] = {
+            "build_models_s": summary.pop("bf16_build_models_s"),
+            "run_batched_s": run_s, "converted": len(names),
+            "key_frames": keys, "launches": counts,
+            "unet_bf16_rel_err": rel16, "unet_bf16_launches": cmp_counts}
+        log(f"[cli] pixel-inpaint argv -> _build_models (bf16, learned "
+            f"confidence: the committed RAFT + head) in "
+            f"{summary['pixel_inpaint']['build_models_s']:.1f} s; bf16 UNet "
+            f"against the f32 output rel L2 {rel16:.3e} (<= "
+            f"{CLI_BF16_LIMIT:g}), its launches {cmp_counts}; run_batched "
+            f"(frame batch 4, "
+            f"{CLI_STEPS} steps) on {CLI_FRAMES} {H}x{W} frames ({keys} "
+            f"key): "
+            f"{len(names)} converted_ files {sorted(shapes)}, {run_s:.1f} s; "
+            f"launches of the run {counts} [{card}]")
+        if not rel16 <= CLI_BF16_LIMIT:
+            failures.append(f"cli: bf16 UNet rel err {rel16:.3e}")
+        for k in kernels:   # the UNet's kernels: all of #1-#4 but the VAE's
+            if (cmp_counts[k] == 0) == (k in CLI_UNET_KERNELS):
+                failures.append(f"cli: {k} launched {cmp_counts[k]} times "
+                                f"in the bf16 UNet evaluation")
+        if not 0 < keys < CLI_FRAMES:
+            failures.append(f"cli: {keys} key frames of {CLI_FRAMES}: the "
+                            "flow and inpainting path did not run")
+        if len(names) != CLI_FRAMES or shapes != {(H, W, 3)}:
+            failures.append(f"cli: pixel-inpaint wrote {names} {shapes}")
+        for k in kernels:
+            if (counts[k] == 0) == (k in CLI_KERNELS):
+                failures.append(f"cli: {k} launched {counts[k]} times")
+        del sd, sd9, est, tagger, out16
+        torch.cuda.empty_cache()
+
+        # 5. the txt2img subprocess started after step 2's loads
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        sub_s = time.time() - t_sub
+        shape = read_png_bgr(str(png)).shape if png.exists() else None
+        summary["txt2img_subprocess"] = {"rc": rc, "s": sub_s,
+                                         "shape": shape}
+        log(f"[cli] python -m ...cli txt2img --ckpt --bf16 --ddim-steps "
+            f"{CLI_STEPS}: exit {rc}, PNG {shape}, {sub_s:.1f} s (process "
+            f"start, load, kernels from the build cache; beside steps 3-4)")
+        if rc != 0 or shape != (512, 768, 3):
+            failures.append(f"cli: txt2img subprocess rc {rc} shape {shape}: "
+                            f"{sub_log.read_text()[-2000:]}")
+    except Exception as e:       # a failed step fails the phase, not main
+        import traceback
+        traceback.print_exc()
+        failures.append(f"cli: {type(e).__name__}: {e}")
+        counts = {k: 0 for k in kernels}
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    summary["host_max_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
+    summary["wall_s"] = time.time() - start
+    log(f"[cli] phase {summary['wall_s']:.1f} s, peak device memory "
+        f"{summary['peak_gib']:.2f} GiB, host max RSS "
+        f"{summary['host_max_rss_gib']:.2f} GiB (the process's) [{card}]")
+    return summary, counts, failures
+
+
 # the second template argument of attention_sm90_kernel: the mode
 _MODES = {"Li0E": "PLAIN", "Li1E": "KEYMASK", "Li2E": "MFR",
           "Li4E": "BANDED"}
@@ -3287,10 +3665,16 @@ def main() -> int:
     train, train_counts, train_failures = run_train_phase(sd, kernels, gen)
     phases["train"] = time.time() - t0
     failures += train_failures
+    del sd
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cli_summary, cli_counts, cli_failures = run_cli_phase(kernels, card)
+    phases["cli"] = time.time() - t0
+    failures += cli_failures
 
     table = []
     paths = inference + [(None, c, None)
-                         for c in train_counts + sharded_counts]
+                         for c in train_counts + sharded_counts + [cli_counts]]
     for name, fn in kernels.items():
         mine = [r for r in rows if r["name"].startswith(name + " ")]
         launches = sum(c[name] for _, c, _ in paths)
@@ -3312,7 +3696,7 @@ def main() -> int:
                     "pixel": pixel, "control": control, "kfpipe": kfpipe,
                     "variants": variants, "parallel": parallel,
                     "flowtrain": flowtrain,
-                    "banded": banded, "train": train,
+                    "banded": banded, "train": train, "cli": cli_summary,
                     "unet_rel_err": unet_rel,
                     "card": card}))
     log(f"[time] wall s by phase {json.dumps({k: round(v, 1) for k, v in phases.items()})}"

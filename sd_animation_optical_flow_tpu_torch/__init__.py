@@ -30,11 +30,14 @@ and the OpenCLIP / T5 text encoders), and ``parallel/`` (sequence
 parallelism and dp batches for serving; tensor x data parallel
 fine-tuning, ``training/train_step.shard_train_state``), and the
 host-side training data and logging (flow datasets and augmentors, BSRGAN
-degradations, flow IO and visualization, image panels, profiling)
+degradations, flow IO and visualization, image panels, profiling), and
+checkpoints with ldm names (``utils/port_weights.py``), YAML specs and
+the command line (``python -m sd_animation_optical_flow_tpu_torch.cli``)
 —
 
     import sd_animation_optical_flow_tpu_torch as M
     sd = M.create_model("sd15", dtype=torch.bfloat16)     # random weights
+    sd = M.create_model("configs/sd15.yaml", "sd15.ckpt", dtype=torch.bfloat16)
     img, kv = M.img2img(sd, image, prompt, negative, 0.4, capture_kv=True)
     sd9 = M.create_model("sd15-inpaint9", dtype=torch.bfloat16)
     flow = M.load_flow_estimator()      # artifacts/raft_synth.npz + head

@@ -10,6 +10,8 @@ steps, for both samplers. Gate: >= 80 dB PSNR on the decoded frame
 (peak-to-peak 2); the measured figures are printed (-s) and recorded in
 PERF.md."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,11 +215,11 @@ def test_img2img_api_on_cpu(bundles):
         TF.img2img(sd, img, "a fox", "", sp=object())
 
 
-def test_create_model_boundaries():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.create_model("sd15", ckpt_path="model.safetensors", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TC.load_spec("configs/sd15.yaml")
+def test_create_model_boundaries(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        TC.create_model("sd15", ckpt_path=str(tmp_path / "absent.ckpt"),
+                        device="cpu")
+    assert TC.load_spec(os.path.join(TC.CONFIG_DIR, "sd15.yaml")) == TC.SD15
     depth, up = TC.load_spec("sd15-depth"), TC.load_spec("sd-upscale")
     assert depth.unet.in_channels == 5 and depth.unet.num_classes is None
     assert up.unet.in_channels == 7 and up.unet.num_classes == 1000

@@ -175,7 +175,7 @@ def test_helpers_match_jax():
 
 def test_cv2_is_imported_only_by_frame_generator():
     """cv2 is imported nowhere in the port but inside
-    keyframes.frame_generator and the ``video_path=`` branch of
+    keyframes.frame_generator, cli.cmd_ofgen and the ``video_path=`` branch of
     keyframe_inpaint.VideoWorkspace.__init__ (both decode a video file),
     and the ``_cv2`` helpers of the host-side training data modules
     (training/degradation.py, training/flow_data.py, utils/flow_io.py),
@@ -202,7 +202,8 @@ def test_cv2_is_imported_only_by_frame_generator():
                 cv2_at.append((src.name, inside))
             if tops & {"jax", "jaxlib", "sd_animation_optical_flow_tpu"}:
                 jax_at.append(src.name)
-    assert cv2_at == [("keyframe_inpaint.py", ["__init__"]),
+    assert cv2_at == [("cli.py", ["cmd_ofgen"]),
+                      ("keyframe_inpaint.py", ["__init__"]),
                       ("keyframes.py", ["frame_generator"]),
                       ("degradation.py", ["_cv2"]),
                       ("flow_data.py", ["_cv2"]),

@@ -422,3 +422,25 @@ def _spec_leaves(specs):
 def _detached(tree):
     from sd_animation_optical_flow_tpu_torch.utils.tree import tree_map
     return tree_map(lambda x: x.detach().clone(), tree)
+
+
+# ---------------------------------------------------------------------------
+# jobs: the CLI's --dp and --sp on the rank's process group
+# ---------------------------------------------------------------------------
+
+def cli_runs(rank, inputs):
+    """``cli.main`` with ``--dp`` (pixel-inpaint at frame batch 4, each
+    rank with an output of its own, which rank 0 alone writes) and ``--sp`` (keyframe-inpaint: every rank in a
+    workspace of its own) equal to the world size, on the process group
+    the harness initialised. Returns the files each rank's runs wrote."""
+    from sd_animation_optical_flow_tpu_torch import cli
+    case = inputs["cli"]
+    world = str(dist.get_world_size())
+    pixel_dir = cli.main(case["pixel"] + ["-o", f"{case['dir']}/pixel{rank}",
+                                          "--dp", world])
+    ws = f"{case['dir']}/kf"
+    cli.main(case["keyframe"] + ["-o", ws, "--sp", world])
+    if rank > 0:
+        ws = f"{ws}.rank{rank}"
+    return {"pixel": _files(pixel_dir),
+            "keyframe": _files(os.path.join(ws, "ai-frames"))}
