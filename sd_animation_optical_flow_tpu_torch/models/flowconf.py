@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.warp import remap
+from ..utils.profiling import annotate
 from .layers import Init, conv2d, conv2d_init
 from .raft import RAFTConfig, pad_to_multiple, raft_apply
 
@@ -265,13 +266,14 @@ class FlowConfidenceEstimator:
         """(flow, conf, log_conf) as tensors on the device, queued without
         a host sync: the caller can queue the next frame's flow before it
         reads this one's."""
-        src_p, (h, w) = self._upload(src)
-        tgt_p, _ = self._upload(tgt)
-        b = src_p.shape[0]
-        step = self.chunk if 0 < self.chunk < b else b
-        parts = [_flow_conf_batch(self.params, self.cfg, src_p[i:i + step],
-                                  tgt_p[i:i + step],
-                                  head_params=self.head_params)
-                 for i in range(0, b, step)]
-        return tuple(torch.cat([p[k] for p in parts])[:, :h, :w]
-                     for k in range(3))
+        with annotate("sdaof.flow.estimate"):
+            src_p, (h, w) = self._upload(src)
+            tgt_p, _ = self._upload(tgt)
+            b = src_p.shape[0]
+            step = self.chunk if 0 < self.chunk < b else b
+            parts = [_flow_conf_batch(self.params, self.cfg,
+                                      src_p[i:i + step], tgt_p[i:i + step],
+                                      head_params=self.head_params)
+                     for i in range(0, b, step)]
+            return tuple(torch.cat([p[k] for p in parts])[:, :h, :w]
+                         for k in range(3))

@@ -37,6 +37,7 @@ from ..parallel import mesh as PM
 from ..utils.images import (PngWriter, bgr_f32_to_u8, bgr_f32d_to_model,
                             bgr_u8_to_model, model_to_bgr_f32d,
                             model_to_bgr_u8, queue_host_copies, write_png)
+from ..utils.profiling import annotate
 from . import facades as F
 from .keyframes import FrameGenConfig, frame_generator
 from .tagger import NEGATIVE_PROMPT
@@ -141,12 +142,15 @@ def keyframe_img2img(sd: F.StableDiffusionBundle, tagger,
                      frame_bgr: np.ndarray, cfg: PixelInpaintConfig):
     """The key frame's plain img2img -> BGR uint8."""
     prompt = _prompt_for(tagger, frame_bgr, cfg.prompt_extra)
-    img, _ = F.img2img(sd, bgr_u8_to_model(frame_bgr, sd.device), prompt,
-                       NEGATIVE_PROMPT, cfg.denoising_strength,
-                       cfg.ddim_steps, seed=cfg.seed, sampler=cfg.sampler,
-                       cfg_interval=cfg.cfg_interval,
+    with annotate("sdaof.wait.upload"):
+        frame_d = bgr_u8_to_model(frame_bgr, sd.device)
+    img, _ = F.img2img(sd, frame_d, prompt, NEGATIVE_PROMPT,
+                       cfg.denoising_strength, cfg.ddim_steps, seed=cfg.seed,
+                       sampler=cfg.sampler, cfg_interval=cfg.cfg_interval,
                        deepcache_interval=cfg.deepcache_interval)
-    return model_to_bgr_u8(img)
+    # drains the stream: the key frame feeds every warp of its segment
+    with annotate("sdaof.wait.key_readback"):
+        return model_to_bgr_u8(img)
 
 
 def _lookahead(iterable):
@@ -298,10 +302,12 @@ def _dispatch_batch_flow(batch, reference_frame, flow_estimator,
     runs in ``flow_chunk``-pair calls (<= 0: one call) against the
     broadcast reference. Returns device (flow, conf, frames_u8)."""
     dev = flow_estimator.device
-    frames_u8_d = torch.as_tensor(np.stack([f for f, _ in batch]),
-                                  device=dev)                 # u8 BGR
-    ref_u8_d = torch.as_tensor(np.ascontiguousarray(reference_frame),
-                               device=dev)
+    with annotate("sdaof.wait.upload"):
+        frames_u8_d = torch.as_tensor(np.stack([f for f, _ in batch]),
+                                      device=dev)             # u8 BGR
+    with annotate("sdaof.wait.upload"):
+        ref_u8_d = torch.as_tensor(np.ascontiguousarray(reference_frame),
+                                   device=dev)
     flows, confs = [], []
     chunk = flow_chunk if flow_chunk > 0 else len(batch)
     for s in range(0, len(batch), chunk):
@@ -329,8 +335,9 @@ def _dispatch_batch_denoise(batch, flow_pair, reference_frame,
         mesh = None
     flow_d, conf_d, frames_u8_d = flow_pair
     dev = sd_inpaint.device
-    ref_ai_d = torch.as_tensor(np.ascontiguousarray(reference_ai_frame),
-                               device=dev).float()
+    with annotate("sdaof.wait.upload"):
+        ref_ai_d = torch.as_tensor(np.ascontiguousarray(reference_ai_frame),
+                                   device=dev).float()
     warped_d, mask01_d = warp_mask_fused(                     # [B,H,W,3]
         ref_ai_d, flow_d.to(dev), conf_d.to(dev),
         ellipse_kernel(cfg.mask_dilate), conf_thres=cfg.confidence_thres)
@@ -376,8 +383,9 @@ def _finalize_batch(res, out_dir, cfg, writer=None):
     """Wait for a dispatched batch's host copies (its event alone) and
     write its PNGs, behind on ``writer``'s threads when given."""
     put = writer.submit if writer is not None else write_png
-    if res["ready"] is not None:
-        res["ready"].synchronize()
+    with annotate("sdaof.wait.batch_readback"):
+        if res["ready"] is not None:
+            res["ready"].synchronize()
     host = {k: t.numpy() for k, t in res["host"].items()}
     outs_u8 = host["outs"]
     for i, (frame_bgr, counter) in enumerate(res["batch"][:res["n_real"]]):
@@ -425,7 +433,12 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
     rank calls with the same frames and bundles: the bundles' weights are
     broadcast from rank 0 (``replicate_tree``, in place), every rank
     computes the same flow and key frames, each denoises its frame_batch
-    / dp frames of a batch, and rank 0 alone writes the files."""
+    / dp frames of a batch, and rank 0 alone writes the files.
+
+    While a profiler runs, each stage (``sdaof.pixel.key`` / ``flow`` /
+    ``denoise`` / ``finalize`` / ``close``) and each place the host may
+    block on the card or the PNG writer (``sdaof.wait.*``) is a range in
+    its trace (``utils/profiling.annotate``)."""
     out_dir = f"{save_dir}_pixel_warp-{cfg.name}"
     bsz = max(cfg.frame_batch, 1)
     mesh = None
@@ -454,12 +467,14 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
         if inflight is not None:
             (batch, n_real), flow_pair = inflight
             inflight = None
-            res = _dispatch_batch_denoise(
-                batch, flow_pair, reference_frame, reference_ai_frame,
-                sd_inpaint, tagger, cfg, mesh=mesh, n_real=n_real)
+            with annotate("sdaof.pixel.denoise"):
+                res = _dispatch_batch_denoise(
+                    batch, flow_pair, reference_frame, reference_ai_frame,
+                    sd_inpaint, tagger, cfg, mesh=mesh, n_real=n_real)
             prev, denoised = denoised, (res if write else None)
             if prev is not None:
-                _finalize_batch(prev, out_dir, cfg, writer)
+                with annotate("sdaof.pixel.finalize"):
+                    _finalize_batch(prev, out_dir, cfg, writer)
 
     def queue_batch():
         """Queue this batch's flow, then the previous batch's denoise
@@ -470,9 +485,10 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
         batch, n_real = pending, len(pending)
         if cfg.pad_tail_batch and 0 < n_real < bsz:
             batch = batch + [batch[-1]] * (bsz - n_real)
-        new = ((batch, n_real),
-               _dispatch_batch_flow(batch, reference_frame,
-                                    flow_estimator, cfg.flow_chunk))
+        with annotate("sdaof.pixel.flow"):
+            new = ((batch, n_real),
+                   _dispatch_batch_flow(batch, reference_frame,
+                                        flow_estimator, cfg.flow_chunk))
         pending = []
         process_inflight()
         inflight = new
@@ -482,30 +498,36 @@ def run_batched(frames: Iterable[Tuple[np.ndarray, bool, int]],
             if is_key:
                 queue_batch()
                 process_inflight()
-                ai_frame = keyframe_img2img(sd, tagger, frame_bgr, cfg)
-                reference_frame = frame_bgr
-                reference_ai_frame = ai_frame
-                if not write:
-                    continue
-                writer.submit(f"{out_dir}/converted_{counter:06d}.png",
-                              ai_frame)
-                if cfg.write_vis:
-                    vis = np.concatenate([frame_bgr, frame_bgr, ai_frame,
-                                          ai_frame, frame_bgr, ai_frame],
-                                         axis=1)
-                    writer.submit(f"{out_dir}/vis_{counter:06d}.png", vis)
-                    writer.submit(
-                        f"{out_dir}/pixel_confidence_{counter:06d}.png",
-                        np.ones(frame_bgr.shape[:2], np.uint8))
+                with annotate("sdaof.pixel.key"):
+                    ai_frame = keyframe_img2img(sd, tagger, frame_bgr, cfg)
+                    reference_frame = frame_bgr
+                    reference_ai_frame = ai_frame
+                    if not write:
+                        continue
+                    writer.submit(f"{out_dir}/converted_{counter:06d}.png",
+                                  ai_frame)
+                    if cfg.write_vis:
+                        vis = np.concatenate([frame_bgr, frame_bgr, ai_frame,
+                                              ai_frame, frame_bgr, ai_frame],
+                                             axis=1)
+                        writer.submit(f"{out_dir}/vis_{counter:06d}.png",
+                                      vis)
+                        writer.submit(
+                            f"{out_dir}/pixel_confidence_{counter:06d}.png",
+                            np.ones(frame_bgr.shape[:2], np.uint8))
             else:
                 pending.append((frame_bgr, counter))
                 if len(pending) >= bsz:
                     queue_batch()
         queue_batch()
-        process_inflight()
-        if denoised is not None:
-            _finalize_batch(denoised, out_dir, cfg, writer)
-            denoised = None
+        with annotate("sdaof.pixel.close"):
+            process_inflight()
+            if denoised is not None:
+                with annotate("sdaof.pixel.finalize"):
+                    _finalize_batch(denoised, out_dir, cfg, writer)
+                denoised = None
+            with annotate("sdaof.wait.png"):
+                writer.close()
     finally:
-        writer.close()
+        writer.close()          # a no-op once closed
     return out_dir

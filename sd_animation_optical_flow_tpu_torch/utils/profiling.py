@@ -1,59 +1,30 @@
-"""Tracing / profiling.
+"""Tracing.
 
 Counterpart of ``sd_animation_optical_flow_tpu/utils/profiling.py``:
-  * ``stage(name)`` — per-stage wall timers collected into a registry;
   * ``trace(log_dir)`` — a ``torch.profiler`` window over the CPU and,
     where there is one, the card, written to ``log_dir`` as a Chrome
     trace (open it in Perfetto or chrome://tracing);
-  * ``annotate(name)`` — a named region (``torch.profiler.
-    record_function``) that shows in the trace.
+  * ``annotate(name)`` — a named host range (``torch.profiler.
+    record_function``) in the profiler's trace, on the clock of the
+    card's activities. With no profile running it is a shared null
+    context: one check, nothing allocated.
+
+The pipelines open ``sdaof.*`` ranges at their stage boundaries and
+wherever the host blocks on the card or the PNG writer (PERF.md §3 names
+each and what reads it). They exist only while a profiler runs.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import time
-from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Iterator
 
 import torch
 
-
-class StageTimer:
-    """Accumulates wall time + call counts per pipeline stage."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> Dict[str, dict]:
-        return {k: {"total_s": round(self.totals[k], 4),
-                    "calls": self.counts[k],
-                    "mean_s": round(self.totals[k] / max(self.counts[k], 1),
-                                    4)}
-                for k in sorted(self.totals)}
-
-    def report(self) -> str:
-        return json.dumps(self.summary(), indent=2)
-
-    def reset(self):
-        self.totals.clear()
-        self.counts.clear()
-
-
-GLOBAL_TIMER = StageTimer()
-stage = GLOBAL_TIMER.stage
+_profiler_enabled = torch._C._autograd._profiler_enabled
+NULL_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -72,5 +43,8 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
 
 
 def annotate(name: str):
-    """Named region for profiler timelines."""
+    """A named range in the running profile's trace; ``NULL_SPAN`` when
+    no profile runs."""
+    if not _profiler_enabled():
+        return NULL_SPAN
     return torch.profiler.record_function(name)
